@@ -1,0 +1,167 @@
+"""Batched box-constrained damped-Newton voxel fit (PyTorch, gaussian model).
+
+The counterpart of ``fetal_t2mapping_tpu.models.solver``: every voxel is an
+independent 2-parameter minimization, and all voxels iterate together as
+(N, ...) tensors — analytic gradient + Hessian (``_gauss_fgh``), a
+projected (active-set) Newton step with Levenberg-Marquardt damping, a
+closed-form 2x2 solve and bounds by clipping. Converged voxels are frozen,
+so per-voxel results do not depend on the batch they run in.
+
+Here it carries the sampled convergence traces (``fit_batch_traced``) that
+``models.t2map.fit_stack`` draws; the full-volume fit goes through
+``models.fused_fit``. The 3-parameter models raise NotImplementedError
+(ROADMAP Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .signal import _gauss_fgh, gauss_objective, require_gaussian
+
+_LAM0 = 1e-3
+_LAM_UP = 5.0
+_LAM_DOWN = 0.2
+_LAM_MIN = 1e-12
+_LAM_MAX = 1e10
+_LAM_STALL = 1e6  # damping this high means no fp32-visible descent remains: stop
+_XTOL_REL = 1e-6  # accepted-step size (relative to |x|) that counts as converged
+
+
+class FitResult(NamedTuple):
+    x: torch.Tensor          # (N, P) final parameters (last iterate if unconverged)
+    fun: torch.Tensor        # (N,) final objective value
+    converged: torch.Tensor  # (N,) bool
+    n_iter: torch.Tensor     # (N,) int32 accepted-step count
+    # unconverged voxels denied a refit slot; always 0 on this package's
+    # single-pass paths, where every voxel gets the full budget
+    n_overflow: Optional[int] = None
+
+
+def _solve2(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Closed-form solve of (N, 2, 2) systems A x = b, b (N, 2)."""
+    a, c = A[:, 0, 0], A[:, 0, 1]
+    d, c10 = A[:, 1, 1], A[:, 1, 0]
+    det = a * d - c * c10
+    det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
+    x0 = (d * b[:, 0] - c * b[:, 1]) / det
+    x1 = (a * b[:, 1] - c10 * b[:, 0]) / det
+    return torch.stack([x0, x1], dim=-1)
+
+
+def _step(x, f, lam, conv, n_iter, te, signal, lo, hi, ftol, gtol):
+    """One damped projected-Newton update of every voxel (the JAX package's
+    ``_make_voxel_step``, batched). Returns the new state + step norms."""
+    _, g, H = _gauss_fgh(x, te, signal)
+
+    tol_b = 1e-8 * torch.clamp(hi - lo, min=1.0)
+    at_lo = x <= lo + tol_b
+    at_hi = x >= hi - tol_b
+    # KKT-active coordinates: pinned at a bound, gradient pointing outward
+    free = ~((at_lo & (g > 0)) | (at_hi & (g < 0)))
+    fm = free.to(x.dtype)
+
+    eye = torch.eye(2, dtype=x.dtype, device=x.device)
+    # reduced system: identity rows/cols for pinned coords
+    outer = fm[:, :, None] * fm[:, None, :]
+    Hr = H * outer + eye * (1.0 - fm)[:, None, :]
+    gr = g * fm
+
+    diag = torch.abs(torch.diagonal(Hr, dim1=-2, dim2=-1))
+    Hd = Hr + eye * (lam[:, None] * torch.clamp(diag, min=1e-12))[:, None, :]
+    p = -_solve2(Hd, gr) * fm
+    x_new = torch.minimum(torch.maximum(x + p, lo), hi)
+    f_new = gauss_objective(x_new, te, signal)
+
+    accept = f_new <= f  # non-strict; NaN-safe (NaN <= f is False)
+    # L-BFGS-B-style relative reduction test
+    rel_red = (f - f_new) / torch.clamp(torch.maximum(torch.abs(f), torch.abs(f_new)), min=1.0)
+    conv_f = accept & (rel_red <= ftol) & (lam <= 1.0)
+    # a vanishing attempted step — accepted or not — counts as converged
+    step_sq = torch.sum(torch.square(x_new - x), dim=-1)
+    conv_x = step_sq <= _XTOL_REL ** 2 * (1.0 + torch.sum(torch.square(x), dim=-1))
+    newly = conv_f | conv_x | (lam >= _LAM_STALL)
+    if gtol > 0:
+        zero = torch.zeros_like(g)
+        pg = torch.where(at_lo, torch.minimum(g, zero),
+                         torch.where(at_hi, torch.maximum(g, zero), g))
+        newly = newly | (torch.amax(torch.abs(pg), dim=-1) <= gtol)
+    newly = newly & ~conv
+
+    upd = accept & ~conv
+    x_out = torch.where(upd[:, None], x_new, x)
+    f_out = torch.where(upd, f_new, f)
+    lam_new = torch.where(accept, lam * _LAM_DOWN, lam * _LAM_UP)
+    lam_out = torch.where(conv, lam, torch.clamp(lam_new, _LAM_MIN, _LAM_MAX))
+    n_out = n_iter + upd.to(torch.int32)
+    step_norm = torch.where(upd, torch.linalg.vector_norm(x_new - x, dim=-1),
+                            torch.zeros_like(f))
+    return x_out, f_out, lam_out, conv | newly, n_out, step_norm
+
+
+def _prep(signal, te, x0, lo, hi):
+    signal = torch.as_tensor(signal, dtype=torch.float32)
+    dev = signal.device
+    te = torch.as_tensor(te, dtype=torch.float32, device=dev)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    n, p = x0.shape
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=dev).expand(n, p)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=dev).expand(n, p)
+    lam = torch.full((n,), _LAM0, dtype=torch.float32, device=dev)
+    conv = torch.zeros(n, dtype=torch.bool, device=dev)
+    nit = torch.zeros(n, dtype=torch.int32, device=dev)
+    return signal, te, x0, lo, hi, lam, conv, nit
+
+
+def fit_batch(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
+              ftol: float = 1e-9, gtol: float = 0.0) -> FitResult:
+    """Fit every voxel in the batch, on ``signal``'s device.
+
+    Args:
+        signal: (N, T) measured intensities (a tensor fixes the device).
+        te: (T,) echo times (ms).
+        x0: (N, 2) initial parameters (see init.loglinear_init).
+        lo, hi: (2,) or (N, 2) box constraints.
+        model: 'gaussian' (the 3-parameter models raise NotImplementedError).
+        max_iters: iteration cap (stops early once every voxel converged).
+        ftol/gtol: per-voxel stopping tolerances.
+    """
+    require_gaussian(model)
+    signal, te, x, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
+    f = gauss_objective(x, te, signal)
+    for _ in range(max_iters):
+        if bool(conv.all()):
+            break
+        x, f, lam, conv, nit, _ = _step(x, f, lam, conv, nit, te, signal,
+                                        lo, hi, ftol, gtol)
+    return FitResult(x=x, fun=f, converged=conv, n_iter=nit)
+
+
+def fit_batch_traced(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
+                     ftol: float = 1e-9, gtol: float = 0.0):
+    """Like fit_batch but records per-iteration convergence traces.
+
+    Intended for a small sampled voxel subset (the reference records
+    f_val/step_size per iteration via an L-BFGS-B callback). Runs exactly
+    ``max_iters`` iterations on ``signal``'s device.
+
+    Returns:
+        (FitResult, traces) where traces is a dict of (iters, N) tensors:
+        'f_val', 'step_size' and 'active' (bool; False once the voxel has
+        converged).
+    """
+    require_gaussian(model)
+    signal, te, x, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
+    f = gauss_objective(x, te, signal)
+    f_val, step_size, active = [], [], []
+    for _ in range(max_iters):
+        active.append(~conv)
+        x, f, lam, conv, nit, step_norm = _step(x, f, lam, conv, nit, te,
+                                                signal, lo, hi, ftol, gtol)
+        f_val.append(f)
+        step_size.append(step_norm)
+    traces = {"f_val": torch.stack(f_val), "step_size": torch.stack(step_size),
+              "active": torch.stack(active)}
+    return FitResult(x=x, fun=f, converged=conv, n_iter=nit), traces

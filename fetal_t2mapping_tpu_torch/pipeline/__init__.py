@@ -1,0 +1,3 @@
+from .t2map_pipeline import process_t2maps
+
+__all__ = ["process_t2maps"]

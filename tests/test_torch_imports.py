@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of
+``fetal_t2mapping_tpu_torch`` pulls in neither ``jax`` nor the JAX package,
+and asking for a GPU where there is none raises instead of moving to the
+CPU."""
+
+import json
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fetal_t2mapping_tpu_torch
+from fetal_t2mapping_tpu_torch.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import fetal_t2mapping_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names,
+                  "leaked": sorted(m for m in sys.modules
+                                   if m == "jax" or m.startswith("jax.")
+                                   or m.startswith("jaxlib")
+                                   or m.startswith("fetal_t2mapping_tpu.")
+                                   or m == "fetal_t2mapping_tpu")}))
+"""
+
+
+def test_importing_every_module_leaves_jax_out():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    expected = {m.name for m in pkgutil.walk_packages(
+        fetal_t2mapping_tpu_torch.__path__, "fetal_t2mapping_tpu_torch.")}
+    assert set(res["modules"]) == expected
+    assert "fetal_t2mapping_tpu_torch.models.fused_fit" in expected
+    assert res["leaked"] == []
+
+
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|fetal_t2mapping_tpu)(\.|\s|$)", re.M)
+
+
+def test_source_has_no_jax_import():
+    pkg_dir = os.path.dirname(fetal_t2mapping_tpu_torch.__file__)
+    n_files = 0
+    for root, _, files in os.walk(pkg_dir):
+        for f in files:
+            if f.endswith(".py"):
+                n_files += 1
+                with open(os.path.join(root, f)) as fh:
+                    assert not _JAX_IMPORT.search(fh.read()), f
+    assert n_files >= 20
+
+
+def test_resolve_device_refuses_a_missing_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_fit_fused_defaults_to_cuda(monkeypatch):
+    from fetal_t2mapping_tpu_torch.models.fused_fit import fit_fused
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        fit_fused([[900.0, 400.0, 200.0]], (114.0, 202.0, 299.0),
+                  (0.0, 10.0), (1e6, 2000.0))
