@@ -25,18 +25,16 @@
 // propagate NaN as jnp.clip does, and the library is built with
 // -fmad=false so no multiply-add is fused behind the reference's back.
 
-#include <cuda_runtime.h>
-
 #include <cstdint>
 #include <cstring>
 
+#include "fit_common.cuh"
+
 namespace {
 
-constexpr int kMaxTE = 8;
-constexpr int kGrid = 12;
-constexpr int kThreads = 128;
+using namespace ft2;
 
-// Field order is mirrored by fused_fit._kernel_params.
+// Field order is mirrored by fused_fit._GAUSS_FIELDS.
 struct GaussParams {
   float lo_k, hi_k, lo_t2, hi_t2;
   float tol_k;                 // 1e-8*max(hi_k-lo_k,1) (per voxel under no_prior)
@@ -50,18 +48,6 @@ struct GaussParams {
 constexpr int kParamFloats = 10 + kMaxTE + 2 * kGrid + kGrid * kMaxTE;
 static_assert(sizeof(GaussParams) == kParamFloats * sizeof(float),
               "GaussParams must be a packed float array");
-
-// jnp.maximum / jnp.minimum / jnp.clip: a NaN operand gives NaN
-// (fmaxf/fminf would drop it).
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return nmin(nmax(x, lo), hi);
-}
 
 template <int T>
 __device__ __forceinline__ float sse(const float (&s)[T], float k,
@@ -105,24 +91,9 @@ __device__ __forceinline__ void fit_voxel(const float (&s)[T],
   const float k_lo_thr = lo_k + tol_k, k_hi_thr = hi_k - tol_k;
 
   // weighted log-linear init (pallas_fit._loglin_tiles)
-  float sw = 0.f, st = 0.f, stt = 0.f, sy = 0.f, sty = 0.f;
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const float sv = nmax(s[t], 1e-6f);
-    const float y = logf(sv), w = sv * sv, te = p.te[t];
-    const float w_te = w * te;
-    sw = (t == 0) ? w : sw + w;
-    st = (t == 0) ? w_te : st + w_te;
-    stt = (t == 0) ? w_te * te : stt + w_te * te;
-    sy = (t == 0) ? w * y : sy + w * y;
-    sty = (t == 0) ? w_te * y : sty + w_te * y;
-  }
-  float det = sw * stt - st * st;
-  det = (fabsf(det) < 1e-30f) ? 1e-30f : det;
-  const float b = (sw * sty - st * sy) / det;
-  const float a = (sy - b * st) / sw;
-  float t2 = (b < -1e-12f) ? -1.0f / b : 2000.0f;
-  float k = clip(expf(clip(a, -30.0f, 30.0f)), lo_k, hi_k);
+  float k, t2;
+  loglin<T>(s, p.te, k, t2);
+  k = clip(k, lo_k, hi_k);
   t2 = clip(t2, lo_t2, hi_t2);
   float e[T];
   exps_at<T>(p, t2, e);

@@ -1,16 +1,17 @@
-"""Batched box-constrained damped-Newton voxel fit (PyTorch, gaussian model).
+"""Batched box-constrained damped-Newton voxel fit (PyTorch).
 
 The counterpart of ``fetal_t2mapping_tpu.models.solver``: every voxel is an
-independent 2-parameter minimization, and all voxels iterate together as
-(N, ...) tensors — analytic gradient + Hessian (``_gauss_fgh``), a
-projected (active-set) Newton step with Levenberg-Marquardt damping, a
-closed-form 2x2 solve and bounds by clipping. Converged voxels are frozen,
-so per-voxel results do not depend on the batch they run in.
+independent 2- or 3-parameter minimization, and all voxels iterate together
+as (N, ...) tensors — gradient + Hessian (hand-fused for gaussian, autodiff
+for the 3-parameter models), a projected (active-set) Newton step with
+Levenberg-Marquardt damping, a closed-form 2x2/3x3 solve and bounds by
+clipping. Converged voxels are frozen, so per-voxel results do not depend
+on the batch they run in.
 
-Here it carries the sampled convergence traces (``fit_batch_traced``) that
-``models.t2map.fit_stack`` draws; the full-volume fit goes through
-``models.fused_fit``. The 3-parameter models raise NotImplementedError
-(ROADMAP Queue 1 item 5).
+``models.t2map.fit_stack`` draws its sampled convergence traces from
+``fit_batch_traced`` and runs no-prior 3-parameter configurations through
+``fit_batch_multistart``; every other full-volume fit goes through
+``models.fused_fit``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .signal import _gauss_fgh, gauss_objective, require_gaussian
+from .signal import make_objective, make_value_grad_hess
 
 _LAM0 = 1e-3
 _LAM_UP = 5.0
@@ -40,21 +41,42 @@ class FitResult(NamedTuple):
     n_overflow: Optional[int] = None
 
 
-def _solve2(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Closed-form solve of (N, 2, 2) systems A x = b, b (N, 2)."""
-    a, c = A[:, 0, 0], A[:, 0, 1]
-    d, c10 = A[:, 1, 1], A[:, 1, 0]
-    det = a * d - c * c10
-    det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
-    x0 = (d * b[:, 0] - c * b[:, 1]) / det
-    x1 = (a * b[:, 1] - c10 * b[:, 0]) / det
-    return torch.stack([x0, x1], dim=-1)
+def _solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Closed-form solve of (N, P, P) systems A x = b, b (N, P), P in {2, 3}
+    (the reference's ``_solve_posdef_small``: Cramer via the adjugate)."""
+    def guard(det):
+        return torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
+
+    if A.shape[-1] == 2:
+        a, c = A[:, 0, 0], A[:, 0, 1]
+        d, c10 = A[:, 1, 1], A[:, 1, 0]
+        det = guard(a * d - c * c10)
+        x0 = (d * b[:, 0] - c * b[:, 1]) / det
+        x1 = (a * b[:, 1] - c10 * b[:, 0]) / det
+        return torch.stack([x0, x1], dim=-1)
+    (a00, a01, a02), (a10, a11, a12), (a20, a21, a22) = (
+        [A[:, i, j] for j in range(3)] for i in range(3))
+    c00 = a11 * a22 - a12 * a21
+    c01 = a12 * a20 - a10 * a22
+    c02 = a10 * a21 - a11 * a20
+    det = guard(a00 * c00 + a01 * c01 + a02 * c02)
+    c10 = a02 * a21 - a01 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a01 * a20 - a00 * a21
+    c20 = a01 * a12 - a02 * a11
+    c21 = a02 * a10 - a00 * a12
+    c22 = a00 * a11 - a01 * a10
+    b0, b1, b2 = b[:, 0], b[:, 1], b[:, 2]
+    x0 = (c00 * b0 + c10 * b1 + c20 * b2) / det
+    x1 = (c01 * b0 + c11 * b1 + c21 * b2) / det
+    x2 = (c02 * b0 + c12 * b1 + c22 * b2) / det
+    return torch.stack([x0, x1, x2], dim=-1)
 
 
-def _step(x, f, lam, conv, n_iter, te, signal, lo, hi, ftol, gtol):
+def _step(fgh, obj, x, f, lam, conv, n_iter, te, signal, lo, hi, ftol, gtol):
     """One damped projected-Newton update of every voxel (the JAX package's
     ``_make_voxel_step``, batched). Returns the new state + step norms."""
-    _, g, H = _gauss_fgh(x, te, signal)
+    _, g, H = fgh(x, te, signal)
 
     tol_b = 1e-8 * torch.clamp(hi - lo, min=1.0)
     at_lo = x <= lo + tol_b
@@ -63,7 +85,7 @@ def _step(x, f, lam, conv, n_iter, te, signal, lo, hi, ftol, gtol):
     free = ~((at_lo & (g > 0)) | (at_hi & (g < 0)))
     fm = free.to(x.dtype)
 
-    eye = torch.eye(2, dtype=x.dtype, device=x.device)
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
     # reduced system: identity rows/cols for pinned coords
     outer = fm[:, :, None] * fm[:, None, :]
     Hr = H * outer + eye * (1.0 - fm)[:, None, :]
@@ -71,9 +93,9 @@ def _step(x, f, lam, conv, n_iter, te, signal, lo, hi, ftol, gtol):
 
     diag = torch.abs(torch.diagonal(Hr, dim1=-2, dim2=-1))
     Hd = Hr + eye * (lam[:, None] * torch.clamp(diag, min=1e-12))[:, None, :]
-    p = -_solve2(Hd, gr) * fm
+    p = -_solve_small(Hd, gr) * fm
     x_new = torch.minimum(torch.maximum(x + p, lo), hi)
-    f_new = gauss_objective(x_new, te, signal)
+    f_new = obj(x_new, te, signal)
 
     accept = f_new <= f  # non-strict; NaN-safe (NaN <= f is False)
     # L-BFGS-B-style relative reduction test
@@ -122,21 +144,48 @@ def fit_batch(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
     Args:
         signal: (N, T) measured intensities (a tensor fixes the device).
         te: (T,) echo times (ms).
-        x0: (N, 2) initial parameters (see init.loglinear_init).
-        lo, hi: (2,) or (N, 2) box constraints.
-        model: 'gaussian' (the 3-parameter models raise NotImplementedError).
+        x0: (N, P) initial parameters (see init.loglinear_init).
+        lo, hi: (P,) or (N, P) box constraints.
+        model: 'gaussian' | 'gaussian_rician' | 'rician'.
         max_iters: iteration cap (stops early once every voxel converged).
         ftol/gtol: per-voxel stopping tolerances.
     """
-    require_gaussian(model)
+    obj, fgh = make_objective(model), make_value_grad_hess(model)
     signal, te, x, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
-    f = gauss_objective(x, te, signal)
+    f = obj(x, te, signal)
     for _ in range(max_iters):
         if bool(conv.all()):
             break
-        x, f, lam, conv, nit, _ = _step(x, f, lam, conv, nit, te, signal,
-                                        lo, hi, ftol, gtol)
+        x, f, lam, conv, nit, _ = _step(fgh, obj, x, f, lam, conv, nit, te,
+                                        signal, lo, hi, ftol, gtol)
     return FitResult(x=x, fun=f, converged=conv, n_iter=nit)
+
+
+def fit_batch_multistart(signal, te, x0s, lo, hi, *, model: str,
+                         max_iters: int = 60, ftol: float = 1e-9,
+                         gtol: float = 0.0) -> FitResult:
+    """fit_batch from S starting points per voxel; keep the best minimum.
+
+    The 3-parameter objectives are non-convex: a single start can converge
+    to a poorer local minimum. The starts are folded into the batch axis
+    (one solver run of S*N rows), then a per-voxel argmin over the final
+    objective values picks the result.
+
+    Args:
+        x0s: (S, N, P) starting points.
+    """
+    signal = torch.as_tensor(signal, dtype=torch.float32)
+    x0s = torch.as_tensor(x0s, dtype=torch.float32, device=signal.device)
+    s_starts, n, p = x0s.shape
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=signal.device).expand(n, p)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=signal.device).expand(n, p)
+    rep = lambda a: a.repeat((s_starts,) + (1,) * (a.dim() - 1))   # noqa: E731
+    res = fit_batch(rep(signal), te, x0s.reshape(s_starts * n, p), rep(lo), rep(hi),
+                    model=model, max_iters=max_iters, ftol=ftol, gtol=gtol)
+    best = torch.argmin(res.fun.reshape(s_starts, n), dim=0)
+    rows = best * n + torch.arange(n, device=signal.device)
+    return FitResult(x=res.x[rows], fun=res.fun[rows],
+                     converged=res.converged[rows], n_iter=res.n_iter[rows])
 
 
 def fit_batch_traced(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
@@ -152,14 +201,14 @@ def fit_batch_traced(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
         'f_val', 'step_size' and 'active' (bool; False once the voxel has
         converged).
     """
-    require_gaussian(model)
+    obj, fgh = make_objective(model), make_value_grad_hess(model)
     signal, te, x, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
-    f = gauss_objective(x, te, signal)
+    f = obj(x, te, signal)
     f_val, step_size, active = [], [], []
     for _ in range(max_iters):
         active.append(~conv)
-        x, f, lam, conv, nit, step_norm = _step(x, f, lam, conv, nit, te,
-                                                signal, lo, hi, ftol, gtol)
+        x, f, lam, conv, nit, step_norm = _step(fgh, obj, x, f, lam, conv, nit,
+                                                te, signal, lo, hi, ftol, gtol)
         f_val.append(f)
         step_size.append(step_norm)
     traces = {"f_val": torch.stack(f_val), "step_size": torch.stack(step_size),

@@ -2,9 +2,11 @@
 
 The counterpart of ``fetal_t2mapping_tpu.models.t2map``: masked gather ->
 one host->device upload -> fused fit (``fused_fit.fit_fused``: the CUDA
-kernel on a GPU, its plain version on the CPU) -> signed-mean residual on
-the device -> ONE packed (C, N) download -> scatter back to volume maps,
-plus the sampled per-iteration traces for the convergence figures.
+kernels on a GPU, their plain versions on the CPU) -> signed-mean residual
+on the device -> ONE packed (C, N) download -> scatter back to volume
+maps, plus the sampled per-iteration traces for the convergence figures.
+All three noise models run; no-prior 3-parameter configurations go
+through the batched multistart solver, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from ..core.volume import Volume
 from ..device import resolve_device
 from ..utils.profiling import profiler
 from .fused_fit import fit_fused
-from .init import loglinear_init
-from .signal import predict_signal, require_gaussian
-from .solver import fit_batch_traced
+from .init import grid_init, loglinear_init
+from .signal import check_model, predict_signal
+from .solver import fit_batch_multistart, fit_batch_traced
 
 
 @dataclasses.dataclass
@@ -95,9 +97,13 @@ def fit_stack(
 ) -> T2FitOutput:
     """Fit every masked voxel of the stack on ``device`` and assemble maps.
 
-    Only the gaussian model with the log-linear start is ported: the other
-    configurations raise NotImplementedError (ROADMAP Queue 1 item 5)."""
-    require_gaussian(cfg.model)
+    With prior bounds every model runs the fused fit. Without them, the
+    3-parameter models run the batched multistart solver from the
+    log-linear start, the T2 grid-scan basin and the protocol guess
+    (reference t2map.py:209-220); gaussian derives its per-voxel k bound
+    inside the fused fit. Only the log-linear start is ported:
+    ``loglinear_init=False`` raises NotImplementedError."""
+    check_model(cfg.model)
     if not cfg.loglinear_init:
         raise NotImplementedError(
             "fit_stack runs the fused fit, which starts from the log-linear "
@@ -115,10 +121,23 @@ def fit_stack(
     # residual below
     batch_dev = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(dev)
     te_dev = torch.from_numpy(te).to(dev)
-    lo_f, hi_f, np_flag = _fused_bounds(cfg)
-    result = fit_fused(batch_dev, te, lo_f, hi_f, model=cfg.model,
-                       max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol,
-                       no_prior=np_flag, sync=False, device=dev)
+    if cfg.n_params == 3 and not cfg.prior:
+        # non-convex 3-parameter objectives with per-voxel bounds: keep the
+        # best of three starts per voxel
+        lo, hi = (torch.from_numpy(b).to(dev) for b in _bounds_for(cfg, batch))
+        x0_cfg = torch.minimum(torch.maximum(torch.tensor(
+            cfg.initial_guess, dtype=torch.float32, device=dev).expand_as(lo), lo), hi)
+        x0s = torch.stack([loglinear_init(batch_dev, te_dev, lo, hi),
+                           grid_init(batch_dev, te_dev, lo, hi), x0_cfg])
+        result = fit_batch_multistart(batch_dev, te_dev, x0s, lo, hi, model=cfg.model,
+                                      max_iters=cfg.max_iters, ftol=cfg.ftol,
+                                      gtol=cfg.gtol)
+    else:
+        lo_f, hi_f, np_flag = _fused_bounds(cfg)
+        result = fit_fused(batch_dev, te, lo_f, hi_f, model=cfg.model,
+                           guess=cfg.initial_guess, max_iters=cfg.max_iters,
+                           ftol=cfg.ftol, gtol=cfg.gtol, no_prior=np_flag,
+                           sync=False, device=dev)
     # signed-mean residual over TEs (reference utils/t2map_utils.py:62-89
     # computes the mean, whatever its README says)
     res_dev = _residual_mean(cfg.model, result.x, te_dev, batch_dev)
@@ -127,9 +146,10 @@ def fit_stack(
                                result.n_iter, result.fun).cpu().numpy()
     fit_seconds = time.time() - t0
 
+    p = cfg.n_params
     k_v, t2_v = packed[0, :n], packed[1, :n]
-    sigma_v = np.zeros(n, np.float32)
-    res_v, conv_v, niter_v, fun_v = packed[2, :n], packed[3, :n], packed[4, :n], packed[5, :n]
+    sigma_v = packed[2, :n] if p == 3 else np.zeros(n, np.float32)
+    res_v, conv_v, niter_v, fun_v = (packed[p + i, :n] for i in range(4))
 
     # sampled per-iteration traces for convergence observability
     with profiler.stage("t2map.fit.traces"):

@@ -1,11 +1,12 @@
-"""The CUDA fit kernel against its plain PyTorch version, on the card.
+"""The CUDA fit kernels against their plain PyTorch versions, on the card.
 
 Runs only where ``torch.cuda.is_available()`` (marker ``cuda``): on the
 H100, ``python3 -m pytest --noconftest tests/test_torch_cuda_kernel.py``
 (the root conftest imports jax, which a GPU host need not have). The kernel is
 built with -fmad=false and follows the plain version op for op, and both
 use the card's IEEE division and accurate expf/logf, so they are expected
-to agree to the last bit; the bench.py:638-652 bands are the gate.
+to agree to the last bit; the bench.py:638-652 bands are the gate
+(3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01).
 """
 
 import numpy as np
@@ -67,3 +68,67 @@ def test_fit_fused_on_cuda_uses_the_kernel(card):
     assert r.x.device.type == "cuda" and r.x.shape == (5000, 2)
     assert r.converged.dtype == torch.bool and r.n_iter.dtype == torch.int32
     assert torch.isfinite(r.x).all()
+
+
+LO3, HI3, GUESS = (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0)
+
+
+def _assert_bands3(out_k, out_p, ident):
+    (xk, sk), (xp, sp) = out_k, out_p
+    xk, xp = xk.cpu().numpy(), xp.cpu().numpy()
+    assert (np.abs(xk - xp) / np.maximum(np.abs(xp), 1.0))[:2][:, ident].max() <= 1e-2
+    fk, fp = sk[0].cpu().numpy(), sp[0].cpu().numpy()
+    assert (np.abs(fk - fp) / np.maximum(np.abs(fp), 1.0))[ident].max() <= 3e-2
+    assert abs(sk[1].mean().item() - sp[1].mean().item()) <= 0.01
+
+
+@pytest.mark.parametrize("tes", [TES3, TES6])
+def test_gr_varpro_kernel_matches_plain_version(card, tes):
+    sig, ident = _make_data(1 << 16, tes)
+    s = torch.from_numpy(sig).to(card)
+    kw = dict(max_iters=60, ftol=1e-2, gtol=1e-2, full_budget=False, stall_iters=3,
+              stall_tol=1e-2)
+    before = fused_fit.GR_VARPRO_LAUNCHES
+    out_k = fused_fit._gr_varpro_fit_cuda(s, tes, LO3, HI3, GUESS, **kw)
+    torch.cuda.synchronize()
+    assert fused_fit.GR_VARPRO_LAUNCHES == before + 1
+    _assert_bands3(out_k, fused_fit._gr_varpro_fit_plain(s, tes, LO3, HI3, GUESS, **kw), ident)
+
+
+@pytest.mark.parametrize("model", ["gaussian_rician", "rician"])
+@pytest.mark.parametrize("tes", [TES3, TES6])
+def test_fit3_kernels_match_plain_versions(card, model, tes):
+    sig, ident = _make_data(1 << 16, tes)
+    s = torch.from_numpy(sig).to(card)
+    lo = LO3[:2] + (max(LO3[2], 1e-2),)
+    kw = dict(ftol=1e-2, gtol=1e-2, stall_tol=1e-2)
+    before = (fused_fit.FIT3_LAUNCHES, fused_fit.FIT3_CONT_LAUNCHES)
+    pre_k = fused_fit._fit3_cuda(s, model, tes, lo, HI3, GUESS, max_iters=4, **kw)
+    cont_k = fused_fit._fit3_cont_cuda(s, model, tes, lo, HI3, GUESS, *pre_k, max_iters=56, **kw)
+    torch.cuda.synchronize()
+    assert (fused_fit.FIT3_LAUNCHES, fused_fit.FIT3_CONT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _assert_bands3(pre_k, fused_fit._fit3_plain(s, model, tes, lo, HI3, GUESS, max_iters=4, **kw),
+                   ident)
+    _assert_bands3(cont_k, fused_fit._fit3_cont_plain(s, model, tes, lo, HI3, GUESS, *pre_k,
+                                                      max_iters=56, **kw), ident)
+
+
+def test_kernel_rsqrt_is_torch_rsqrt(card):
+    lib = fused_fit._load_lib("gr_varpro_fit")
+    x = torch.logspace(-6, 30, 1 << 20, device=card)
+    a, b = torch.empty_like(x), torch.empty_like(x)
+    assert lib.ft2_rsqrt_probe(x.data_ptr(), x.numel(), a.data_ptr(), b.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(a, torch.rsqrt(x))
+
+
+@pytest.mark.parametrize("model,counter", [("gaussian_rician", "GR_VARPRO_LAUNCHES"),
+                                           ("rician", "FIT3_CONT_LAUNCHES")])
+def test_fit_fused_3param_on_cuda_uses_the_kernels(card, model, counter):
+    sig, _ = _make_data(5000, TES3, seed=1)
+    before = getattr(fused_fit, counter)
+    r = fused_fit.fit_fused(sig, TES3, LO3, HI3, model=model, guess=GUESS, ftol=1e-2, gtol=1e-2)
+    assert getattr(fused_fit, counter) == before + 1
+    assert r.x.device.type == "cuda" and r.x.shape == (5000, 3)
+    assert torch.isfinite(r.x).all() and r.n_overflow == 0

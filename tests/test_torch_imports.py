@@ -42,7 +42,8 @@ def test_importing_every_module_leaves_jax_out():
     expected = {m.name for m in pkgutil.walk_packages(
         fetal_t2mapping_tpu_torch.__path__, "fetal_t2mapping_tpu_torch.")}
     assert set(res["modules"]) == expected
-    assert "fetal_t2mapping_tpu_torch.models.fused_fit" in expected
+    for name in ("fused_fit", "fgh", "signal", "init", "solver", "oracle", "t2map"):
+        assert f"fetal_t2mapping_tpu_torch.models.{name}" in expected
     assert res["leaked"] == []
 
 
@@ -80,3 +81,67 @@ def test_fit_fused_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         fit_fused([[900.0, 400.0, 200.0]], (114.0, 202.0, 299.0),
                   (0.0, 10.0), (1e6, 2000.0))
+
+
+@pytest.mark.parametrize("model,lo,hi", [
+    ("gaussian_rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3)),
+    ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3))])
+def test_three_parameter_fits_default_to_cuda(monkeypatch, model, lo, hi):
+    from fetal_t2mapping_tpu_torch.models.fused_fit import fit_fused
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        fit_fused([[900.0, 400.0, 200.0]], (114.0, 202.0, 299.0), lo, hi, model=model)
+
+
+_FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "{fail}" in args[-1]:
+    print("ptxas error: made to fail"); sys.exit(2)
+open(out, "w").write("built from " + args[-1])
+print("ptxas info    : Used 42 registers")
+"""
+
+
+def _fake_toolkit(tmp_path, monkeypatch, fail=""):
+    from fetal_t2mapping_tpu_torch.models import fused_fit
+
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, fail=fail or "no such source"))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(fused_fit, "_BUILD_DIR", str(tmp_path / "build"))
+    return fused_fit
+
+
+def test_build_compiles_every_source_once(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu into the build directory, each with its
+    compiler log; an up-to-date library is not rebuilt."""
+    ff = _fake_toolkit(tmp_path, monkeypatch)
+    csrc = os.path.join(os.path.dirname(fetal_t2mapping_tpu_torch.__file__), "csrc")
+    assert {os.path.basename(v) for v in ff.KERNEL_SOURCES.values()} == {
+        f for f in os.listdir(csrc) if f.endswith(".cu")}
+    libs = ff.build_kernel()
+    assert set(libs) == {"gauss_fit", "gr_varpro_fit", "fit3"}
+    for name, path in libs.items():
+        with open(path) as f:
+            assert f.read() == "built from " + ff.KERNEL_SOURCES[name]
+        assert "Used 42 registers" in ff.build_log(name)
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [f"lib{n}.so" for n in libs] + [f"{n}.log" for n in libs])
+    stamp = {n: os.path.getmtime(p) for n, p in libs.items()}
+    ff.build_kernel()
+    assert {n: os.path.getmtime(p) for n, p in libs.items()} == stamp
+
+
+def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
+    ff = _fake_toolkit(tmp_path, monkeypatch, fail="fit3.cu")
+    with pytest.raises(RuntimeError, match="made to fail"):
+        ff.build_kernel()
+    built = os.listdir(tmp_path / "build")
+    assert "libfit3.so" not in built and not any(f.endswith(".tmp") for f in built)
+    assert "libgr_varpro_fit.so" in built      # the other builds finished
