@@ -2,23 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA fit kernels from ``fetal_t2mapping_tpu_torch/csrc``
-(one nvcc per source, in parallel), holds each against its plain PyTorch
-version, gates the headline 256^3 fits — gaussian against scipy
-``curve_fit``, gaussian_rician and rician against the truth and the
-same-model L-BFGS-B oracle — and drives the main path of each noise
-model, the port's ``process_t2maps`` over a synthetic 240^3 BIDS session,
-on the card. Each phase prints one line with its wall time; any failed
-gate or error exits non-zero. The last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX. Exits non-zero before doing anything
-where ``torch.cuda.is_available()`` is False, and fails to import outside
-a checkout of the repository.
+Builds the port's CUDA kernels from ``fetal_t2mapping_tpu_torch/csrc``
+(one nvcc per source, in parallel) and holds each against its plain
+PyTorch version. Phases 2-7, the T2 fits: gates the headline 256^3 fits —
+gaussian against scipy ``curve_fit``, gaussian_rician and rician against
+the truth and the same-model L-BFGS-B oracle — and drives the main path of
+each noise model, the port's ``process_t2maps`` over a synthetic 240^3
+BIDS session. Phases 8-9, the SynthSeg U-Net: the S2D conv kernel against
+its plain version at the 160^3 level-0 shape and a ragged one, then the
+segmentation step ``run_segmentation`` with ``SynthSegRunner(mode="torch")``
+and ``FT2_UNET_S2D=kernel`` over a synthetic 160^3 recon, at the full
+SynthSeg width with random weights. Each phase prints one line with its
+wall time; any failed gate or error exits non-zero. The second-to-last
+lines are the kernels' JSON record and the card's name and power limit;
+the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Exits non-zero before doing anything where ``torch.cuda.is_available()``
+is False, and fails to import outside a checkout of the repository.
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import re
 import subprocess
@@ -30,10 +36,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from fetal_t2mapping_tpu_torch import build
 from fetal_t2mapping_tpu_torch import config as C
 from fetal_t2mapping_tpu_torch.core import EchoStack, Volume, nifti
+from fetal_t2mapping_tpu_torch.labels import SynthSegRunner, conv_s2d, unet3d
 from fetal_t2mapping_tpu_torch.models import fused_fit
 from fetal_t2mapping_tpu_torch.models.oracle import _objective, curve_fit_t2, fit_batch_scipy
+from fetal_t2mapping_tpu_torch.pipeline import run_segmentation
 from fetal_t2mapping_tpu_torch.pipeline.t2map_pipeline import process_t2maps
 from fetal_t2mapping_tpu_torch.utils.bids import get_img_path
 from fetal_t2mapping_tpu_torch.utils.metadata import set_metadata
@@ -55,6 +64,9 @@ VARPRO_KW = dict(max_iters=60, full_budget=False, stall_iters=3, stall_tol=1e-2,
 FIT3_KW = dict(stall_tol=1e-2, **TOL3)
 PREFIX3 = 4
 N_PARITY3, N_HEADLINE3, SIDE3 = 1 << 20, 256 ** 3, 240   # phases 5, 6, 7
+# H100 SXM published peaks (NVIDIA's data sheet, dense, 700 W): HBM
+# bytes/s, fp32 outside the tensor cores and dense bf16 tensor-core FLOP/s
+HBM_BPS, FP32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
 
 
 def gate(ok: bool, what: str) -> None:
@@ -88,12 +100,30 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    """(ms, 'bytes' or 'operations'): the least time the card could take for
+    work that moves ``n_bytes`` (each input read once, each output written
+    once) and does ``n_ops`` operations at ``peak_ops`` per second."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fit_bound(n, T, out_bytes, steps, starts=1, in_extra=0):
+    """Bound of a fit kernel on n voxels x T echoes (float32 signal in,
+    ``out_bytes`` per voxel out, ``in_extra`` more bytes in per voxel).
+    Operations: only the transcendentals this run's data needs, one
+    operation each at the fp32 rate — T logs of the init, T exps per start
+    and T per accepted Newton step (``steps`` summed over voxels) — so the
+    bound is a lower one."""
+    return bound(n * (T * 4 + in_extra + out_bytes), n * T * (1 + starts) + T * steps, FP32_OPS)
+
+
 def phase0_environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    nvcc = subprocess.run([fused_fit._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     mods = {}
     for name in ("triton", "pandas", "matplotlib"):
@@ -111,28 +141,34 @@ def phase0_environment():
 
 def phase1_build() -> float:
     """Build every kernel (one nvcc per source, all at once), print build
-    time and registers/spills per instance, and check that the VARPRO
-    kernel's reciprocal square root is torch.rsqrt's on this card."""
+    time, flags and registers/spills per instance, and check that the
+    VARPRO kernel's reciprocal square root is torch.rsqrt's on this card."""
     t0 = time.perf_counter()
-    libs = fused_fit.build_kernel()
+    libs = build.build_kernels()
     for name in libs:
-        fused_fit._load_lib(name)
+        build.load_lib(name)
     dt = time.perf_counter() - t0
     regs = {}
     for name in libs:
-        log = fused_fit.build_log(name)
+        log = build.build_log(name)
         for entry, body in re.findall(r"Compiling entry function '(\S+)'.*?\n(.*?Used \d+ registers[^\n]*)",
                                       log, re.S):
             inst = re.search(r"(Rician|GaussRician)?E?Li(\d)E", entry)
-            key = f"{name}{'/' + inst.group(1) if inst and inst.group(1) else ''}/T{inst.group(2)}" \
-                if inst else name
+            if name == "conv_s2d":
+                key = f"conv_s2d/{'bf16' if 'bfloat16' in entry else 'fp32'}"
+            elif inst:
+                key = f"{name}{'/' + inst.group(1) if inst.group(1) else ''}/T{inst.group(2)}"
+            else:
+                key = name
             spill = re.search(r"(\d+) bytes spill stores", body)
             regs[key] = (int(re.search(r"Used (\d+) registers", body).group(1)),
                          int(spill.group(1)) if spill else 0)
-    print(f"phase 1 build: {sorted(libs)} -> sm_90a ({' '.join(fused_fit.NVCC_FLAGS)}) "
-          f"in {dt:.2f} s; registers/spill bytes at T=3 and 8: "
-          f"{ {k: v for k, v in sorted(regs.items()) if k.endswith(('T3', 'T8'))} }", flush=True)
-    lib = fused_fit._load_lib("gr_varpro_fit")
+    flags = {name: " ".join(build.SOURCE_FLAGS[name]) or "-" for name in libs}
+    print(f"phase 1 build: {sorted(libs)} -> sm_90a ({' '.join(build.COMMON_FLAGS)}; per source "
+          f"{flags}) in {dt:.2f} s; registers/spill bytes at T=3 and 8 and of the conv: "
+          f"{ {k: v for k, v in sorted(regs.items()) if k.endswith(('T3', 'T8', 'bf16', 'fp32'))} }",
+          flush=True)
+    lib = build.load_lib("gr_varpro_fit")
     x = torch.cat([torch.rand(1 << 22, device="cuda") * 1e4 + 1e-6,
                    torch.logspace(-6, 30, 1 << 20, device="cuda")])
     a, b = torch.empty_like(x), torch.empty_like(x)
@@ -208,6 +244,9 @@ def phase3_headline():
          f"converged {conv:.4f} (< 0.98) or unconverged-identifiable {unconv_ident:.2e} (> 1e-4)")
     text, diff = compare(s, TES3, ident)
 
+    nit = fused_fit._gauss_fit(s, TES3, LO, HI, no_prior=False, **FIT_KW)[4]
+    # out: k, t2, f (float32), converged (uint8), n_iter (int32) = 17 bytes
+    g_bound = fit_bound(n, 3, out_bytes=17, steps=nit.double().sum().item())
     kernel_ms = cuda_ms(lambda: fused_fit._gauss_fit(s, TES3, LO, HI, no_prior=False, **FIT_KW), 3)
     full_ms = cuda_ms(lambda: fused_fit._gauss_fit(
         s, TES3, LO, HI, no_prior=False, **dict(FIT_KW, full_budget=True)), 3)
@@ -217,8 +256,9 @@ def phase3_headline():
           f"{full_ms:.3f} ms, plain {plain_ms:.1f} ms; max rel T2 err vs "
           f"curve_fit {max_rel:.3e} ({int(interior.sum())} voxels), converged "
           f"{conv:.5f}, unconverged-identifiable {unconv_ident:.2e}, mean "
-          f"accepted steps {mean_iter:.3f}; kernel vs plain{text}", flush=True)
-    return kernel_ms, plain_ms, diff
+          f"accepted steps {mean_iter:.3f}; bound {g_bound[0]:.4f} ms ({g_bound[1]}); "
+          f"kernel vs plain{text}", flush=True)
+    return kernel_ms, plain_ms, diff, g_bound
 
 
 def _write_session(root: str, n_side: int, seed: int):
@@ -404,7 +444,7 @@ def phase6_headline3():
     idx = np.random.default_rng(1).choice(np.flatnonzero(ident), 256, replace=False)
     idv = torch.from_numpy(ident).cuda()
     t2_dev = torch.from_numpy(t2_true).cuda()
-    times, worst = {}, {}
+    times, worst, bounds = {}, {}, {}
     for model, lo in (("gaussian_rician", LO3), ("rician", LO3_RICIAN)):
         t0 = time.perf_counter()
         res = fused_fit.fit_fused(s, TES3, LO3, HI3, model=model, guess=GUESS3, max_iters=60,
@@ -437,18 +477,26 @@ def phase6_headline3():
                 lambda: fused_fit._fit3_cont_plain(s, model, TES3, lo, HI3, GUESS3, *pre, **cont))}
         text = ""
         for name, (kern, plain) in runs.items():
-            r_t, b, d = bands3(kern(), plain(), ident, f"{name} 256^3")
+            out_k = kern()
+            r_t, b, d = bands3(out_k, plain(), ident, f"{name} 256^3")
             text += r_t
             worst[name] = (b, d)
             times[name] = (cuda_ms(kern, 3), cuda_ms(plain, 1))
-            text += f" {name} kernel {times[name][0]:.3f} ms, plain {times[name][1]:.1f} ms;"
+            # out: (x, stats) = 2 x 3 float32; the continuation also reads
+            # its start (x0, st0); stats row 2 is the accepted steps
+            bounds[name] = fit_bound(
+                N_HEADLINE3, 3, out_bytes=24, in_extra=24 if name == "fit3_cont" else 0,
+                steps=torch.nan_to_num(out_k[1][2]).double().sum().item(),
+                starts=3 if name == "fit3" else 1)
+            text += (f" {name} kernel {times[name][0]:.3f} ms, plain {times[name][1]:.1f} ms, "
+                     f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]});")
         print(f"phase 6 headline 256^3 x 3 TEs {model} ({time.perf_counter() - t0:.1f} s): median "
               f"rel T2 err vs truth {med_rel:.3e}, L-BFGS-B objective gap max {gap.max():.3e} "
               f"median {np.median(gap):.3e} (256 identifiable voxels), converged {conv:.5f}, "
               f"unconverged-identifiable {unconv_ident:.2e}, mean accepted steps "
               f"{res.n_iter.float().mean().item():.3f}, n_overflow {res.n_overflow};{text}",
               flush=True)
-    return times, worst
+    return times, worst, bounds
 
 
 def _write_session3(root, n_side, seed, tes, k_range, t2_range):
@@ -544,6 +592,202 @@ def phase7_sessions3(make_plots: bool):
     return launches
 
 
+# ------------------------------------------------ the SynthSeg U-Net
+# the 160^3 level-0 shape (Q = 80, C = C' = 8 x 24) and a ragged one that
+# fills no tile evenly
+CONV_SHAPES = (((80, 80, 80), 192, 192), ((17, 23, 29), 24, 40))
+
+
+def full_fp32():
+    """fp32 on the card in full fp32 from here on: cuBLAS matmuls and cuDNN
+    convs without TF32 (every fp32 comparison of phases 8-9 needs it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 steps between two bf16 tensors (+0 == -0)."""
+    def order(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (order(a) - order(b)).abs()
+
+
+def conv_inputs(q, c, c_out, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(tuple(v + 1 for v in q) + (c,), device="cuda", generator=g)
+    w = torch.randn(8 * c, c_out, device="cuda", generator=g) / math.sqrt(8 * c)
+    b = 0.1 * torch.randn(c_out, device="cuda", generator=g)
+    r = torch.randn(tuple(q) + (c_out,), device="cuda", generator=g)
+    return x, w, b, r
+
+
+def phase8_conv():
+    """conv_s2d.cu against its plain version in bf16 and fp32 (TF32 off),
+    with and without the residual, at the 160^3 level-0 shape and a ragged
+    one. Gates: fp32 max |d| <= 1e-5 of the output's largest magnitude;
+    bf16 within one ulp of the element on >= 99.9% of elements and within
+    two ulps of the output's largest magnitude everywhere (an output near 0
+    can differ by many of its own ulps through the order of the fp32 sums
+    alone). Then the bf16 times at 160^3: kernel, plain version, and one
+    cuDNN F.conv3d of the same conv (no epilogue) as the library yardstick.
+    Returns (largest |d|, times, bound)."""
+    full_fp32()
+    worst, text = 0.0, ""
+    for q, c, c_out in CONV_SHAPES:
+        x, w, b, r = conv_inputs(q, c, c_out, seed=1)
+        for dt in (torch.bfloat16, torch.float32):
+            for res in (None, r):
+                k = conv_s2d.conv_s2d(x, w, b, res, compute_dtype=dt)
+                torch.cuda.synchronize()
+                p = conv_s2d._conv_s2d_plain(x, w, b, res, compute_dtype=dt)
+                diff = (k.float() - p.float()).abs().max().item()
+                scale = p.float().abs().max().item()
+                what = (f"{'x'.join(map(str, q))} C {c}->{c_out} {str(dt)[6:]}"
+                        f"{' +res' if res is not None else ''}")
+                if dt == torch.float32:
+                    gate(diff <= 1e-5 * scale, f"conv_s2d {what}: |d| {diff:.3e} > 1e-5 of {scale:.3e}")
+                    text += f" {what}: rel {diff / scale:.2e};"
+                else:
+                    u = bf16_ulps(k, p)
+                    one = (u <= 1).float().mean().item()
+                    scale_ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+                    gate(one >= 0.999 and diff <= 2 * scale_ulp,
+                         f"conv_s2d {what}: within 1 ulp {one:.6f} (< 0.999) or |d| {diff:.3e} "
+                         f"> 2 ulps of the scale ({2 * scale_ulp:.3e})")
+                    text += (f" {what}: <=1 ulp {one:.6f} (max {int(u.max())} of the element's own),"
+                             f" |d| {diff / scale_ulp:.2f} scale-ulps;")
+                worst = max(worst, diff)
+        del x, w, b, r
+    q, c, c_out = CONV_SHAPES[0]
+    x, w, b, r = (t.bfloat16() if t.dim() > 1 else t for t in conv_inputs(q, c, c_out, seed=2))
+    xc = x[None].permute(0, 4, 1, 2, 3)
+    wc = w.reshape(2, 2, 2, c, c_out).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    times = {
+        "kernel": cuda_ms(lambda: conv_s2d.conv_s2d(x, w, b), 20),
+        "kernel_res": cuda_ms(lambda: conv_s2d.conv_s2d(x, w, b, r), 20),
+        "plain": cuda_ms(lambda: conv_s2d._conv_s2d_plain(x, w, b), 5),
+        "library": cuda_ms(lambda: torch.nn.functional.conv3d(xc, wc), 20),
+    }
+    m = q[0] * q[1] * q[2]
+    n_bytes = (x.numel() + w.numel() + m * c_out) * 2 + b.numel() * 4
+    b_conv = bound(n_bytes, 2.0 * m * 8 * c * c_out, BF16_OPS)
+    b_res = bound(n_bytes + m * c_out * 2, 2.0 * m * 8 * c * c_out, BF16_OPS)
+    print(f"phase 8 conv_s2d kernel vs plain:{text} 160^3 level 0 bf16 (M {m}, K {8 * c}, "
+          f"N {c_out}): kernel {times['kernel']:.3f} ms (+residual {times['kernel_res']:.3f}), "
+          f"plain {times['plain']:.3f} ms, cuDNN F.conv3d {times['library']:.3f} ms, bound "
+          f"{b_conv[0]:.4f} ms ({b_conv[1]}; +residual {b_res[0]:.4f}), "
+          f"{2.0 * m * 8 * c * c_out / times['kernel'] / 1e9:.1f} TFLOP/s", flush=True)
+    return worst, times, b_conv
+
+
+def brain_volume(n: int, seed: int) -> np.ndarray:
+    """A synthetic 1 mm T2-weighted head of n^3 voxels: an ellipsoidal brain
+    (white matter, a cortical grey-matter shell, two bright ventricles) in
+    bright CSF, a dark background, a smooth bias field and noise everywhere."""
+    rng = np.random.default_rng(seed)
+    ax = (np.arange(n, dtype=np.float32) - (n - 1) / 2) / (n / 2)
+    zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
+    r = np.sqrt((zz / 0.7) ** 2 + (yy / 0.85) ** 2 + (xx / 0.75) ** 2)
+    vol = np.full((n,) * 3, 30.0, np.float32)
+    vol[r < 1.0] = 900.0                                  # CSF
+    vol[r < 0.9] = 550.0                                  # cortical grey matter
+    vol[r < 0.78] = 380.0                                 # white matter
+    for side in (-1, 1):                                  # lateral ventricles
+        rv = np.sqrt((zz / 0.15) ** 2 + (yy / 0.4) ** 2 + ((xx - side * 0.18) / 0.08) ** 2)
+        vol[rv < 1.0] = 1000.0
+    vol *= 1.0 + 0.1 * np.sin(2.0 * zz + 1.0) * np.cos(1.5 * yy)
+    vol += rng.normal(0.0, 25.0, vol.shape).astype(np.float32)
+    return np.abs(vol).astype(np.float32)
+
+
+def phase9_segmentation():
+    """The segmentation step on the card as a user runs it: a 160^3 recon
+    in a BIDS tree, random SynthSeg-layout weights (batch_norm, seed 0) in
+    an .npz named by FT2_SYNTHSEG_WEIGHTS, FT2_UNET_S2D=kernel, and
+    run_segmentation with SynthSegRunner(mode="torch"), conv_s2d's count
+    set to 0 just before. Gates: 3 launches, the label map's shape and
+    values, agreement with the fp32 dense program (TF32 off) >= 0.97 and,
+    for the fp32 kernel program, >= 0.999. Then the forward times."""
+    full_fp32()
+    n = 160
+    cfg = unet3d.UNetConfig(batch_norm=True)
+    params = unet3d.random_params(cfg, seed=0)
+    vol = brain_volume(n, seed=21)
+    acq = {"prj": "prj-smoke", "sub": "sub-01", "ses": "ses-01", "run": "run-114",
+           "EchoTime": 0.114, "CoilString": "Body"}
+    env = {}
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_seg_") as root:
+        bids = os.path.join(root, "projects/")
+        nifti.write(get_img_path(bids, acq, C.RECON_DIRNAME), Volume(vol))
+        env["FT2_SYNTHSEG_WEIGHTS"] = os.path.join(root, "synthseg_random.npz")
+        np.savez(env["FT2_SYNTHSEG_WEIGHTS"], **params)
+        env["FT2_UNET_S2D"] = "kernel"
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            profiler.reset()
+            torch.cuda.reset_peak_memory_stats()
+            conv_s2d.CONV_S2D_LAUNCHES = 0
+            t0 = time.perf_counter()
+            with profiler.stage("recon.synthseg"):
+                run_segmentation([acq], bids, SynthSegRunner(mode="torch"))
+            stage_s = time.perf_counter() - t0
+            launches = conv_s2d.CONV_S2D_LAUNCHES
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = nifti.list_volumes(os.path.join(bids, acq["prj"], "derivatives",
+                                              C.SYNTHSEG_DIRNAME, acq["sub"], acq["ses"], "anat"))
+        gate(len(out) == 1 and out[0].endswith("_te-114_recon_1mm_synthseg.nii.gz"),
+             f"segmentation outputs {out}")
+        labels = np.asarray(nifti.read(out[0]).data)
+    gate(launches == 3, f"the segmentation step launched conv_s2d {launches} times, not 3")
+    gate(labels.shape == vol.shape and labels.dtype == np.int16,
+         f"label map {labels.shape} {labels.dtype}")
+    gate(set(np.unique(labels).tolist()) <= set(unet3d.SYNTHSEG_LABELS), "labels outside SYNTHSEG_LABELS")
+    dense32 = unet3d.segment_volume(params, vol, use_s2d=False, compute_dtype=torch.float32)
+    kernel32 = unet3d.segment_volume(params, vol, use_s2d="kernel", compute_dtype=torch.float32)
+    dense16 = unet3d.segment_volume(params, vol, use_s2d=False)
+    agree16 = float((labels == dense32).mean())
+    agree32 = float((kernel32 == dense32).mean())
+    gate(agree16 >= 0.97, f"bf16 kernel labels agree with fp32 dense on {agree16:.5f} < 0.97")
+    gate(agree32 >= 0.999, f"fp32 kernel labels agree with fp32 dense on {agree32:.5f} < 0.999")
+
+    # forward times (CUDA events) on the normalized, padded volume
+    norm = np.clip(vol / np.percentile(vol[vol > 0], 99.5), 0.0, 1.0).astype(np.float32)
+    x = torch.from_numpy(norm)[None, ..., None].cuda()
+    dev = x.device
+    fwd = {}
+    with torch.inference_mode():
+        for name, dt, s2d in (("kernel bf16", torch.bfloat16, "kernel"),
+                              ("S2D F.conv3d bf16", torch.bfloat16, "torch"),
+                              ("dense bf16", torch.bfloat16, None),
+                              ("dense fp32", torch.float32, None)):
+            tp, ts = unet3d._params_cached(params, cfg, dev, dt, s2d is not None)
+
+            def forward():
+                if s2d:
+                    return unet3d.unet_apply_s2d(tp, ts, x, cfg, dt, conv_impl=s2d)
+                return torch.argmax(unet3d.unet_apply(tp, x, cfg, dt), dim=-1)
+            fwd[name] = cuda_ms(forward, 5)
+    kinds = {int(v): int(c) for v, c in zip(*np.unique(labels, return_counts=True))}
+    print(f"phase 9 segmentation (run_segmentation, SynthSegRunner(mode='torch'), "
+          f"FT2_UNET_S2D=kernel, {n}^3, SynthSeg 1.0 topology + BN, random weights): stage "
+          f"{stage_s:.3f} s ({profiler.as_dict()['recon.synthseg']['seconds']:.3f} s in "
+          f"recon.synthseg), peak device memory {peak_gib:.2f} GiB, conv_s2d launches {launches}, "
+          f"label agreement vs fp32 dense: bf16 kernel {agree16:.5f}, fp32 kernel {agree32:.5f}, "
+          f"bf16 dense {float((dense16 == dense32).mean()):.5f}; {len(kinds)} labels present; "
+          f"forward ms {{{', '.join(f'{k}: {v:.3f}' for k, v in fwd.items())}}}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -561,18 +805,21 @@ def main() -> int:
     smi, has_mpl = timed("phase 0", phase0_environment)
     timed("phase 1", phase1_build)
     diff2 = timed("phase 2", phase2_parity)
-    kernel_ms, plain_ms, diff3 = timed("phase 3", phase3_headline)
+    kernel_ms, plain_ms, diff3, g_bound = timed("phase 3", phase3_headline)
     launches, diff4 = timed("phase 4", phase4_main_path, has_mpl)
     worst5 = timed("phase 5", phase5_parity3)
-    times6, worst6 = timed("phase 6", phase6_headline3)
+    times6, worst6, bounds6 = timed("phase 6", phase6_headline3)
     launches3 = timed("phase 7", phase7_sessions3, has_mpl)
+    conv_err, conv_times, conv_bound = timed("phase 8", phase8_conv)
+    seg_launches = timed("phase 9", phase9_segmentation)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "gauss_fit", "route": "cuda",
         "source": "fetal_t2mapping_tpu_torch/csrc/gauss_fit.cu",
         "replaces": "fetal_t2mapping_tpu/models/pallas_fit.py:103",
         "launches": launches, "max_abs_err": max(diff2, diff3, diff4),
-        "ms": kernel_ms, "plain_ms": plain_ms}]
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": g_bound[0], "bound_by": g_bound[1],
+        "library_ms": None}]
     for name, source, replaces, session, counter in (
             ("gr_varpro", "gr_varpro_fit.cu", 537, "gaussian_rician", "GR_VARPRO_LAUNCHES"),
             ("fit3", "fit3.cu", 848, "rician", "FIT3_LAUNCHES"),
@@ -583,7 +830,16 @@ def main() -> int:
             "replaces": f"fetal_t2mapping_tpu/models/pallas_fit.py:{replaces}",
             "launches": launches3[session][counter],
             "max_abs_err": max(worst5[name][1], worst6[name][1]),
-            "ms": times6[name][0], "plain_ms": times6[name][1]})
+            "ms": times6[name][0], "plain_ms": times6[name][1],
+            "bound_ms": bounds6[name][0], "bound_by": bounds6[name][1], "library_ms": None})
+    kernels.append({
+        "name": "conv_s2d", "route": "cuda",
+        "source": "fetal_t2mapping_tpu_torch/csrc/conv_s2d.cu",
+        "replaces": "fetal_t2mapping_tpu/labels/pallas_conv.py:94",
+        "launches": seg_launches, "max_abs_err": conv_err,
+        "ms": conv_times["kernel"], "plain_ms": conv_times["plain"],
+        "bound_ms": conv_bound[0], "bound_by": conv_bound[1],
+        "library_ms": conv_times["library"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -160,6 +160,18 @@ def exists(path) -> bool:
     return os.path.exists(path)
 
 
+def list_volumes(directory, suffix: str = ".nii.gz") -> list:
+    """Sorted absolute paths of the ``suffix`` files in ``directory`` ([]
+    for a missing directory). Writes are synchronous in this package, so
+    there are no queued writes to merge as the JAX package does."""
+    directory = os.path.abspath(str(directory))
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    return sorted(os.path.join(directory, f) for f in names if f.endswith(suffix))
+
+
 def parse(raw: bytes, name: str = "<bytes>") -> Volume:
     """Decode an in-memory NIfTI-1 byte string into a Volume.
 

@@ -26,17 +26,14 @@ grouped.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import glob
 import math
 import os
-import subprocess
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from .. import build
 from ..device import resolve_device
 from .fgh import FGH, VALUE_E, cdiv, rdiv
 from .solver import FitResult
@@ -68,17 +65,6 @@ KERNEL_LAUNCHES = 0          # gauss_fit
 GR_VARPRO_LAUNCHES = 0       # gr_varpro_fit
 FIT3_LAUNCHES = 0            # fit3 multistart
 FIT3_CONT_LAUNCHES = 0       # fit3 continuation
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG_DIR, "csrc")
-KERNEL_SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
-                  for name in ("gauss_fit", "gr_varpro_fit", "fit3")}
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              # no FMA contraction: the kernels then round op by op like the
-              # plain versions and the reference (see the note in each source)
-              "-fmad=false")
 
 
 def validate_fused_args(model, te, lo, hi, guess, no_prior):
@@ -890,102 +876,10 @@ def _fit3_cont_plain(signal: torch.Tensor, model: str, te, lo, hi, guess,
 
 
 # ------------------------------------------------------------- CUDA kernels
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def lib_path(name: str) -> str:
-    return os.path.join(_BUILD_DIR, f"lib{name}.so")
-
-
-def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``: registers, spills) of the
-    last build of kernel ``name``."""
-    with open(os.path.join(_BUILD_DIR, f"{name}.log")) as f:
-        return f.read()
-
-
-def _stale(name: str) -> bool:
-    lib = lib_path(name)
-    if not os.path.exists(lib):
-        return True
-    deps = [KERNEL_SOURCES[name]] + glob.glob(os.path.join(_CSRC, "*.cuh"))
-    return any(os.path.getmtime(d) > os.path.getmtime(lib) for d in deps)
-
-
-def build_kernel() -> Dict[str, str]:
-    """Compile every stale ``csrc/*.cu`` with nvcc for sm_90a into
-    ``_build/`` — one nvcc per source, all started together — and return
-    {kernel name: library path}. A source is stale when its library is
-    missing or older than it or any ``csrc/*.cuh``. A failed build raises;
-    nothing falls back to a plain version."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in KERNEL_SOURCES:
-        if _stale(name):
-            # build under a private name and rename: concurrent builders
-            # never load a half-written library
-            tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCES[name]]
-            procs[name] = (tmp, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, cmd, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
-            continue
-        with open(f"{tmp}.log", "w") as f:
-            f.write(out)
-        os.replace(f"{tmp}.log", os.path.join(_BUILD_DIR, f"{name}.log"))
-        os.replace(tmp, lib_path(name))
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: lib_path(name) for name in KERNEL_SOURCES}
-
-
-_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "gauss_fit": {
-        "ft2_gauss_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _I32,
-                          _VP, _VP, _VP, _VP, _VP, _VP],
-        "ft2_gauss_params_floats": []},
-    "gr_varpro_fit": {
-        "ft2_gr_varpro_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _VP, _VP, _VP],
-        "ft2_gr_params_floats": [],
-        "ft2_rsqrt_probe": [_VP, _I64, _VP, _VP, _VP]},
-    "fit3": {
-        "ft2_fit3_multistart": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP],
-        "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _VP],
-        "ft2_fit3_params_floats": []},
-}
-
-
-@functools.lru_cache(maxsize=None)
-def _load_lib(name: str):
-    lib = ctypes.CDLL(build_kernel()[name])
-    for fn, argtypes in _SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I32
-    return lib
-
-
-def _check_launch(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
 def _check_params(params: np.ndarray, n_floats: int, what: str) -> None:
     if params.size != n_floats:
         raise RuntimeError(f"{what} parameter layout differs between "
                            "fused_fit.py and its CUDA source")
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
@@ -994,7 +888,7 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
     """Launch the gaussian fit kernel on ``signal``'s device and stream;
     same outputs as ``_gauss_fit_plain``."""
     global KERNEL_LAUNCHES
-    lib = _load_lib("gauss_fit")
+    lib = build.load_lib("gauss_fit")
     n, T = signal.shape
     params = _kernel_params(te, lo, hi, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_gauss_params_floats(), "GaussParams")
@@ -1007,8 +901,8 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
             signal.data_ptr(), n, T, params.ctypes.data, int(max_iters),
             int(stall_iters), int(no_prior), int(full_budget),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            conv.data_ptr(), nit.data_ptr(), _stream(dev))
-    _check_launch(err, "gauss_fit")
+            conv.data_ptr(), nit.data_ptr(), build.stream(dev))
+    build.check_launch(err, "gauss_fit")
     KERNEL_LAUNCHES += 1
     return out[0], out[1], out[2], conv.view(torch.bool), nit
 
@@ -1018,7 +912,7 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
                         full_budget: bool, stall_iters: int, stall_tol: float):
     """Launch csrc/gr_varpro_fit.cu; same outputs as the plain version."""
     global GR_VARPRO_LAUNCHES
-    lib = _load_lib("gr_varpro_fit")
+    lib = build.load_lib("gr_varpro_fit")
     n, T = signal.shape
     params = _gr_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_gr_params_floats(), "GrParams")
@@ -1028,8 +922,8 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
         err = lib.ft2_gr_varpro_fit(
             signal.data_ptr(), n, T, params.ctypes.data, int(max_iters),
             int(stall_iters), int(full_budget), out[0].data_ptr(),
-            out[1].data_ptr(), _stream(dev))
-    _check_launch(err, "gr_varpro_fit")
+            out[1].data_ptr(), build.stream(dev))
+    build.check_launch(err, "gr_varpro_fit")
     GR_VARPRO_LAUNCHES += 1
     return out[0], out[1]
 
@@ -1038,7 +932,7 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
                max_iters: int, ftol: float, gtol: float, stall_tol: float):
     """Launch ft2_fit3_multistart (csrc/fit3.cu)."""
     global FIT3_LAUNCHES
-    lib = _load_lib("fit3")
+    lib = build.load_lib("fit3")
     n, T = signal.shape
     params = _fit3_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
@@ -1047,8 +941,8 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
     with torch.cuda.device(dev):
         err = lib.ft2_fit3_multistart(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
-            int(max_iters), out[0].data_ptr(), out[1].data_ptr(), _stream(dev))
-    _check_launch(err, "fit3")
+            int(max_iters), out[0].data_ptr(), out[1].data_ptr(), build.stream(dev))
+    build.check_launch(err, "fit3")
     FIT3_LAUNCHES += 1
     return out[0], out[1]
 
@@ -1058,7 +952,7 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
                     ftol: float, gtol: float, stall_tol: float):
     """Launch ft2_fit3_cont (csrc/fit3.cu)."""
     global FIT3_CONT_LAUNCHES
-    lib = _load_lib("fit3")
+    lib = build.load_lib("fit3")
     n, T = signal.shape
     for name, t in (("x0", x0), ("st0", st0)):
         if t.shape != (3, n) or t.dtype != torch.float32 or t.device != signal.device:
@@ -1072,8 +966,8 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
         err = lib.ft2_fit3_cont(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
             int(max_iters), x0.data_ptr(), st0.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), _stream(dev))
-    _check_launch(err, "fit3_cont")
+            out[1].data_ptr(), build.stream(dev))
+    build.check_launch(err, "fit3_cont")
     FIT3_CONT_LAUNCHES += 1
     return out[0], out[1]
 

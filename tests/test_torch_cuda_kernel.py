@@ -1,18 +1,22 @@
-"""The CUDA fit kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Runs only where ``torch.cuda.is_available()`` (marker ``cuda``): on the
 H100, ``python3 -m pytest --noconftest tests/test_torch_cuda_kernel.py``
-(the root conftest imports jax, which a GPU host need not have). The kernel is
-built with -fmad=false and follows the plain version op for op, and both
-use the card's IEEE division and accurate expf/logf, so they are expected
-to agree to the last bit; the bench.py:638-652 bands are the gate
-(3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01).
+(the root conftest imports jax, which a GPU host need not have). The fit
+kernels are built with -fmad=false and follow the plain version op for op,
+and both use the card's IEEE division and accurate expf/logf, so they are
+expected to agree to the last bit; the bench.py:638-652 bands are the gate
+(3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01). The
+S2D conv kernel sums in another order than its plain version: fp32 within
+1e-5 of scale (TF32 off), bf16 within one ulp of the element on >= 99.9% of
+elements and within two ulps of the output's largest magnitude everywhere.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from fetal_t2mapping_tpu_torch import build
 from fetal_t2mapping_tpu_torch.models import fused_fit
 
 TES3 = (114.0, 202.0, 299.0)
@@ -114,7 +118,7 @@ def test_fit3_kernels_match_plain_versions(card, model, tes):
 
 
 def test_kernel_rsqrt_is_torch_rsqrt(card):
-    lib = fused_fit._load_lib("gr_varpro_fit")
+    lib = build.load_lib("gr_varpro_fit")
     x = torch.logspace(-6, 30, 1 << 20, device=card)
     a, b = torch.empty_like(x), torch.empty_like(x)
     assert lib.ft2_rsqrt_probe(x.data_ptr(), x.numel(), a.data_ptr(), b.data_ptr(),
@@ -132,3 +136,75 @@ def test_fit_fused_3param_on_cuda_uses_the_kernels(card, model, counter):
     assert getattr(fused_fit, counter) == before + 1
     assert r.x.device.type == "cuda" and r.x.shape == (5000, 3)
     assert torch.isfinite(r.x).all() and r.n_overflow == 0
+
+
+# ------------------------------------------------ the S2D conv (conv_s2d.cu)
+@pytest.fixture
+def no_tf32(card):
+    """fp32 comparisons on the card run in full fp32: cuBLAS and cuDNN
+    both with TF32 off."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield card
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _conv_inputs(q, c, c_out, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(tuple(v + 1 for v in q) + (c,), generator=g)
+    w = torch.randn(8 * c, c_out, generator=g) * (1.0 / (8 * c) ** 0.5)
+    b = torch.randn(c_out, generator=g) * 0.1
+    res = torch.randn(tuple(q) + (c_out,), generator=g)
+    return x.to(dev), w.to(dev), b.to(dev), res.to(dev)
+
+
+def _bf16_ulps(a, b):
+    def order(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (order(a) - order(b)).abs()
+
+
+@pytest.mark.parametrize("q,c,c_out", [((80, 80, 80), 192, 192), ((17, 23, 29), 24, 40)])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_s2d_kernel_matches_plain_version(no_tf32, q, c, c_out, with_res, dtype):
+    from fetal_t2mapping_tpu_torch.labels import conv_s2d
+
+    x, w, b, res = _conv_inputs(q, c, c_out, no_tf32)
+    res = res if with_res else None
+    before = conv_s2d.CONV_S2D_LAUNCHES
+    got = conv_s2d.conv_s2d(x, w, b, res, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert conv_s2d.CONV_S2D_LAUNCHES == before + 1
+    want = conv_s2d._conv_s2d_plain(x, w, b, res, compute_dtype=dtype)
+    assert got.dtype == dtype and got.shape == want.shape == tuple(q) + (c_out,)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() / want.abs().max().item() <= 1e-5
+    else:
+        # an output near 0 can differ by thousands of its own ulps through
+        # the order of the fp32 sums alone: the two-ulp bound is taken at
+        # the output's largest magnitude
+        assert (_bf16_ulps(got, want) <= 1).float().mean().item() >= 0.999
+        scale = want.float().abs().max().item()
+        scale_ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= 2 * scale_ulp
+
+
+def test_segment_volume_kernel_path_on_cuda(no_tf32):
+    """The full topology at 32^3: three conv_s2d launches per forward, and
+    the fp32 kernel program agrees with the fp32 dense program."""
+    from fetal_t2mapping_tpu_torch.labels import conv_s2d, unet3d
+
+    cfg = unet3d.UNetConfig(batch_norm=True)
+    params = unet3d.random_params(cfg, seed=0)
+    vol = np.random.default_rng(0).uniform(0, 1000, (32, 32, 32)).astype(np.float32)
+    before = conv_s2d.CONV_S2D_LAUNCHES
+    lab = unet3d.segment_volume(params, vol, use_s2d="kernel", compute_dtype=torch.float32)
+    assert conv_s2d.CONV_S2D_LAUNCHES == before + 3
+    dense = unet3d.segment_volume(params, vol, use_s2d=False, compute_dtype=torch.float32)
+    assert (lab == dense).mean() >= 0.999
+    lab16 = unet3d.segment_volume(params, vol, use_s2d="kernel")
+    assert conv_s2d.CONV_S2D_LAUNCHES == before + 6
+    assert (lab16 == dense).mean() >= 0.97

@@ -10,6 +10,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +45,10 @@ def test_importing_every_module_leaves_jax_out():
     assert set(res["modules"]) == expected
     for name in ("fused_fit", "fgh", "signal", "init", "solver", "oracle", "t2map"):
         assert f"fetal_t2mapping_tpu_torch.models.{name}" in expected
+    for name in ("unet3d", "conv_s2d", "synthseg"):
+        assert f"fetal_t2mapping_tpu_torch.labels.{name}" in expected
+    for name in ("build", "pipeline.recon_pipeline"):
+        assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
 
 
@@ -83,6 +88,18 @@ def test_fit_fused_defaults_to_cuda(monkeypatch):
                   (0.0, 10.0), (1e6, 2000.0))
 
 
+def test_segment_volume_defaults_to_cuda(monkeypatch):
+    from fetal_t2mapping_tpu_torch.labels import unet3d
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = unet3d.UNetConfig(n_levels=2, base_features=2, n_labels=3)
+    params = unet3d.random_params(cfg, seed=0)
+    for use_s2d in (False, "kernel"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            unet3d.segment_volume(params, np.ones((8, 8, 8), np.float32), cfg,
+                                  use_s2d=use_s2d)
+
+
 @pytest.mark.parametrize("model,lo,hi", [
     ("gaussian_rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3)),
     ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3))])
@@ -101,12 +118,13 @@ out = args[args.index("-o") + 1]
 if "{fail}" in args[-1]:
     print("ptxas error: made to fail"); sys.exit(2)
 open(out, "w").write("built from " + args[-1])
+print("flags: " + " ".join(args[:args.index("-o")]))
 print("ptxas info    : Used 42 registers")
 """
 
 
 def _fake_toolkit(tmp_path, monkeypatch, fail=""):
-    from fetal_t2mapping_tpu_torch.models import fused_fit
+    from fetal_t2mapping_tpu_torch import build
 
     bin_dir = tmp_path / "cuda" / "bin"
     bin_dir.mkdir(parents=True, exist_ok=True)
@@ -114,34 +132,40 @@ def _fake_toolkit(tmp_path, monkeypatch, fail=""):
     nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, fail=fail or "no such source"))
     nvcc.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
-    monkeypatch.setattr(fused_fit, "_BUILD_DIR", str(tmp_path / "build"))
-    return fused_fit
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    return build
 
 
 def test_build_compiles_every_source_once(tmp_path, monkeypatch):
     """One nvcc per csrc/*.cu into the build directory, each with its
-    compiler log; an up-to-date library is not rebuilt."""
-    ff = _fake_toolkit(tmp_path, monkeypatch)
+    compiler log and its own flags; an up-to-date library is not rebuilt."""
+    b = _fake_toolkit(tmp_path, monkeypatch)
     csrc = os.path.join(os.path.dirname(fetal_t2mapping_tpu_torch.__file__), "csrc")
-    assert {os.path.basename(v) for v in ff.KERNEL_SOURCES.values()} == {
+    assert {os.path.basename(v) for v in b.KERNEL_SOURCES.values()} == {
         f for f in os.listdir(csrc) if f.endswith(".cu")}
-    libs = ff.build_kernel()
-    assert set(libs) == {"gauss_fit", "gr_varpro_fit", "fit3"}
+    libs = b.build_kernels()
+    assert set(libs) == {"gauss_fit", "gr_varpro_fit", "fit3", "conv_s2d"}
     for name, path in libs.items():
         with open(path) as f:
-            assert f.read() == "built from " + ff.KERNEL_SOURCES[name]
-        assert "Used 42 registers" in ff.build_log(name)
+            assert f.read() == "built from " + b.KERNEL_SOURCES[name]
+        log = b.build_log(name)
+        assert "Used 42 registers" in log
+        assert "flags: " + " ".join(b.nvcc_flags(name)) in log
+        assert "arch=compute_90a,code=sm_90a" in log
+        # the fits round op by op like their plain versions: no FMA
+        # contraction; the conv is held by a tolerance and keeps it
+        assert ("-fmad=false" in log) == (name != "conv_s2d")
     assert sorted(os.listdir(tmp_path / "build")) == sorted(
         [f"lib{n}.so" for n in libs] + [f"{n}.log" for n in libs])
     stamp = {n: os.path.getmtime(p) for n, p in libs.items()}
-    ff.build_kernel()
+    b.build_kernels()
     assert {n: os.path.getmtime(p) for n, p in libs.items()} == stamp
 
 
 def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
-    ff = _fake_toolkit(tmp_path, monkeypatch, fail="fit3.cu")
+    b = _fake_toolkit(tmp_path, monkeypatch, fail="conv_s2d.cu")
     with pytest.raises(RuntimeError, match="made to fail"):
-        ff.build_kernel()
+        b.build_kernels()
     built = os.listdir(tmp_path / "build")
-    assert "libfit3.so" not in built and not any(f.endswith(".tmp") for f in built)
-    assert "libgr_varpro_fit.so" in built      # the other builds finished
+    assert "libconv_s2d.so" not in built and not any(f.endswith(".tmp") for f in built)
+    assert {"libgr_varpro_fit.so", "libfit3.so", "libgauss_fit.so"} <= set(built)
