@@ -9,7 +9,7 @@ gaussian against scipy ``curve_fit``, gaussian_rician and rician against
 the truth and the same-model L-BFGS-B oracle — and drives the main path of
 each noise model, the port's ``process_t2maps`` over a synthetic 240^3
 BIDS session. Phases 8-9, the SynthSeg U-Net: the S2D conv kernel against
-its plain version at the 160^3 level-0 shape and a ragged one, then the
+its plain version at the 160^3 level-0 shape and two ragged ones, then the
 segmentation step ``run_segmentation`` with ``SynthSegRunner(mode="torch")``
 and ``FT2_UNET_S2D=kernel`` over a synthetic 160^3 recon, at the full
 SynthSeg width with random weights. Each phase prints one line with its
@@ -27,6 +27,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -118,6 +119,42 @@ def fit_bound(n, T, out_bytes, steps, starts=1, in_extra=0):
     return bound(n * (T * 4 + in_extra + out_bytes), n * T * (1 + starts) + T * steps, FP32_OPS)
 
 
+def fit3_ops(model: str, T: int):
+    """fp32 operations of csrc/fit3.cu's pieces at T echoes, counted from
+    the source: each add, sub, mul, div, sqrt, exp, log, fabs, compare and
+    select one, a NaN-keeping max/min one and a clip two, loop invariants
+    once, the cheaper side of every branch (i0e's x < 3.75 knee, R/x's
+    series). Returns (value_e, step, inits, prepare): one objective
+    evaluation; one accepted Newton step (fgh 7 + 115 T rician / 3 + 105 T
+    gaussian_rician, masked_solve3 99, the stop tests and update 86 with
+    gtol > 0, the trial value_e); the three starts' inits together (the
+    log-linear 18 T + 29, the grid scan 72 T + 90, and the interpolant 446
+    for gaussian_rician at T = 3, else the guess, 0); and the per-voxel
+    hoisted logs."""
+    if model == "rician":
+        value_e, fgh, prepare, third = 3 + 36 * T, 7 + 115 * T, 2 * T, 0
+    else:
+        value_e, fgh, prepare, third = 3 + 9 * T, 3 + 105 * T, 0, (446 if T == 3 else 0)
+    return value_e, fgh + 99 + 86 + value_e, (18 * T + 29) + (72 * T + 90) + third, prepare
+
+
+def fit3_bound(model, n, T, steps, cont=False):
+    """Bound of ft2_fit3_multistart (``cont`` False) or ft2_fit3_cont on n
+    voxels x T echoes: the larger of the bytes (signal in, (x, stats) out,
+    and (x0, st0) in for the continuation) and the fp32 operations these
+    inputs need at the least: for the multistart, each start's init, its
+    clip (6) and first evaluation, plus the winning start's accepted steps
+    (``steps``, stats row 2 summed; the other starts' steps are not
+    counted); for the continuation, one evaluation at x0 plus its own
+    accepted steps. Rejected steps are not counted either, so the bound is
+    a lower one. Returns (ms, by, operations)."""
+    value_e, step, inits, prepare = fit3_ops(model, T)
+    per_voxel = prepare + (6 + value_e if cont else inits + 3 * (6 + value_e))
+    n_ops = n * per_voxel + steps * step
+    ms, by = bound(n * (T * 4 + 24 + (24 if cont else 0)), n_ops, FP32_OPS)
+    return ms, by, n_ops
+
+
 def phase0_environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -154,10 +191,12 @@ def phase1_build() -> float:
         for entry, body in re.findall(r"Compiling entry function '(\S+)'.*?\n(.*?Used \d+ registers[^\n]*)",
                                       log, re.S):
             inst = re.search(r"(Rician|GaussRician)?E?Li(\d)E", entry)
+            kind = re.search(r"fit3_(multistart|cont)_kernel", entry)
             if name == "conv_s2d":
-                key = f"conv_s2d/{'bf16' if 'bfloat16' in entry else 'fp32'}"
+                key = f"conv_s2d/{'bf16' if 'conv_s2d_bf16' in entry else 'fp32'}"
             elif inst:
-                key = f"{name}{'/' + inst.group(1) if inst.group(1) else ''}/T{inst.group(2)}"
+                key = (f"{name}{'/' + kind.group(1) if kind else ''}"
+                       f"{'/' + inst.group(1) if inst.group(1) else ''}/T{inst.group(2)}")
             else:
                 key = name
             spill = re.search(r"(\d+) bytes spill stores", body)
@@ -168,6 +207,16 @@ def phase1_build() -> float:
           f"{flags}) in {dt:.2f} s; registers/spill bytes at T=3 and 8 and of the conv: "
           f"{ {k: v for k, v in sorted(regs.items()) if k.endswith(('T3', 'T8', 'bf16', 'fp32'))} }",
           flush=True)
+    cuobjdump = shutil.which("cuobjdump", path=os.path.dirname(build.nvcc())) \
+        or shutil.which("cuobjdump")
+    if cuobjdump:
+        sass = subprocess.run([cuobjdump, "-sass", build.lib_path("conv_s2d")], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        print(f"phase 1 sass: libconv_s2d.so instructions {counts} (wgmma, TMA load, TMA store)",
+              flush=True)
+    else:
+        print("phase 1 sass: cuobjdump not found, instruction counts not taken", flush=True)
     lib = build.load_lib("gr_varpro_fit")
     x = torch.cat([torch.rand(1 << 22, device="cuda") * 1e4 + 1e-6,
                    torch.logspace(-6, 30, 1 << 20, device="cuda")])
@@ -469,6 +518,8 @@ def phase6_headline3():
         else:
             pre = fused_fit._fit3_cuda(s, model, TES3, lo, HI3, GUESS3, max_iters=PREFIX3, **FIT3_KW)
             cont = dict(max_iters=60 - PREFIX3, **FIT3_KW)
+            unpruned_ms = cuda_ms(lambda: fused_fit._fit3_cuda(s, model, TES3, lo, HI3, GUESS3,
+                                                               max_iters=60, **FIT3_KW), 3)
             runs = {"fit3": (
                 lambda: fused_fit._fit3_cuda(s, model, TES3, lo, HI3, GUESS3, max_iters=PREFIX3, **FIT3_KW),
                 lambda: fused_fit._fit3_plain(s, model, TES3, lo, HI3, GUESS3, max_iters=PREFIX3, **FIT3_KW)),
@@ -483,13 +534,24 @@ def phase6_headline3():
             worst[name] = (b, d)
             times[name] = (cuda_ms(kern, 3), cuda_ms(plain, 1))
             # out: (x, stats) = 2 x 3 float32; the continuation also reads
-            # its start (x0, st0); stats row 2 is the accepted steps
-            bounds[name] = fit_bound(
-                N_HEADLINE3, 3, out_bytes=24, in_extra=24 if name == "fit3_cont" else 0,
-                steps=torch.nan_to_num(out_k[1][2]).double().sum().item(),
-                starts=3 if name == "fit3" else 1)
+            # its start (x0, st0); stats row 2 is the accepted steps, the
+            # continuation's counted on from the prefix's
+            steps = torch.nan_to_num(out_k[1][2]).double().sum().item()
+            if name == "gr_varpro":
+                bounds[name], detail = fit_bound(N_HEADLINE3, 3, out_bytes=24, steps=steps), ""
+            else:
+                is_cont = name == "fit3_cont"
+                if is_cont:
+                    steps -= torch.nan_to_num(pre[1][2]).double().sum().item()
+                bounds[name] = fit3_bound(model, N_HEADLINE3, 3, steps, cont=is_cont)
+                old = fit_bound(N_HEADLINE3, 3, out_bytes=24, in_extra=24 if is_cont else 0,
+                                steps=steps, starts=1 if is_cont else 3)
+                detail = (f": {bounds[name][2]:.4g} fp32 operations, {steps:.6g} accepted steps; "
+                          f"transcendentals-and-bytes bound {old[0]:.4f} ms")
             text += (f" {name} kernel {times[name][0]:.3f} ms, plain {times[name][1]:.1f} ms, "
-                     f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]});")
+                     f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}{detail});")
+        if model == "rician":
+            text += f" fit3 unpruned (60 iterations, every start) {unpruned_ms:.3f} ms;"
         print(f"phase 6 headline 256^3 x 3 TEs {model} ({time.perf_counter() - t0:.1f} s): median "
               f"rel T2 err vs truth {med_rel:.3e}, L-BFGS-B objective gap max {gap.max():.3e} "
               f"median {np.median(gap):.3e} (256 identifiable voxels), converged {conv:.5f}, "
@@ -593,9 +655,10 @@ def phase7_sessions3(make_plots: bool):
 
 
 # ------------------------------------------------ the SynthSeg U-Net
-# the 160^3 level-0 shape (Q = 80, C = C' = 8 x 24) and a ragged one that
-# fills no tile evenly
-CONV_SHAPES = (((80, 80, 80), 192, 192), ((17, 23, 29), 24, 40))
+# the 160^3 level-0 shape (Q = 80, C = C' = 8 x 24), a ragged one that fills
+# no tile evenly with C < 64 and C' < 64, and a small ragged one at C = 64,
+# C' = 192 whose tile count does not divide over the card
+CONV_SHAPES = (((80, 80, 80), 192, 192), ((17, 23, 29), 24, 40), ((5, 7, 9), 64, 192))
 
 
 def full_fp32():
@@ -625,8 +688,8 @@ def conv_inputs(q, c, c_out, seed):
 
 def phase8_conv():
     """conv_s2d.cu against its plain version in bf16 and fp32 (TF32 off),
-    with and without the residual, at the 160^3 level-0 shape and a ragged
-    one. Gates: fp32 max |d| <= 1e-5 of the output's largest magnitude;
+    with and without the residual, at the 160^3 level-0 shape and two
+    ragged ones. Gates: fp32 max |d| <= 1e-5 of the output's largest magnitude;
     bf16 within one ulp of the element on >= 99.9% of elements and within
     two ulps of the output's largest magnitude everywhere (an output near 0
     can differ by many of its own ulps through the order of the fp32 sums

@@ -55,8 +55,9 @@ SIGNATURES = {
         "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _VP],
         "ft2_fit3_params_floats": []},
     "conv_s2d": {
-        "ft2_conv_s2d": [_I32, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
-                         _I32, _I32, _VP]},
+        "ft2_conv_s2d_f32": [_VP] * 5 + [_I32] * 6 + [_VP],
+        "ft2_conv_s2d_bf16": [_VP] * 5 + [_I32] * 9 + [_VP],
+        "ft2_conv_s2d_geometry": [_VP]},
 }
 
 

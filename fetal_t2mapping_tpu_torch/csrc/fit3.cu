@@ -1,5 +1,5 @@
 // 3-parameter voxel fits (gaussian_rician, rician) by a 3-start damped
-// projected Newton, one thread per voxel, for Hopper (sm_90a).
+// projected Newton, one thread per (voxel, start), for Hopper (sm_90a).
 //
 // Replaces two TPU kernels of fetal_t2mapping_tpu/models/pallas_fit.py:
 // - ft2_fit3_multistart: _kernel3_body (launcher _fit3_tiles, loop
@@ -10,7 +10,7 @@
 //   interpolant (16 bisections). Each runs the Newton loop in (k, T2,
 //   sigma): full Hessian of the model's objective (models/fgh.py), a KKT
 //   active set, Marquardt damping, a closed-form 3x3 adjugate solve. The
-//   thread keeps the start with the lowest objective (the first minimum,
+//   block keeps the start with the lowest objective (the first minimum,
 //   and the first NaN, as jnp.argmin).
 // - ft2_fit3_cont: _kernel3_cont_body, which resumes the winner of a short
 //   multistart prefix for the rest of the budget from (x0, convf0, nit0).
@@ -20,22 +20,36 @@
 // Stops on ftol (lambda <= 1), xtol, gtol, lambda >= 1e6, or 3 slow
 // accepted steps in a row (stall_tol = max(ftol, 1e-6)).
 //
-// What bounds it: arithmetic and the special-function unit. A voxel reads
-// T floats (plus 6 for the continuation) and writes 24 bytes, once; each
-// Newton iteration evaluates the model's f/g/H from the carried
-// exponentials (rician: two Bessel polynomials, a log and an exp per echo)
-// and the candidate's objective (T expf, and T logf + Bessel for rician).
-// So one thread owns one voxel's state in registers, T and the model are
-// template parameters so the echo loops unroll, the three starts run one
-// after the other in the same thread (on the TPU they were a grid axis
-// only to cut compile time), and each thread stops when its own voxel
-// converged; a converged voxel is frozen, so results equal the TPU
-// kernel's block-wide loop.
+// What bounds it: instruction issue. A voxel reads T floats (plus 6 for
+// the continuation) and writes 24 bytes, once; each Newton iteration
+// evaluates the model's f/g/H from the carried exponentials (rician: the
+// Bessel pair, a log and an exp per echo) and the candidate's objective
+// (T expf, and T logf + Bessel for rician), all in IEEE division, sqrtf,
+// expf and logf, with most warps running both sides of the Bessel knee.
+// So the kernel does no arithmetic beyond the plain version's:
+// - the multistart runs one thread per (voxel, start): a block is three
+//   warps over 32 voxels, warp w running start w (so a warp never diverges
+//   on the kind of start), and the lowest-objective start is picked in
+//   shared memory after the block's barrier, in jnp.argmin's order;
+// - the continuation runs one thread per voxel;
+// - T and the model are template parameters so the echo loops unroll, each
+//   thread stops when its own start converged (a converged voxel is frozen,
+//   so results equal the TPU kernel's block-wide loop), the per-voxel log
+//   of the signal and the per-evaluation log of sigma^2 are computed once,
+//   not per echo, and the gradient pass takes i0e and i1e of one argument
+//   in one branch.
+// On the H100 the three starts spread over three threads ran about as fast
+// as the three in one thread: more warps in flight do not help a kernel
+// bound by issue; doing less does.
 //
 // Numerics follow fused_fit._fit3_plain / _fit3_cont_plain and models/fgh.py
 // op for op: left-to-right echo sums, the grid and bracket constants
 // precomputed in float64 and rounded (Fit3Params), expf/logf, IEEE
 // division and square root, NaN-keeping clips, and -fmad=false.
+//
+// Everything above the "kernel and C entry" marker is per-thread code that
+// also compiles as host C++ (tests/test_torch_fit3_host.py runs it there,
+// one voxel's three starts in turn, against the plain version).
 
 #include <cstdint>
 #include <cstring>
@@ -110,8 +124,8 @@ __device__ __forceinline__ float poly_i1_large(float z) {
   return acc * z + (float)0.39894228;
 }
 
-// exp(-|x|) I0(x) and exp(-|x|) I1(|x|); the branch not taken is the
-// one jnp.where / torch.where discards
+// exp(-|x|) I0(x); the branch not taken is the one jnp.where / torch.where
+// discards
 __device__ __forceinline__ float i0e(float x) {
   x = fabsf(x);
   if (x < 3.75f) {
@@ -121,21 +135,38 @@ __device__ __forceinline__ float i0e(float x) {
   const float xm = nmax(x, 3.75f);
   return poly_i0_large(3.75f / xm) / sqrtf(xm);
 }
-__device__ __forceinline__ float i1e(float x) {
+
+// exp(-|x|) I0(x) and exp(-|x|) I1(|x|) at once, for the gradient pass
+// (fgh.i0e, fgh.i1e): the two share |x|, the branch, and x/3.75 and
+// exp(-x) or 3.75/x and sqrt(x), each computed once — the same ops on the
+// same operands as computing the two apart, so the same bits.
+__device__ __forceinline__ void i0e_i1e(float x, float& i0, float& i1) {
   x = fabsf(x);
   if (x < 3.75f) {
     const float z = x / 3.75f;
-    return poly_i1_small(z * z) * x * expf(-x);
+    const float zz = z * z;
+    const float ex = expf(-x);
+    i0 = poly_i0_small(zz) * ex;
+    i1 = poly_i1_small(zz) * x * ex;
+  } else {
+    const float xm = nmax(x, 3.75f);
+    const float r = 3.75f / xm;
+    const float sq = sqrtf(xm);
+    i0 = poly_i0_large(r) / sq;
+    i1 = poly_i1_large(r) / sq;
   }
-  const float xm = nmax(x, 3.75f);
-  return poly_i1_large(3.75f / xm) / sqrtf(xm);
 }
 
 struct GaussRician {
+  // per-voxel invariants of value_e: none
+  template <int T>
+  __device__ __forceinline__ static void prepare(const float (&)[T], float (&)[T]) {}
+
   // (objective, exp(-te/t2) per echo) — gaussian_rician_value_e
   template <int T>
   __device__ __forceinline__ static float value_e(const float (&x)[3],
                                                   const float (&s)[T],
+                                                  const float (&)[T],
                                                   const Fit3Params& p,
                                                   float (&e)[T]) {
     const float k = x[0], t2 = x[1], sg = x[2];
@@ -210,15 +241,26 @@ struct GaussRician {
 };
 
 struct Rician {
-  // (negative log-likelihood, exp(-te/t2) per echo) — rician_value_e
+  // per-voxel invariants of value_e: ls[t] = log(max(s[t], 1e-20))
+  template <int T>
+  __device__ __forceinline__ static void prepare(const float (&s)[T], float (&ls)[T]) {
+#pragma unroll
+    for (int t = 0; t < T; ++t) ls[t] = logf(nmax(s[t], 1e-20f));
+  }
+
+  // (negative log-likelihood, exp(-te/t2) per echo) — rician_value_e. The
+  // two invariant logs are hoisted (same op on the same operand: the same
+  // bits as computing them per echo).
   template <int T>
   __device__ __forceinline__ static float value_e(const float (&x)[3],
                                                   const float (&s)[T],
+                                                  const float (&ls)[T],
                                                   const Fit3Params& p,
                                                   float (&e)[T]) {
     const float k = x[0], t2 = x[1], sg = x[2];
     const float u_inv = -1.0f / t2;
     const float sg2 = sg * sg;
+    const float log_sg2 = logf(sg2);
     float f = 0.0f;
 #pragma unroll
     for (int t = 0; t < T; ++t) {
@@ -226,7 +268,7 @@ struct Rician {
       const float m = k * e[t];
       const float xb = m * s[t] / sg2;
       const float d_sm = fabsf(s[t]) - fabsf(m);
-      const float L = logf(nmax(s[t], 1e-20f)) - logf(sg2)
+      const float L = ls[t] - log_sg2
                       - d_sm * d_sm * 0.5f / sg2
                       + logf(nmax(i0e(xb), 1e-30f));
       f = f - L;
@@ -258,8 +300,9 @@ struct Rician {
       const float m = k * et;
       const float u = p.te[t] / (t2 * t2);
       const float xb = m * st * inv_s2;
-      const float i0 = i0e(xb);
-      const float R = i1e(xb) / nmax(i0, 1e-30f);
+      float i0, i1;
+      i0e_i1e(xb, i0, i1);
+      const float R = i1 / nmax(i0, 1e-30f);
       // R/x -> 1/2 as x -> 0: the series below the fp32 knee
       const float r_over_x = (xb > 1e-4f) ? R / nmax(xb, 1e-30f)
                                           : 0.5f - xb * xb / 16.0f;
@@ -329,15 +372,16 @@ __device__ __forceinline__ void masked_solve3(const float (&h)[3][3],
 // start (clipped here) and leaves as the last accepted iterate; convf/nit
 // enter as the resumed state (0 for a fresh start).
 template <class Model, int T>
-__device__ __forceinline__ void newton3(const float (&s)[T], const Fit3Params& p,
-                                        int max_iters, float (&x)[3], float& f,
-                                        float& convf, float& nit) {
+__device__ __forceinline__ void newton3(const float (&s)[T], const float (&ls)[T],
+                                        const Fit3Params& p, int max_iters,
+                                        float (&x)[3], float& f, float& convf,
+                                        float& nit) {
   constexpr float kXtol2 = (float)(1e-6 * 1e-6);
   const float ftol = p.tols[0], gtol = p.tols[1], stall_tol = p.tols[2];
 #pragma unroll
   for (int i = 0; i < 3; ++i) x[i] = clip(x[i], p.lo[i], p.hi[i]);
   float e[T];
-  f = Model::template value_e<T>(x, s, p, e);
+  f = Model::template value_e<T>(x, s, ls, p, e);
   float lam = 1e-3f, scnt = 0.0f;
   for (int it = 0; it < max_iters; ++it) {
     const bool conv = convf > 0.5f;
@@ -349,7 +393,7 @@ __device__ __forceinline__ void newton3(const float (&s)[T], const Fit3Params& p
     masked_solve3(h, g, fm, lam, step);
 #pragma unroll
     for (int i = 0; i < 3; ++i) xn[i] = clip(x[i] + step[i], p.lo[i], p.hi[i]);
-    const float f_new = Model::template value_e<T>(xn, s, p, en);
+    const float f_new = Model::template value_e<T>(xn, s, ls, p, en);
 
     const bool accept = f_new <= f;  // false on NaN
     const float rel_red = (f - f_new) / nmax(nmax(fabsf(f), fabsf(f_new)), 1.0f);
@@ -441,67 +485,115 @@ __device__ __forceinline__ void grid_start3(const float (&s)[T],
   x[2] = clip(sqrtf(best_sse + 1e-12f), p.lo[2], p.hi[2]);
 }
 
-// The 3-start multistart of one voxel: the winner's (x, f, convf, nit).
+// Start `start` of one voxel's multistart (0 log-linear, 1 grid, 2 the
+// interpolant or the protocol guess), run to the end of its Newton loop:
+// out = (k, t2, sigma, f, convf, nit).
 template <class Model, int T>
-__device__ __forceinline__ void multistart(const float (&s)[T],
-                                           const Fit3Params& p, int max_iters,
-                                           float (&x_out)[3], float (&st_out)[3]) {
+__device__ __forceinline__ void run_start(const float (&s)[T], const float (&ls)[T],
+                                          const Fit3Params& p, int max_iters, int start,
+                                          float (&out)[6]) {
   constexpr bool kInterpStart = std::is_same<Model, GaussRician>::value && T == 3;
-#pragma unroll 1
-  for (int start = 0; start < 3; ++start) {
-    float x[3];
-    if (start == 0) {
-      loglin_start3<T>(s, p, x);
-    } else if (start == 1) {
-      grid_start3<T>(s, p, x);
+  float x[3];
+  if (start == 0) {
+    loglin_start3<T>(s, p, x);
+  } else if (start == 1) {
+    grid_start3<T>(s, p, x);
+  } else {
+    if constexpr (kInterpStart) {
+      interp_start_gr(s, p.it_ts, p.it_d12, p.it_d01, p.m2te, p.lo, p.hi, p.fb,
+                      16, x[0], x[1], x[2]);
     } else {
-      if constexpr (kInterpStart) {
-        interp_start_gr(s, p.it_ts, p.it_d12, p.it_d01, p.m2te, p.lo, p.hi, p.fb,
-                        16, x[0], x[1], x[2]);
-      } else {
-        x[0] = p.fb[0];
-        x[1] = p.fb[1];
-        x[2] = p.fb[2];
-      }
+      x[0] = p.fb[0];
+      x[1] = p.fb[1];
+      x[2] = p.fb[2];
     }
-    float f, convf = 0.0f, nit = 0.0f;
-    newton3<Model, T>(s, p, max_iters, x, f, convf, nit);
-    // jnp.argmin: the first minimum; a NaN wins and is never replaced
-    const float best_f = st_out[0];
-    if (start == 0 || (best_f == best_f && (f != f || f < best_f))) {
-      x_out[0] = x[0];
-      x_out[1] = x[1];
-      x_out[2] = x[2];
-      st_out[0] = f;
-      st_out[1] = convf;
-      st_out[2] = nit;
+  }
+  float f, convf = 0.0f, nit = 0.0f;
+  newton3<Model, T>(s, ls, p, max_iters, x, f, convf, nit);
+  out[0] = x[0];
+  out[1] = x[1];
+  out[2] = x[2];
+  out[3] = f;
+  out[4] = convf;
+  out[5] = nit;
+}
+
+// The winning start of three final objectives, as jnp.argmin: the first
+// minimum; a NaN wins and is never replaced.
+__device__ __forceinline__ int argmin_start(float f0, float f1, float f2) {
+  int best = 0;
+  float best_f = f0;
+  if (best_f == best_f && (f1 != f1 || f1 < best_f)) {
+    best = 1;
+    best_f = f1;
+  }
+  if (best_f == best_f && (f2 != f2 || f2 < best_f)) best = 2;
+  return best;
+}
+
+}  // namespace
+
+// ---- kernel and C entry
+
+namespace {
+
+constexpr int kVoxPerBlock = 32;                  // one warp of voxels
+constexpr int kStartThreads = 3 * kVoxPerBlock;   // warp w runs start w
+// One thread per (voxel, start); the block's three warps share 32 voxels.
+// Blocks per SM asked of ptxas, from its register counts without a bound
+// (48-56 at T <= 4, up to 72 at T = 8 rician, no spills): 12 blocks (at
+// most 56 registers) up to T = 4, 9 blocks (at most 72) above, so no
+// instance spills. A uniform 9 let ptxas take more registers at T = 3
+// and ran slower on the H100.
+template <class Model, int T>
+__global__ void __launch_bounds__(kStartThreads, (T <= 4 ? 12 : 9))
+fit3_multistart_kernel(const float* __restrict__ signal, long long n,
+                       const Fit3Params p, int max_iters,
+                       float* __restrict__ x_out, float* __restrict__ st_out) {
+  __shared__ float cand[3][6][kVoxPerBlock];  // [start][output][voxel]
+  const int start = threadIdx.x / kVoxPerBlock;
+  const int v = threadIdx.x % kVoxPerBlock;
+  const long long i = (long long)blockIdx.x * kVoxPerBlock + v;
+  if (i < n) {
+    float s[T], ls[T], out[6];
+#pragma unroll
+    for (int t = 0; t < T; ++t) s[t] = signal[i * T + t];
+    Model::template prepare<T>(s, ls);
+    run_start<Model, T>(s, ls, p, max_iters, start, out);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) cand[start][c][v] = out[c];
+  }
+  __syncthreads();
+  if (start == 0 && i < n) {
+    const int w = argmin_start(cand[0][3][v], cand[1][3][v], cand[2][3][v]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      x_out[c * n + i] = cand[w][c][v];
+      st_out[c * n + i] = cand[w][3 + c][v];
     }
   }
 }
 
-// ---- kernel and C entry
-
+// Continuation: one thread per voxel resumes (x0, convf0, nit0); f0 is
+// re-evaluated.
 template <class Model, int T>
 __global__ void __launch_bounds__(kThreads)
-fit3_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
-            int max_iters, const float* __restrict__ x0,
-            const float* __restrict__ st0, float* __restrict__ x_out,
-            float* __restrict__ st_out) {
+fit3_cont_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
+                 int max_iters, const float* __restrict__ x0,
+                 const float* __restrict__ st0, float* __restrict__ x_out,
+                 float* __restrict__ st_out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  float s[T];
+  float s[T], ls[T];
 #pragma unroll
   for (int t = 0; t < T; ++t) s[t] = signal[i * T + t];
+  Model::template prepare<T>(s, ls);
   float x[3], st[3];
-  if (x0 == nullptr) {
-    multistart<Model, T>(s, p, max_iters, x, st);
-  } else {  // continuation: resume (x0, convf0, nit0); f0 is re-evaluated
 #pragma unroll
-    for (int c = 0; c < 3; ++c) x[c] = x0[c * n + i];
-    st[1] = st0[n + i];
-    st[2] = st0[2 * n + i];
-    newton3<Model, T>(s, p, max_iters, x, st[0], st[1], st[2]);
-  }
+  for (int c = 0; c < 3; ++c) x[c] = x0[c * n + i];
+  st[1] = st0[n + i];
+  st[2] = st0[2 * n + i];
+  newton3<Model, T>(s, ls, p, max_iters, x, st[0], st[1], st[2]);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     x_out[c * n + i] = x[c];
@@ -513,9 +605,15 @@ template <class Model, int T>
 void launch_t(const float* signal, long long n, const Fit3Params& p,
               int max_iters, const float* x0, const float* st0, float* x,
               float* st, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  fit3_kernel<Model, T><<<blocks, kThreads, 0, stream>>>(
-      signal, n, p, max_iters, x0, st0, x, st);
+  if (x0 == nullptr) {
+    const unsigned blocks = (unsigned)((n + kVoxPerBlock - 1) / kVoxPerBlock);
+    fit3_multistart_kernel<Model, T><<<blocks, kStartThreads, 0, stream>>>(
+        signal, n, p, max_iters, x, st);
+  } else {
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+    fit3_cont_kernel<Model, T><<<blocks, kThreads, 0, stream>>>(
+        signal, n, p, max_iters, x0, st0, x, st);
+  }
 }
 
 template <class Model>

@@ -135,3 +135,94 @@ def test_cuda_request_without_a_gpu_raises(monkeypatch):
     params = unet3d.random_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="is_available"):
         unet3d.segment_volume(params, np.ones((8, 8, 8), np.float32), cfg, use_s2d="kernel")
+
+
+# ------------------------------------------------ the bf16 kernel's host side
+def _tile_origin(plan, t):
+    """Tile ``t`` -> (n0, z0, y0, x0), as conv_s2d.cu's tile_origin."""
+    n0 = (t % plan.tiles_n) * conv_s2d.TILE_N
+    t //= plan.tiles_n
+    x0 = (t % plan.tiles_x) * conv_s2d.TILE_X
+    t //= plan.tiles_x
+    return n0, t // plan.tiles_y, (t % plan.tiles_y) * conv_s2d.TILE_Y, x0
+
+
+@pytest.mark.parametrize("qz,qy,qx,c_out", [(80, 80, 80, 192), (17, 23, 29, 40), (5, 7, 9, 192),
+                                            (1, 1, 1, 8), (3, 17, 33, 200)])
+def test_tile_plan_covers_every_output_once(qz, qy, qx, c_out):
+    """Every (voxel, channel) of the out-form lies in exactly one tile of
+    the plan the wrapper hands the kernel, and no tile is empty."""
+    plan = conv_s2d.tile_plan(qz, qy, qx, c_out)
+    hits = np.zeros((qz, qy, qx, c_out), np.uint8)
+    for t in range(plan.total):
+        n0, z0, y0, x0 = _tile_origin(plan, t)
+        assert n0 < c_out and z0 < qz and y0 < qy and x0 < qx
+        hits[z0, y0:y0 + conv_s2d.TILE_Y, x0:x0 + conv_s2d.TILE_X, n0:n0 + conv_s2d.TILE_N] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("c,cp", [(8, 64), (24, 64), (64, 64), (72, 128), (192, 192)])
+def test_padded_channels_are_whole_k_chunks(c, cp):
+    assert conv_s2d.padded_channels(c) == cp
+
+
+@pytest.mark.parametrize("c", [64, 24])
+def test_kmajor_weight_is_pack_taps_transposed(c):
+    """The kernel's K-major copy: row n is output channel n's pack_taps
+    column, each tap's C weights then zeros up to the next 64."""
+    w2 = np.random.default_rng(c).normal(0, 1, (2, 2, 2, c, 16)).astype(np.float32)
+    wp = torch.from_numpy(conv_s2d.pack_taps(w2))
+    wk = conv_s2d.kmajor_weight(wp, c)
+    cp = conv_s2d.padded_channels(c)
+    assert wk.shape == (16, 8 * cp) and wk.dtype == wp.dtype
+    taps = wk.reshape(16, 8, cp)
+    np.testing.assert_array_equal(taps[:, :, :c].reshape(16, 8 * c).numpy(), wp.t().numpy())
+    assert (taps[:, :, c:] == 0).all()
+    if c == cp:
+        np.testing.assert_array_equal(wk.numpy(), conv_s2d.pack_taps(w2).T)
+
+
+def test_kmajor_copy_is_cached_per_weight_and_follows_updates():
+    w = torch.randn(8 * 24, 40)
+    first = conv_s2d._kmajor_cached(w, 24, torch.bfloat16)
+    assert conv_s2d._kmajor_cached(w, 24, torch.bfloat16) is first
+    assert first.dtype == torch.bfloat16 and first.is_contiguous()
+    w.add_(1.0)
+    again = conv_s2d._kmajor_cached(w, 24, torch.bfloat16)
+    assert again is not first
+    assert torch.equal(again, conv_s2d.kmajor_weight(w.bfloat16(), 24))
+
+
+@pytest.mark.parametrize("c,c_out,dtype,match", [
+    (24, 40, torch.float16, "float32 or bfloat16"),
+    (12, 40, torch.bfloat16, "multiples of 8"),
+    (24, 20, torch.bfloat16, "multiples of 8"),
+    (24, 20, torch.float32, "multiples of 8"),
+])
+def test_kernel_refuses_what_it_cannot_take(c, c_out, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        conv_s2d.check_kernel_args(c, c_out, dtype)
+    conv_s2d.check_kernel_args(192, 192, torch.bfloat16)
+
+
+def test_tile_constants_match_the_kernel_source():
+    """conv_s2d.py's TILE_* are conv_s2d.cu's kTileX, kTileY, kBN, kBK
+    (the library's ft2_conv_s2d_geometry checks the same on the card)."""
+    import re
+    from fetal_t2mapping_tpu_torch import build
+
+    with open(build.KERNEL_SOURCES["conv_s2d"]) as f:
+        src = f.read()
+    got = tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                for name in ("kTileX", "kTileY", "kBN", "kBK"))
+    assert got == (conv_s2d.TILE_X, conv_s2d.TILE_Y, conv_s2d.TILE_N, conv_s2d.TILE_K)
+
+
+def test_kmajor_copy_of_an_inference_tensor_is_cached():
+    """The U-Net uploads its weights under inference mode: such a weight
+    has no version counter, and its copy is still made once."""
+    with torch.inference_mode():
+        w = torch.randn(8 * 24, 40)
+    first = conv_s2d._kmajor_cached(w, 24, torch.bfloat16)
+    assert conv_s2d._kmajor_cached(w, 24, torch.bfloat16) is first
+    assert torch.equal(first, conv_s2d.kmajor_weight(w.bfloat16(), 24))

@@ -166,7 +166,9 @@ def _bf16_ulps(a, b):
     return (order(a) - order(b)).abs()
 
 
-@pytest.mark.parametrize("q,c,c_out", [((80, 80, 80), 192, 192), ((17, 23, 29), 24, 40)])
+@pytest.mark.parametrize("q,c,c_out", [((80, 80, 80), 192, 192), ((17, 23, 29), 24, 40),
+                                       ((5, 7, 9), 64, 192), ((4, 9, 20), 72, 64),
+                                       ((3, 5, 17), 16, 200)])
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv_s2d_kernel_matches_plain_version(no_tf32, q, c, c_out, with_res, dtype):
