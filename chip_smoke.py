@@ -64,6 +64,10 @@ TOL3 = dict(ftol=1e-2, gtol=1e-2)
 VARPRO_KW = dict(max_iters=60, full_budget=False, stall_iters=3, stall_tol=1e-2, **TOL3)
 FIT3_KW = dict(stall_tol=1e-2, **TOL3)
 PREFIX3 = 4
+# the pipeline's tolerances (config.FitConfig's defaults, what process_t2maps
+# runs) beside the bench's
+TOLERANCES = {"bench": TOL3, "pipeline": dict(ftol=1e-9, gtol=0.0)}
+TAIL_KS = (0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 N_PARITY3, N_HEADLINE3, SIDE3 = 1 << 20, 256 ** 3, 240   # phases 5, 6, 7
 # H100 SXM published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s, fp32 outside the tensor cores and dense bf16 tensor-core FLOP/s
@@ -155,6 +159,35 @@ def fit3_bound(model, n, T, steps, cont=False):
     return ms, by, n_ops
 
 
+def gr_varpro_ops(T: int, gtol: float):
+    """fp32 operations of csrc/gr_varpro_fit.cu at T echoes, counted from
+    the source as fit3_ops counts fit3.cu (free_of and proj_grad five each,
+    rsqrtf one). Returns (prelude, iteration): the prelude once per voxel —
+    the log-linear start 12 T + 14 and its clips 7, E at t2 1 + 2 T, two
+    inner steps 2 (20 T + 43), the objective 8 T, the squares 2 T - 1, the
+    12-point grid 132 T + 192, the polish 68 T + 133, at T = 3 the
+    interpolant's start 426 + 51 T, and the outputs 6; one accepted outer
+    iteration — gradient, Schur curvature and step 31 T + 56, E at the
+    candidate 1 + 2 T, three inner steps 60 T + 129, the objective 8 T, the
+    stop tests and update 29, and the gtol test 27 when gtol > 0."""
+    prelude = (12 * T + 14) + 7 + (1 + 2 * T) + 2 * (20 * T + 43) + 8 * T + (2 * T - 1) \
+        + (132 * T + 192) + (68 * T + 133) + (426 + 51 * T if T == 3 else 0) + 6
+    iteration = (31 * T + 56) + (1 + 2 * T) + (60 * T + 129) + 8 * T + 29 + (27 if gtol > 0 else 0)
+    return prelude, iteration
+
+
+def gr_varpro_bound(n, T, steps, gtol):
+    """Bound of ft2_gr_varpro_fit on n voxels x T echoes: the larger of the
+    bytes (signal in, (x, stats) out) and the fp32 operations of every
+    voxel's prelude plus its accepted outer iterations (``steps``, stats
+    row 2 summed; rejected iterations are not counted, so the bound is a
+    lower one). Returns (ms, by, operations)."""
+    prelude, iteration = gr_varpro_ops(T, gtol)
+    n_ops = n * prelude + steps * iteration
+    ms, by = bound(n * (T * 4 + 24), n_ops, FP32_OPS)
+    return ms, by, n_ops
+
+
 def phase0_environment():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -178,7 +211,8 @@ def phase0_environment():
 
 def phase1_build() -> float:
     """Build every kernel (one nvcc per source, all at once), print build
-    time, flags and registers/spills per instance, and check that the
+    time, flags and registers/spills/stack per instance (a spill fails the
+    run at its end, after the measurements), and check that the
     VARPRO kernel's reciprocal square root is torch.rsqrt's on this card."""
     t0 = time.perf_counter()
     libs = build.build_kernels()
@@ -191,7 +225,7 @@ def phase1_build() -> float:
         for entry, body in re.findall(r"Compiling entry function '(\S+)'.*?\n(.*?Used \d+ registers[^\n]*)",
                                       log, re.S):
             inst = re.search(r"(Rician|GaussRician)?E?Li(\d)E", entry)
-            kind = re.search(r"fit3_(multistart|cont)_kernel", entry)
+            kind = re.search(r"(?:gr_varpro|fit3)_([a-z]+)_kernel", entry)
             if name == "conv_s2d":
                 key = f"conv_s2d/{'bf16' if 'conv_s2d_bf16' in entry else 'fp32'}"
             elif inst:
@@ -200,11 +234,13 @@ def phase1_build() -> float:
             else:
                 key = name
             spill = re.search(r"(\d+) bytes spill stores", body)
+            stack = re.search(r"(\d+) bytes stack frame", body)
             regs[key] = (int(re.search(r"Used (\d+) registers", body).group(1)),
-                         int(spill.group(1)) if spill else 0)
+                         int(spill.group(1)) if spill else 0, int(stack.group(1)) if stack else 0)
+    spills = {k: v[1] for k, v in regs.items() if v[1]}
     flags = {name: " ".join(build.SOURCE_FLAGS[name]) or "-" for name in libs}
     print(f"phase 1 build: {sorted(libs)} -> sm_90a ({' '.join(build.COMMON_FLAGS)}; per source "
-          f"{flags}) in {dt:.2f} s; registers/spill bytes at T=3 and 8 and of the conv: "
+          f"{flags}) in {dt:.2f} s; registers/spill bytes/stack bytes at T=3 and 8 and of the conv: "
           f"{ {k: v for k, v in sorted(regs.items()) if k.endswith(('T3', 'T8', 'bf16', 'fp32'))} }",
           flush=True)
     cuobjdump = shutil.which("cuobjdump", path=os.path.dirname(build.nvcc())) \
@@ -227,8 +263,9 @@ def phase1_build() -> float:
     same_rsqrtf = (a == ref).float().mean().item()
     gate(same_rsqrtf == 1.0, f"the kernel's rsqrtf differs from torch.rsqrt on {1 - same_rsqrtf:.3e} of inputs")
     print(f"phase 1 rsqrt: torch.rsqrt == rsqrtf on {same_rsqrtf:.6f} of {x.numel()} inputs, "
-          f"== 1/sqrtf on {(b == ref).float().mean().item():.6f}", flush=True)
-    return dt
+          f"== 1/sqrtf on {(b == ref).float().mean().item():.6f}; kernel instances that spill "
+          f"(bytes): {spills or 'none'}", flush=True)
+    return spills
 
 
 def compare(s, tes, ident, no_prior=False):
@@ -455,7 +492,8 @@ def compare3(s, tes, ident):
 
 def phase5_parity3():
     """The three 3-parameter kernels vs their plain versions at 1,048,576
-    voxels, 3 and 6 TEs (bench bounds, guess and tolerances)."""
+    voxels, 3 and 6 TEs (bench bounds, guess and tolerances): within the
+    bench's bands, and bitwise equal."""
     t0 = time.perf_counter()
     lines, worst = "", {}
     for tes in (TES3, TES6):
@@ -465,6 +503,8 @@ def phase5_parity3():
         for name, (b, d) in w.items():
             b0, d0 = worst.get(name, (1.0, 0.0))
             worst[name] = (min(b0, b), max(d0, d))
+    for name, (b, _) in worst.items():
+        gate(b == 1.0, f"{name} is bitwise its plain version on {b:.6f} of the voxels, not all")
     print(f"phase 5 3-parameter kernels vs plain (identifiable voxels), "
           f"{time.perf_counter() - t0:.1f} s:{lines}", flush=True)
     return worst
@@ -484,10 +524,103 @@ def oracle_gap(model, sig, x, idx, lo):
     return (f_k - f_s) / np.maximum(np.abs(f_s), 1.0)
 
 
+def warp_profile(s):
+    """What warp divergence costs the fit kernels at 256^3 x 3 TEs, under the
+    bench's and the pipeline's tolerances. Per kernel (gauss, gr_varpro, the
+    rician fit3_cont from the kernel's own prefix): the share of voxels
+    still unconverged after K iterations (for fit3_cont K = 0 is what the
+    prefix left), from runs at max_iters = K, and from them each voxel's
+    iterations; its time, and its time on the same input sorted by its own
+    result (converged, iterations, accepted steps), gated to give the sorted
+    output bitwise; the mean iterations per voxel and per warp (the most of
+    its 32 lanes) as made and sorted; the share a split kernel sends to its
+    tail; its bound; gr_varpro's time at max_iters = 0 (the prelude alone)
+    and fit3_cont's (the sweep alone: every voxel written with its objective
+    at x0); and a split kernel's time on the sorted input with its tail's
+    voxels shuffled among their own places (lanes mixed as in the input as
+    made, memory as contiguous as sorted). Prints one line per tolerances."""
+    n = s.shape[0]
+    head_iters = build.load_lib("gr_varpro_fit").ft2_gr_head_iters()
+    shuffle = torch.Generator(device=s.device).manual_seed(0)
+    for tname, tol in TOLERANCES.items():
+        rows = {}
+        ftol, gtol = tol["ftol"], tol["gtol"]
+        two = dict(ftol=ftol, gtol=gtol, full_budget=False, stall_iters=3, stall_tol=max(ftol, 1e-3))
+        three = dict(ftol=ftol, gtol=gtol, stall_tol=max(ftol, 1e-6))
+        pre = fused_fit._fit3_cuda(s, "rician", TES3, LO3_RICIAN, HI3, GUESS3, max_iters=PREFIX3,
+                                   **three)
+        pre_steps = torch.nan_to_num(pre[1][2]).double().sum().item()
+        runs = {  # name: (call(signal, max_iters, (x0, st0)), budget, converged row,
+                  #        steps row, iterations in the head (None: not split), bound(steps))
+            "gauss": (lambda sig, it, p0: fused_fit._gauss_fit(
+                sig, TES3, LO, HI, max_iters=it, no_prior=False, **two), 60, 3, 4, None,
+                lambda st: fit_bound(n, 3, out_bytes=17, steps=st)),
+            "gr_varpro": (lambda sig, it, p0: fused_fit._gr_varpro_fit_cuda(
+                sig, TES3, LO3, HI3, GUESS3, max_iters=it, **two), 60, 4, 5, head_iters,
+                lambda st: gr_varpro_bound(n, 3, st, gtol)),
+            "fit3_cont": (lambda sig, it, p0: fused_fit._fit3_cont_cuda(
+                sig, "rician", TES3, LO3_RICIAN, HI3, GUESS3, *p0, max_iters=it, **three),
+                60 - PREFIX3, 4, 5, 0,
+                lambda st: fit3_bound("rician", n, 3, st - pre_steps, cont=True)),
+        }
+        for name, (call, budget, ci, ni, head, bound_of) in runs.items():
+            def fn(sig, it, p0, call=call):  # every output as one float (rows, n) tensor
+                return torch.cat([v.float().reshape(-1, n) for v in call(sig, it, p0)])
+            out = fn(s, budget, pre)
+            iters = torch.zeros(n, dtype=torch.int32, device=s.device)
+            unconverged = {}
+            for k in range(budget):
+                running = ~(fn(s, k, pre)[ci] > 0.5)
+                iters += running
+                unconverged[k] = running.float().mean().item()
+                if unconverged[k] == 0.0:
+                    break
+            key = ((out[ci] > 0.5).long() << 20) + (iters.long() << 10) \
+                + torch.nan_to_num(out[ni]).long()
+            perm = torch.argsort(key, stable=True)
+            s_p = s[perm].contiguous()
+            pre_p = tuple(t[:, perm].contiguous() for t in pre)
+            want, got = out[:, perm], fn(s_p, budget, pre_p)
+            gate(bool(((got == want) | (got.isnan() & want.isnan())).all()),
+                 f"{name}, {tname} tolerances: sorted input did not give the sorted output bitwise")
+            row = {"ms": cuda_ms(lambda: call(s, budget, pre), 5),
+                   "sorted_ms": cuda_ms(lambda: call(s_p, budget, pre_p), 5),
+                   "unconverged": {k: v for k, v in unconverged.items() if k in TAIL_KS},
+                   "voxel_iters": iters.float().mean().item(),
+                   "warp_iters": iters.view(-1, 32).amax(1).float().mean().item(),
+                   "sorted_warp_iters": iters[perm].view(-1, 32).amax(1).float().mean().item(),
+                   "bound": bound_of(torch.nan_to_num(out[ni]).double().sum().item())}
+            if head is not None:
+                row["tail_share"] = unconverged.get(head, 0.0)
+                row["alone_ms"] = cuda_ms(lambda: call(s, 0, pre), 5)
+                places = torch.nonzero(iters[perm] > head).squeeze(1)
+                mixed = perm.clone()
+                mixed[places] = perm[places[torch.randperm(places.numel(), generator=shuffle,
+                                                           device=s.device)]]
+                s_m = s[mixed].contiguous()
+                pre_m = tuple(t[:, mixed].contiguous() for t in pre)
+                row["mixed_ms"] = cuda_ms(lambda: call(s_m, budget, pre_m), 5)
+                del s_m, pre_m
+            rows[name] = row
+            del out, s_p, pre_p, want, got, iters
+        text = "; ".join(
+            f"{name} {r['ms']:.3f} ms, sorted input {r['sorted_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})"
+            + (f", {'prelude' if name == 'gr_varpro' else 'sweep'} alone {r['alone_ms']:.3f} ms, "
+               f"sent to the tail {r['tail_share']:.5f}, sorted with the tail's voxels shuffled "
+               f"in place {r['mixed_ms']:.3f} ms" if "tail_share" in r else "")
+            + f", iterations per voxel {r['voxel_iters']:.3f}, per warp {r['warp_iters']:.3f} "
+            f"(sorted {r['sorted_warp_iters']:.3f}), unconverged after K iterations {{"
+            + ", ".join(f"{k}: {v:.5f}" for k, v in r["unconverged"].items()) + "}"
+            for name, r in rows.items())
+        print(f"phase 6 warps 256^3 x 3 TEs, {tname} tolerances (ftol {ftol:g}, gtol {gtol:g}): "
+              f"{text}", flush=True)
+
+
 def phase6_headline3():
     """Dense 256^3 x 3 TEs per 3-parameter model with bench.py's generator
     (seed 0): gates of bench.py:310-366, kernel vs plain, and the times of
-    each kernel and its plain version (CUDA events)."""
+    each kernel and its plain version (CUDA events); then warp_profile."""
     sig, k_true, t2_true, ident = make_data3(N_HEADLINE3, TES3, seed=0)
     s = torch.from_numpy(sig).cuda()
     idx = np.random.default_rng(1).choice(np.flatnonzero(ident), 256, replace=False)
@@ -530,6 +663,7 @@ def phase6_headline3():
         for name, (kern, plain) in runs.items():
             out_k = kern()
             r_t, b, d = bands3(out_k, plain(), ident, f"{name} 256^3")
+            gate(b == 1.0, f"{name} at 256^3 is bitwise its plain version on {b:.6f} of the voxels")
             text += r_t
             worst[name] = (b, d)
             times[name] = (cuda_ms(kern, 3), cuda_ms(plain, 1))
@@ -537,17 +671,17 @@ def phase6_headline3():
             # its start (x0, st0); stats row 2 is the accepted steps, the
             # continuation's counted on from the prefix's
             steps = torch.nan_to_num(out_k[1][2]).double().sum().item()
+            is_cont = name == "fit3_cont"
+            if is_cont:
+                steps -= torch.nan_to_num(pre[1][2]).double().sum().item()
             if name == "gr_varpro":
-                bounds[name], detail = fit_bound(N_HEADLINE3, 3, out_bytes=24, steps=steps), ""
+                bounds[name] = gr_varpro_bound(N_HEADLINE3, 3, steps, TOL3["gtol"])
             else:
-                is_cont = name == "fit3_cont"
-                if is_cont:
-                    steps -= torch.nan_to_num(pre[1][2]).double().sum().item()
                 bounds[name] = fit3_bound(model, N_HEADLINE3, 3, steps, cont=is_cont)
-                old = fit_bound(N_HEADLINE3, 3, out_bytes=24, in_extra=24 if is_cont else 0,
-                                steps=steps, starts=1 if is_cont else 3)
-                detail = (f": {bounds[name][2]:.4g} fp32 operations, {steps:.6g} accepted steps; "
-                          f"transcendentals-and-bytes bound {old[0]:.4f} ms")
+            old = fit_bound(N_HEADLINE3, 3, out_bytes=24, in_extra=24 if is_cont else 0,
+                            steps=steps, starts=3 if name == "fit3" else 1)
+            detail = (f": {bounds[name][2]:.4g} fp32 operations, {steps:.6g} accepted steps; "
+                      f"transcendentals-and-bytes bound {old[0]:.4f} ms")
             text += (f" {name} kernel {times[name][0]:.3f} ms, plain {times[name][1]:.1f} ms, "
                      f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}{detail});")
         if model == "rician":
@@ -558,6 +692,7 @@ def phase6_headline3():
               f"unconverged-identifiable {unconv_ident:.2e}, mean accepted steps "
               f"{res.n_iter.float().mean().item():.3f}, n_overflow {res.n_overflow};{text}",
               flush=True)
+    warp_profile(s)
     return times, worst, bounds
 
 
@@ -866,7 +1001,7 @@ def main() -> int:
         return out
 
     smi, has_mpl = timed("phase 0", phase0_environment)
-    timed("phase 1", phase1_build)
+    spills = timed("phase 1", phase1_build)
     diff2 = timed("phase 2", phase2_parity)
     kernel_ms, plain_ms, diff3, g_bound = timed("phase 3", phase3_headline)
     launches, diff4 = timed("phase 4", phase4_main_path, has_mpl)
@@ -876,6 +1011,7 @@ def main() -> int:
     conv_err, conv_times, conv_bound = timed("phase 8", phase8_conv)
     seg_launches = timed("phase 9", phase9_segmentation)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
+    gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{
         "name": "gauss_fit", "route": "cuda",
         "source": "fetal_t2mapping_tpu_torch/csrc/gauss_fit.cu",

@@ -47,13 +47,17 @@ SIGNATURES = {
                           _VP, _VP, _VP, _VP, _VP, _VP],
         "ft2_gauss_params_floats": []},
     "gr_varpro_fit": {
-        "ft2_gr_varpro_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _VP, _VP, _VP],
+        "ft2_gr_varpro_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP],
         "ft2_gr_params_floats": [],
+        "ft2_gr_slot_rows": [_I32],
+        "ft2_gr_head_iters": [],
         "ft2_rsqrt_probe": [_VP, _I64, _VP, _VP, _VP]},
     "fit3": {
         "ft2_fit3_multistart": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP],
-        "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _VP],
-        "ft2_fit3_params_floats": []},
+        "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _VP],
+        "ft2_fit3_params_floats": [],
+        "ft2_fit3_cont_slot_rows": []},
     "conv_s2d": {
         "ft2_conv_s2d_f32": [_VP] * 5 + [_I32] * 6 + [_VP],
         "ft2_conv_s2d_bf16": [_VP] * 5 + [_I32] * 9 + [_VP],

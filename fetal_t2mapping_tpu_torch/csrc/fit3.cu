@@ -31,13 +31,21 @@
 //   warps over 32 voxels, warp w running start w (so a warp never diverges
 //   on the kind of start), and the lowest-objective start is picked in
 //   shared memory after the block's barrier, in jnp.argmin's order;
-// - the continuation runs one thread per voxel;
+// - the continuation is two kernels: a warp issues until its slowest lane
+//   stops, and after the prefix most voxels have converged while the few
+//   that have not are scattered (4% at 256^3 x 3 TEs under the bench's
+//   tolerances), so one thread per voxel held nearly every warp for a
+//   straggler's budget. A sweep, one thread per voxel, enters every
+//   voxel's loop (the objective at x0: the same work on every lane),
+//   writes the voxels that enter converged and pushes the entered state of
+//   the others (x, f, convf, nit) into a worklist; a persistent tail resumes them, each lane
+//   taking the next voxel as soon as its own stops (fit_common.cuh);
 // - T and the model are template parameters so the echo loops unroll, each
 //   thread stops when its own start converged (a converged voxel is frozen,
-//   so results equal the TPU kernel's block-wide loop), the per-voxel log
-//   of the signal and the per-evaluation log of sigma^2 are computed once,
-//   not per echo, and the gradient pass takes i0e and i1e of one argument
-//   in one branch.
+//   so results equal the TPU kernel's block-wide loop and do not depend on
+//   which lane runs a voxel), the per-voxel log of the signal and the
+//   per-evaluation log of sigma^2 are computed once, not per echo, and the
+//   gradient pass takes i0e and i1e of one argument in one branch.
 // On the H100 the three starts spread over three threads ran about as fast
 // as the three in one thread: more warps in flight do not help a kernel
 // bound by issue; doing less does.
@@ -48,8 +56,9 @@
 // division and square root, NaN-keeping clips, and -fmad=false.
 //
 // Everything above the "kernel and C entry" marker is per-thread code that
-// also compiles as host C++ (tests/test_torch_fit3_host.py runs it there,
-// one voxel's three starts in turn, against the plain version).
+// also compiles as host C++ (tests/test_torch_fit3_host.py runs it there:
+// one voxel's three starts in turn, and the continuation's sweep, worklist
+// and tail, against the plain versions).
 
 #include <cstdint>
 #include <cstring>
@@ -368,64 +377,94 @@ __device__ __forceinline__ void masked_solve3(const float (&h)[3][3],
   p[2] = -(c02 * b0 + c12 * b1 + c22 * b2) * inv_det * fm[2];
 }
 
-// Bounded damped-Newton loop for one start (_newton3). x enters as the
-// start (clipped here) and leaves as the last accepted iterate; convf/nit
-// enter as the resumed state (0 for a fresh start).
+// The Newton loop's carried state for one start.
+template <int T>
+struct Newton {
+  float x[3], f, lam, scnt, convf, nit;
+  float e[T];  // exp(-te/t2) at x
+};
+
+// lam and the stall counter as every run of the loop starts them
+template <int T>
+__device__ __forceinline__ void newton3_restart(Newton<T>& st) {
+  st.lam = 1e-3f;
+  st.scnt = 0.0f;
+}
+
+// Enter the loop (_newton3's prologue): x clipped into the box, f and e
+// evaluated there, lam and the stall counter restarted; convf and nit are
+// the caller's (0 for a fresh start).
+template <class Model, int T>
+__device__ __forceinline__ void newton3_begin(const float (&s)[T], const float (&ls)[T],
+                                              const Fit3Params& p, Newton<T>& st) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) st.x[i] = clip(st.x[i], p.lo[i], p.hi[i]);
+  st.f = Model::template value_e<T>(st.x, s, ls, p, st.e);
+  newton3_restart(st);
+}
+
+// One iteration of a start that has not converged (convf <= 0.5 or NaN;
+// _newton3's loop body, whose terms for a frozen voxel drop out).
+template <class Model, int T>
+__device__ __forceinline__ void newton3_step(const float (&s)[T], const float (&ls)[T],
+                                             const Fit3Params& p, Newton<T>& st) {
+  constexpr float kXtol2 = (float)(1e-6 * 1e-6);
+  const float ftol = p.tols[0], gtol = p.tols[1], stall_tol = p.tols[2];
+  float (&x)[3] = st.x;
+  float &f = st.f, &lam = st.lam, &scnt = st.scnt, &convf = st.convf;
+  float g[3], h[3][3], fm[3], step[3], xn[3], en[T];
+  Model::template fgh<T>(x, s, p, st.e, g, h);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) fm[i] = free_of(x[i], g[i], p.lo_thr[i], p.hi_thr[i]);
+  masked_solve3(h, g, fm, lam, step);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) xn[i] = clip(x[i] + step[i], p.lo[i], p.hi[i]);
+  const float f_new = Model::template value_e<T>(xn, s, ls, p, en);
+
+  const bool accept = f_new <= f;  // false on NaN
+  const float rel_red = (f - f_new) / nmax(nmax(fabsf(f), fabsf(f_new)), 1.0f);
+  const bool conv_f = accept && (rel_red <= ftol) && (lam <= 1.0f);
+  const float d0 = xn[0] - x[0], d1 = xn[1] - x[1], d2 = xn[2] - x[2];
+  const float step_sq = d0 * d0 + d1 * d1 + d2 * d2;
+  const float x_sq = 1.0f + (x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
+  const bool conv_x = step_sq <= kXtol2 * x_sq;
+  bool conv_g = false;
+  if (gtol > 0.0f) {
+    const float pg0 = proj_grad(x[0], g[0], p.lo_thr[0], p.hi_thr[0]);
+    const float pg1 = proj_grad(x[1], g[1], p.lo_thr[1], p.hi_thr[1]);
+    const float pg2 = proj_grad(x[2], g[2], p.lo_thr[2], p.hi_thr[2]);
+    conv_g = nmax(nmax(fabsf(pg0), fabsf(pg1)), fabsf(pg2)) <= gtol;
+  }
+  bool newly = conv_f || conv_x || conv_g || (lam >= 1e6f);
+  // scipy-ftol-style stop: kStallIters accepted-but-slow steps in a row
+  const bool slow_acc = accept && (rel_red <= stall_tol);
+  const bool real_prog = accept && (rel_red > stall_tol);
+  scnt = real_prog ? 0.0f : (slow_acc ? scnt + 1.0f : scnt);
+  newly = newly || (scnt >= (float)kStallIters);
+
+  if (accept) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) x[i] = xn[i];
+    f = f_new;
+#pragma unroll
+    for (int t = 0; t < T; ++t) st.e[t] = en[t];
+    st.nit += 1.0f;
+  }
+  lam = clip(accept ? lam * 0.2f : lam * 5.0f, 1e-12f, 1e10f);
+  convf = nmax(convf, newly ? 1.0f : 0.0f);
+}
+
+// Bounded damped-Newton loop for one start (_newton3). st.x enters as the
+// start (clipped here) and leaves as the last accepted iterate; st.convf
+// and st.nit enter as the resumed state (0 for a fresh start).
 template <class Model, int T>
 __device__ __forceinline__ void newton3(const float (&s)[T], const float (&ls)[T],
                                         const Fit3Params& p, int max_iters,
-                                        float (&x)[3], float& f, float& convf,
-                                        float& nit) {
-  constexpr float kXtol2 = (float)(1e-6 * 1e-6);
-  const float ftol = p.tols[0], gtol = p.tols[1], stall_tol = p.tols[2];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) x[i] = clip(x[i], p.lo[i], p.hi[i]);
-  float e[T];
-  f = Model::template value_e<T>(x, s, ls, p, e);
-  float lam = 1e-3f, scnt = 0.0f;
+                                        Newton<T>& st) {
+  newton3_begin<Model, T>(s, ls, p, st);
   for (int it = 0; it < max_iters; ++it) {
-    const bool conv = convf > 0.5f;
-    if (conv) break;
-    float g[3], h[3][3], fm[3], step[3], xn[3], en[T];
-    Model::template fgh<T>(x, s, p, e, g, h);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) fm[i] = free_of(x[i], g[i], p.lo_thr[i], p.hi_thr[i]);
-    masked_solve3(h, g, fm, lam, step);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) xn[i] = clip(x[i] + step[i], p.lo[i], p.hi[i]);
-    const float f_new = Model::template value_e<T>(xn, s, ls, p, en);
-
-    const bool accept = f_new <= f;  // false on NaN
-    const float rel_red = (f - f_new) / nmax(nmax(fabsf(f), fabsf(f_new)), 1.0f);
-    const bool conv_f = accept && (rel_red <= ftol) && (lam <= 1.0f);
-    const float d0 = xn[0] - x[0], d1 = xn[1] - x[1], d2 = xn[2] - x[2];
-    const float step_sq = d0 * d0 + d1 * d1 + d2 * d2;
-    const float x_sq = 1.0f + (x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
-    const bool conv_x = step_sq <= kXtol2 * x_sq;
-    bool conv_g = false;
-    if (gtol > 0.0f) {
-      const float pg0 = proj_grad(x[0], g[0], p.lo_thr[0], p.hi_thr[0]);
-      const float pg1 = proj_grad(x[1], g[1], p.lo_thr[1], p.hi_thr[1]);
-      const float pg2 = proj_grad(x[2], g[2], p.lo_thr[2], p.hi_thr[2]);
-      conv_g = nmax(nmax(fabsf(pg0), fabsf(pg1)), fabsf(pg2)) <= gtol;
-    }
-    bool newly = (conv_f || conv_x || conv_g || (lam >= 1e6f)) && !conv;
-    // scipy-ftol-style stop: kStallIters accepted-but-slow steps in a row
-    const bool slow_acc = accept && (rel_red <= stall_tol) && !conv;
-    const bool real_prog = accept && (rel_red > stall_tol);
-    scnt = (conv || real_prog) ? 0.0f : (slow_acc ? scnt + 1.0f : scnt);
-    newly = newly || ((scnt >= (float)kStallIters) && !conv);
-
-    if (accept && !conv) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) x[i] = xn[i];
-      f = f_new;
-#pragma unroll
-      for (int t = 0; t < T; ++t) e[t] = en[t];
-      nit += 1.0f;
-    }
-    if (!conv) lam = clip(accept ? lam * 0.2f : lam * 5.0f, 1e-12f, 1e10f);
-    convf = nmax(convf, newly ? 1.0f : 0.0f);
+    if (st.convf > 0.5f) break;
+    newton3_step<Model, T>(s, ls, p, st);
   }
 }
 
@@ -493,7 +532,8 @@ __device__ __forceinline__ void run_start(const float (&s)[T], const float (&ls)
                                           const Fit3Params& p, int max_iters, int start,
                                           float (&out)[6]) {
   constexpr bool kInterpStart = std::is_same<Model, GaussRician>::value && T == 3;
-  float x[3];
+  Newton<T> st;
+  float (&x)[3] = st.x;
   if (start == 0) {
     loglin_start3<T>(s, p, x);
   } else if (start == 1) {
@@ -508,14 +548,15 @@ __device__ __forceinline__ void run_start(const float (&s)[T], const float (&ls)
       x[2] = p.fb[2];
     }
   }
-  float f, convf = 0.0f, nit = 0.0f;
-  newton3<Model, T>(s, ls, p, max_iters, x, f, convf, nit);
+  st.convf = 0.0f;
+  st.nit = 0.0f;
+  newton3<Model, T>(s, ls, p, max_iters, st);
   out[0] = x[0];
   out[1] = x[1];
   out[2] = x[2];
-  out[3] = f;
-  out[4] = convf;
-  out[5] = nit;
+  out[3] = st.f;
+  out[4] = st.convf;
+  out[5] = st.nit;
 }
 
 // The winning start of three final objectives, as jnp.argmin: the first
@@ -531,6 +572,64 @@ __device__ __forceinline__ int argmin_start(float f0, float f1, float f2) {
   return best;
 }
 
+// The continuation split after its entry. Every voxel enters the loop
+// (newton3_begin at its x0, convf0, nit0); one that enters converged, or
+// with no budget, is done (newton3 with no iteration), every other one is
+// pushed to a worklist with its entered state and resumed: cont_step until
+// it stops.
+__device__ __forceinline__ bool cont_runs(float convf0, int max_iters) {
+  return !(convf0 > 0.5f) && max_iters > 0;
+}
+
+// One resumed iteration with `left` (> 0) iterations of budget; true when
+// the voxel stopped.
+template <class Model, int T>
+__device__ __forceinline__ bool cont_step(const float (&s)[T], const float (&ls)[T],
+                                          const Fit3Params& p, Newton<T>& st, int& left) {
+  newton3_step<Model, T>(s, ls, p, st);
+  return st.convf > 0.5f || --left == 0;
+}
+
+// exp(-te/t2) per echo, by the ops value_e takes (so the same bits)
+template <int T>
+__device__ __forceinline__ void exps_at(float t2, const Fit3Params& p, float (&e)[T]) {
+  const float u_inv = -1.0f / t2;
+#pragma unroll
+  for (int t = 0; t < T; ++t) e[t] = expf(p.te[t] * u_inv);
+}
+
+// A continuation worklist slot: the voxel's index, then its entered state
+// (x, f, convf, nit), one row each. lam and the stall counter are the
+// restart's, and e is recomputed from t2 on resuming rather than carried,
+// which keeps the sweep in 32 registers without a spill at any T.
+constexpr int kContRows = 7;
+
+template <int T>
+__device__ __forceinline__ void save_cont_slot(float* rows, long long cap, long long slot,
+                                               int index, const Newton<T>& st) {
+  float* r = rows + slot;
+  r[0] = index_bits(index);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r[(1 + c) * cap] = st.x[c];
+  r[4 * cap] = st.f;
+  r[5 * cap] = st.convf;
+  r[6 * cap] = st.nit;
+}
+
+template <int T>
+__device__ __forceinline__ int load_cont_slot(const float* rows, long long cap, long long slot,
+                                              const Fit3Params& p, Newton<T>& st) {
+  const float* r = rows + slot;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) st.x[c] = r[(1 + c) * cap];
+  st.f = r[4 * cap];
+  st.convf = r[5 * cap];
+  st.nit = r[6 * cap];
+  exps_at<T>(st.x[1], p, st.e);
+  newton3_restart(st);
+  return index_of(r[0]);
+}
+
 }  // namespace
 
 // ---- kernel and C entry
@@ -541,12 +640,12 @@ constexpr int kVoxPerBlock = 32;                  // one warp of voxels
 constexpr int kStartThreads = 3 * kVoxPerBlock;   // warp w runs start w
 // One thread per (voxel, start); the block's three warps share 32 voxels.
 // Blocks per SM asked of ptxas, from its register counts without a bound
-// (48-56 at T <= 4, up to 72 at T = 8 rician, no spills): 12 blocks (at
-// most 56 registers) up to T = 4, 9 blocks (at most 72) above, so no
-// instance spills. A uniform 9 let ptxas take more registers at T = 3
-// and ran slower on the H100.
+// (48-56 at T = 3, up to 72 at T = 8 rician, no spills): 12 blocks (at
+// most 56 registers) at T <= 3, 9 blocks (at most 72) above, so no
+// instance spills (rician at T = 4 spilled 4 bytes under 12). A uniform 9
+// let ptxas take more registers at T = 3 and ran slower on the H100.
 template <class Model, int T>
-__global__ void __launch_bounds__(kStartThreads, (T <= 4 ? 12 : 9))
+__global__ void __launch_bounds__(kStartThreads, (T <= 3 ? 12 : 9))
 fit3_multistart_kernel(const float* __restrict__ signal, long long n,
                        const Fit3Params p, int max_iters,
                        float* __restrict__ x_out, float* __restrict__ st_out) {
@@ -556,8 +655,7 @@ fit3_multistart_kernel(const float* __restrict__ signal, long long n,
   const long long i = (long long)blockIdx.x * kVoxPerBlock + v;
   if (i < n) {
     float s[T], ls[T], out[6];
-#pragma unroll
-    for (int t = 0; t < T; ++t) s[t] = signal[i * T + t];
+    load_signal<T>(signal, i, s);
     Model::template prepare<T>(s, ls);
     run_start<Model, T>(s, ls, p, max_iters, start, out);
 #pragma unroll
@@ -574,75 +672,127 @@ fit3_multistart_kernel(const float* __restrict__ signal, long long n,
   }
 }
 
-// Continuation: one thread per voxel resumes (x0, convf0, nit0); f0 is
-// re-evaluated.
+template <int T>
+__device__ __forceinline__ void write_result(const Newton<T>& st, long long n, long long i,
+                                             float* x_out, float* st_out) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) x_out[c * n + i] = st.x[c];
+  st_out[i] = st.f;
+  st_out[n + i] = st.convf;
+  st_out[2 * n + i] = st.nit;
+}
+
+// The continuation's sweep: one thread per voxel enters the loop (x0
+// clipped, f and e evaluated there: the same work on every lane). A voxel
+// that enters converged writes its results; every other one pushes its
+// entered state to the worklist for the tail.
 template <class Model, int T>
 __global__ void __launch_bounds__(kThreads)
-fit3_cont_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
-                 int max_iters, const float* __restrict__ x0,
-                 const float* __restrict__ st0, float* __restrict__ x_out,
-                 float* __restrict__ st_out) {
+fit3_sweep_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
+                  int max_iters, const float* __restrict__ x0,
+                  const float* __restrict__ st0, float* __restrict__ x_out,
+                  float* __restrict__ st_out, float* __restrict__ rows, int* counters) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float s[T], ls[T];
+  Newton<T> st;
+  bool runs = false;
+  if (i < n) {
+    float s[T], ls[T];
+    load_signal<T>(signal, i, s);
+    Model::template prepare<T>(s, ls);
 #pragma unroll
-  for (int t = 0; t < T; ++t) s[t] = signal[i * T + t];
-  Model::template prepare<T>(s, ls);
-  float x[3], st[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) x[c] = x0[c * n + i];
-  st[1] = st0[n + i];
-  st[2] = st0[2 * n + i];
-  newton3<Model, T>(s, ls, p, max_iters, x, st[0], st[1], st[2]);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    x_out[c * n + i] = x[c];
-    st_out[c * n + i] = st[c];
+    for (int c = 0; c < 3; ++c) st.x[c] = x0[c * n + i];
+    st.convf = st0[n + i];
+    st.nit = st0[2 * n + i];
+    newton3_begin<Model, T>(s, ls, p, st);
+    runs = cont_runs(st.convf, max_iters);
+    if (!runs) write_result<T>(st, n, i, x_out, st_out);
   }
+  const int slot = push_slot<kThreads>(runs, counters);  // every thread of the block
+  if (runs) save_cont_slot<T>(rows, n, slot, (int)i, st);
+}
+
+// One lane's voxel in the continuation's tail (ft2::drain's job).
+template <class Model, int T>
+struct ContJob {
+  const float* signal;
+  const Fit3Params& p;
+  const float* rows;
+  long long n;
+  int budget;
+  float* x_out;
+  float* st_out;
+  float s[T], ls[T];
+  Newton<T> st;
+  int index, left;
+
+  __device__ __forceinline__ void load(int slot) {
+    index = load_cont_slot<T>(rows, n, slot, p, st);
+    load_signal<T>(signal, index, s);
+    Model::template prepare<T>(s, ls);
+    left = budget;
+  }
+  __device__ __forceinline__ bool step() { return cont_step<Model, T>(s, ls, p, st, left); }
+  __device__ __forceinline__ void store() { write_result<T>(st, n, index, x_out, st_out); }
+};
+
+// The continuation's tail: a persistent grid drains the worklist, each
+// lane refilled as its voxel stops. The pushed count stays on the device.
+template <class Model, int T>
+__global__ void __launch_bounds__(kThreads)
+fit3_tail_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
+                 int max_iters, float* __restrict__ x_out, float* __restrict__ st_out,
+                 const float* __restrict__ rows, int* counters) {
+  ContJob<Model, T> job{signal, p, rows, n, max_iters, x_out, st_out};
+  drain(job, counters);
 }
 
 template <class Model, int T>
-void launch_t(const float* signal, long long n, const Fit3Params& p,
-              int max_iters, const float* x0, const float* st0, float* x,
-              float* st, cudaStream_t stream) {
+int launch_t(const float* signal, long long n, const Fit3Params& p,
+             int max_iters, const float* x0, const float* st0, float* x,
+             float* st, float* rows, int* counters, cudaStream_t stream) {
   if (x0 == nullptr) {
     const unsigned blocks = (unsigned)((n + kVoxPerBlock - 1) / kVoxPerBlock);
     fit3_multistart_kernel<Model, T><<<blocks, kStartThreads, 0, stream>>>(
         signal, n, p, max_iters, x, st);
-  } else {
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    fit3_cont_kernel<Model, T><<<blocks, kThreads, 0, stream>>>(
-        signal, n, p, max_iters, x0, st0, x, st);
+    return (int)cudaGetLastError();
   }
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  fit3_sweep_kernel<Model, T><<<blocks, kThreads, 0, stream>>>(
+      signal, n, p, max_iters, x0, st0, x, st, rows, counters);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fit3_tail_kernel<Model, T><<<persistent_blocks(fit3_tail_kernel<Model, T>, kThreads),
+                               kThreads, 0, stream>>>(
+      signal, n, p, max_iters, x, st, rows, counters);
+  return (int)cudaGetLastError();
 }
 
 template <class Model>
 int launch(const float* signal, long long n, int n_te, const Fit3Params& p,
            int max_iters, const float* x0, const float* st0, float* x,
-           float* st, cudaStream_t s) {
+           float* st, float* rows, int* counters, cudaStream_t s) {
   switch (n_te) {
-    case 2: launch_t<Model, 2>(signal, n, p, max_iters, x0, st0, x, st, s); break;
-    case 3: launch_t<Model, 3>(signal, n, p, max_iters, x0, st0, x, st, s); break;
-    case 4: launch_t<Model, 4>(signal, n, p, max_iters, x0, st0, x, st, s); break;
-    case 5: launch_t<Model, 5>(signal, n, p, max_iters, x0, st0, x, st, s); break;
-    case 6: launch_t<Model, 6>(signal, n, p, max_iters, x0, st0, x, st, s); break;
-    case 7: launch_t<Model, 7>(signal, n, p, max_iters, x0, st0, x, st, s); break;
-    case 8: launch_t<Model, 8>(signal, n, p, max_iters, x0, st0, x, st, s); break;
+    case 2: return launch_t<Model, 2>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 3: return launch_t<Model, 3>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 4: return launch_t<Model, 4>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 5: return launch_t<Model, 5>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 6: return launch_t<Model, 6>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 7: return launch_t<Model, 7>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 8: return launch_t<Model, 8>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int run(const float* signal, long long n, int n_te, int model,
         const float* params, int max_iters, const float* x0, const float* st0,
-        float* x, float* st, void* stream) {
+        float* x, float* st, float* rows, int* counters, void* stream) {
   Fit3Params p;
   std::memcpy(&p, params, sizeof(p));
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (model) {  // fused_fit._MODEL_ID
-    case 0: return launch<GaussRician>(signal, n, n_te, p, max_iters, x0, st0, x, st, s);
-    case 1: return launch<Rician>(signal, n, n_te, p, max_iters, x0, st0, x, st, s);
+    case 0: return launch<GaussRician>(signal, n, n_te, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 1: return launch<Rician>(signal, n, n_te, p, max_iters, x0, st0, x, st, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -650,6 +800,9 @@ int run(const float* signal, long long n, int n_te, int model,
 }  // namespace
 
 extern "C" int ft2_fit3_params_floats() { return kParamFloats; }
+
+// Floats of the continuation's worklist per voxel (rows of n floats).
+extern "C" int ft2_fit3_cont_slot_rows() { return kContRows; }
 
 // signal: (n, n_te) row-major float32 on the device; model: 0
 // gaussian_rician, 1 rician; params: kParamFloats host floats (Fit3Params).
@@ -660,16 +813,22 @@ extern "C" int ft2_fit3_multistart(const float* signal, long long n, int n_te,
                                    int max_iters, float* x_out, float* st_out,
                                    void* stream) {
   return run(signal, n, n_te, model, params, max_iters, nullptr, nullptr,
-             x_out, st_out, stream);
+             x_out, st_out, nullptr, nullptr, stream);
 }
 
 // As ft2_fit3_multistart, resuming one Newton run per voxel from x0 (3, n)
-// with st0 (3, n) = (f, convf, nit) of the multistart prefix's winner.
+// with st0 (3, n) = (f, convf, nit) of the multistart prefix's winner; f0
+// is re-evaluated at the clipped x0. rows: ft2_fit3_cont_slot_rows() x n
+// device floats of worklist; counters: 2 device ints, zero. Two kernels
+// run, the sweep and the tail; returns cudaGetLastError() after the first
+// launch that failed or the last one (0 = launched).
 extern "C" int ft2_fit3_cont(const float* signal, long long n, int n_te,
                              int model, const float* params, int max_iters,
                              const float* x0, const float* st0, float* x_out,
-                             float* st_out, void* stream) {
-  if (x0 == nullptr || st0 == nullptr) return (int)cudaErrorInvalidValue;
+                             float* st_out, float* rows, int* counters, void* stream) {
+  if (x0 == nullptr || st0 == nullptr || rows == nullptr || counters == nullptr ||
+      n > kMaxWorklist)
+    return (int)cudaErrorInvalidValue;
   return run(signal, n, n_te, model, params, max_iters, x0, st0, x_out, st_out,
-             stream);
+             rows, counters, stream);
 }

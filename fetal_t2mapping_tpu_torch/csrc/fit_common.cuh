@@ -1,6 +1,7 @@
 // Device helpers shared by the 3-parameter fit kernels (gr_varpro_fit.cu,
 // fit3.cu): NaN-keeping clips, left-to-right echo sums, the weighted
-// log-linear start and the exact T = 3 gaussian_rician interpolant.
+// log-linear start, the exact T = 3 gaussian_rician interpolant, and the
+// worklist that compacts the voxels still running into a tail kernel.
 //
 // Numerics follow fetal_t2mapping_tpu_torch/models/fused_fit.py op for op
 // (which follows the JAX package's kernels): each helper rounds where its
@@ -12,6 +13,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace ft2 {
 
@@ -60,6 +63,13 @@ __device__ __forceinline__ float dot(const float (&a)[T], const float* b) {
 #pragma unroll
   for (int t = 1; t < T; ++t) acc = acc + a[t] * b[t];
   return acc;
+}
+
+// voxel i's T echoes of an (n, T) row-major signal
+template <int T>
+__device__ __forceinline__ void load_signal(const float* signal, long long i, float (&s)[T]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) s[t] = signal[i * T + t];
 }
 
 // weighted log-linear (k, t2) estimate, unclipped (_loglin_tiles)
@@ -136,5 +146,114 @@ __device__ __forceinline__ void interp_start_gr(
   t2_out = valid ? t2r : fb[1];
   sg_out = valid ? clip(sqrtf(nmax(sg2, 0.0f)), lo[2], hi[2]) : fb[2];
 }
+
+// Bits of a voxel index in a float worklist row, and back.
+__device__ __forceinline__ float index_bits(int i) {
+  float f;
+  memcpy(&f, &i, sizeof(f));
+  return f;
+}
+__device__ __forceinline__ int index_of(float f) {
+  int i;
+  memcpy(&i, &f, sizeof(i));
+  return i;
+}
+
+#ifdef __CUDACC__
+// ---- the worklist of voxels still running
+//
+// A warp issues instructions until its slowest lane stops, so a voxel that
+// needs many iterations holds 31 lanes idle. A fit therefore runs in two
+// kernels: a head, one thread per voxel, writes the voxels that stopped
+// and pushes the state of the others into a slot-indexed worklist
+// (structure of arrays: row r of slot k at rows[r * capacity + k]); a
+// persistent tail drains it, refilling each lane as its voxel stops.
+// counters[0] counts the pushed slots, counters[1] hands them out; both
+// start at 0 (the wrapper zeroes them), and the kernels allocate nothing.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarp = 32;
+// Voxels a worklist takes: slots, indices and the hand-out counter are
+// ints, and the counter may pass the count by 32 per warp of the tail.
+constexpr long long kMaxWorklist = 1LL << 30;
+
+// Blocks of a persistent grid of `kernel`: as many as the card holds at
+// once. A failed query leaves its error for the launch's check.
+template <class Kernel>
+inline unsigned persistent_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return (unsigned)(sms * per_sm > 0 ? sms * per_sm : 1);
+}
+
+// The worklist slot of each thread whose `push` is set, or -1: one
+// atomicAdd per block of kBlock threads (with one per warp, the short
+// continuation sweep waited on the one hot counter), and a block's slots
+// consecutive so its row writes coalesce. Every thread of the block calls
+// it (it holds two __syncthreads).
+template <int kBlock>
+__device__ __forceinline__ int push_slot(bool push, int* counters) {
+  __shared__ int warp_base[kBlock / kWarp];
+  __shared__ int block_base;
+  const unsigned want = __ballot_sync(kFullMask, push);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) warp_base[warp] = __popc(want);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kBlock / kWarp; ++w) {
+      const int count = warp_base[w];
+      warp_base[w] = total;
+      total += count;
+    }
+    block_base = total > 0 ? atomicAdd(&counters[0], total) : 0;
+  }
+  __syncthreads();
+  return push ? block_base + warp_base[warp] + __popc(want & ((1u << lane) - 1u)) : -1;
+}
+
+// The tail's persistent pop loop. Each turn, idle lanes take slots
+// (job.load(slot)) and every lane with a voxel runs one iteration
+// (job.step(), true when the voxel stopped; job.store() then writes its
+// outputs and the lane is idle again), so a warp never waits on one lane
+// while slots remain. A warp reserves 32 slots at a time with one
+// atomicAdd on counters[1] and hands them to its idle lanes in turn.
+// Which lane runs which voxel changes from run to run; no result depends
+// on it. Every lane of the warp calls it.
+template <class Job>
+__device__ __forceinline__ void drain(Job& job, int* counters) {
+  const int n_slots = counters[0];
+  const unsigned below = (1u << (threadIdx.x % kWarp)) - 1u;
+  int from = 0, to = 0;  // the warp's reserved slots not yet handed out
+  bool dry = false, busy = false;
+  for (;;) {
+    const unsigned idle = __ballot_sync(kFullMask, !busy);
+    if (idle != 0 && from == to && !dry) {
+      int base = 0;
+      if (threadIdx.x % kWarp == 0) base = atomicAdd(&counters[1], kWarp);
+      base = __shfl_sync(kFullMask, base, 0);
+      dry = base >= n_slots;
+      from = dry ? 0 : base;
+      to = dry ? 0 : min(base + kWarp, n_slots);
+    }
+    if (idle != 0 && from < to) {
+      const int take = min(__popc(idle), to - from);
+      const int rank = __popc(idle & below);
+      if (!busy && rank < take) {
+        job.load(from + rank);
+        busy = true;
+      }
+      from += take;
+    }
+    if (!__any_sync(kFullMask, busy)) break;  // only once dry: see above
+    if (busy && job.step()) {
+      job.store();
+      busy = false;
+    }
+  }
+}
+#endif  // __CUDACC__
 
 }  // namespace ft2

@@ -1,12 +1,14 @@
 """Fused voxel fits: the counterpart of ``pallas_fit.fit_fused``.
 
 The whole fit of a voxel — starts, basin selection and the damped-Newton
-loop — runs in one pass, touching device memory once per voxel (signal
-in, results out). Each fit has a hand-written CUDA kernel (one thread per
-voxel) used on a CUDA tensor, and a plain PyTorch version of the same
-algorithm, vectorised over voxels, used on a CPU tensor. The choice
-follows the tensor's device only: there is no fallback from a kernel to
-its plain version.
+loop — runs in one call. Each fit has hand-written CUDA kernels used on a
+CUDA tensor (one thread per voxel; the gaussian_rician VARPRO fit and the
+multistart continuation as a head and a persistent tail, which resumes
+the voxels still running from a worklist so no warp waits on one
+straggler), and a plain PyTorch version of the same algorithm,
+vectorised over voxels, used on a CPU tensor. The choice follows the
+tensor's device only: there is no fallback from a kernel to its plain
+version.
 
 | fit | kernel | plain version | replaces (pallas_fit.py) |
 |---|---|---|---|
@@ -116,20 +118,23 @@ def resolve_varpro3(varpro3, model: str) -> bool:
 def resolve_strategy(strategy: str) -> str:
     """'auto' -> 'single', for every model.
 
-    'single' runs one full-budget pass in which every voxel stops on its
-    own. The reference's 'auto' picks the same for gaussian, for rician
-    with prefix pruning and for the gaussian_rician VARPRO kernel. For the
-    3-start multistart without pruning (rician with prefix3=0, and
-    gaussian_rician with varpro3=False) it picks 'twophase' — a short
-    lock-step pass, then compaction of the unconverged tail into a refit
-    buffer — because on the TPU a block runs until its slowest voxel
-    converged. On the GPU each thread stops on its own, so compaction has
-    nothing to win until a measurement says otherwise: 'auto' gives
-    'single' there too. 'twophase' is not ported and raises."""
+    'single' runs one pass over every voxel. The reference's 'auto' picks
+    the same for gaussian, for rician with prefix pruning and for the
+    gaussian_rician VARPRO kernel. For the 3-start multistart without
+    pruning (rician with prefix3=0, and gaussian_rician with varpro3=False)
+    it picks 'twophase' — a short lock-step pass, then a refit from scratch
+    of the unconverged tail, compacted into a buffer — because on the TPU a
+    block runs until its slowest voxel converged. On the GPU a warp runs
+    until its slowest lane stops, the same effect at 32 voxels (measured on
+    the H100, PERF.md), and the compaction lives inside the kernels
+    instead: the gaussian_rician VARPRO fit and the rician continuation push
+    the voxels still running after their head into a worklist that a
+    persistent tail kernel drains, resuming the exact carried state. So
+    'auto' gives 'single'; 'twophase' is not ported and raises."""
     if strategy == "twophase":
         raise NotImplementedError(
-            "strategy 'twophase' (straggler compaction) is not ported: each "
-            "GPU thread stops on its own, see ROADMAP Queue 1 item 3")
+            "strategy 'twophase' (refit of the straggler tail) is not ported: "
+            "the kernels compact their stragglers themselves, see ROADMAP Queue 1 item 3")
     if strategy not in ("single", "auto"):
         raise ValueError(f"unknown strategy {strategy!r}")
     return "single"
@@ -882,6 +887,15 @@ def _check_params(params: np.ndarray, n_floats: int, what: str) -> None:
                            "fused_fit.py and its CUDA source")
 
 
+def _worklist(n_rows: int, n: int, dev):
+    """Device scratch of a split fit kernel: ``n_rows`` x ``n`` floats of
+    worklist (one slot per voxel that may still run after the head) and
+    its two counters (pushed, handed out), zeroed. The kernels allocate
+    nothing themselves."""
+    rows = torch.empty(n_rows * n, dtype=torch.float32, device=dev)
+    return rows, torch.zeros(2, dtype=torch.int32, device=dev)
+
+
 def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
                     ftol: float, gtol: float, no_prior: bool,
                     full_budget: bool, stall_iters: int, stall_tol: float):
@@ -910,7 +924,8 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
 def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
                         max_iters: int, ftol: float, gtol: float,
                         full_budget: bool, stall_iters: int, stall_tol: float):
-    """Launch csrc/gr_varpro_fit.cu; same outputs as the plain version."""
+    """Launch csrc/gr_varpro_fit.cu (its head and tail kernels; one pass
+    with full_budget); same outputs as the plain version."""
     global GR_VARPRO_LAUNCHES
     lib = build.load_lib("gr_varpro_fit")
     n, T = signal.shape
@@ -918,11 +933,13 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
     _check_params(params, lib.ft2_gr_params_floats(), "GrParams")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
+    # the head kernel's worklist for the tail (unused by the full-budget pass)
+    rows, counters = _worklist(0 if full_budget else lib.ft2_gr_slot_rows(T), n, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_gr_varpro_fit(
             signal.data_ptr(), n, T, params.ctypes.data, int(max_iters),
             int(stall_iters), int(full_budget), out[0].data_ptr(),
-            out[1].data_ptr(), build.stream(dev))
+            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
     build.check_launch(err, "gr_varpro_fit")
     GR_VARPRO_LAUNCHES += 1
     return out[0], out[1]
@@ -950,7 +967,7 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
 def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
                     x0: torch.Tensor, st0: torch.Tensor, *, max_iters: int,
                     ftol: float, gtol: float, stall_tol: float):
-    """Launch ft2_fit3_cont (csrc/fit3.cu)."""
+    """Launch ft2_fit3_cont (csrc/fit3.cu: its sweep and tail kernels)."""
     global FIT3_CONT_LAUNCHES
     lib = build.load_lib("fit3")
     n, T = signal.shape
@@ -962,11 +979,12 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
+    rows, counters = _worklist(lib.ft2_fit3_cont_slot_rows(), n, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_fit3_cont(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
             int(max_iters), x0.data_ptr(), st0.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), build.stream(dev))
+            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
     build.check_launch(err, "fit3_cont")
     FIT3_CONT_LAUNCHES += 1
     return out[0], out[1]
@@ -1058,8 +1076,9 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
         no_prior: gaussian only — per-voxel k lower bound = the voxel's
             signal at the shortest TE (reference run_t2mapping.py:243-245);
             pass the scalar no-prior box in lo/hi (k upper 10000, T2 10..2000).
-        strategy: 'single' or 'auto' (see resolve_strategy: always one pass
-            in which each voxel stops on its own); 'twophase' raises.
+        strategy: 'single' or 'auto' (see resolve_strategy: always one
+            call; the kernels compact their own stragglers); 'twophase'
+            raises.
         full_budget: gaussian and VARPRO only — run every voxel to
             ``max_iters`` instead of stopping it once converged (a
             measurement instrument; results are identical).

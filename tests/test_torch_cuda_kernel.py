@@ -6,7 +6,9 @@ H100, ``python3 -m pytest --noconftest tests/test_torch_cuda_kernel.py``
 kernels are built with -fmad=false and follow the plain version op for op,
 and both use the card's IEEE division and accurate expf/logf, so they are
 expected to agree to the last bit; the bench.py:638-652 bands are the gate
-(3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01). The
+(3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01), and
+the split kernels (gr_varpro's head and tail, the continuation's sweep and
+tail) are held to it bitwise, also on a permuted input and a second call. The
 S2D conv kernel sums in another order than its plain version: fp32 within
 1e-5 of scale (TF32 off), bf16 within one ulp of the element on >= 99.9% of
 elements and within two ulps of the output's largest magnitude everywhere.
@@ -115,6 +117,95 @@ def test_fit3_kernels_match_plain_versions(card, model, tes):
                    ident)
     _assert_bands3(cont_k, fused_fit._fit3_cont_plain(s, model, tes, lo, HI3, GUESS, *pre_k,
                                                       max_iters=56, **kw), ident)
+
+
+def _bitwise(out_k, out_p):
+    a, b = torch.cat(out_k), torch.cat(out_p)
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _edge_rows(sig):
+    """The NaN, zero and saturated rows of the host tests, at the front."""
+    sig = sig.copy()
+    sig[0] = np.nan
+    sig[1, 1] = np.nan
+    sig[2] = 0.0
+    sig[3] = 1e6
+    sig[4] = 1e20
+    return sig
+
+
+_GR_KW = dict(max_iters=60, ftol=1e-2, gtol=1e-2, full_budget=False, stall_iters=3,
+              stall_tol=1e-2)
+_CONT_KW = dict(ftol=1e-2, gtol=1e-2, stall_tol=1e-2)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("case", ["bench", "no_tail", "largest_tail"])
+def test_gr_varpro_head_and_tail_are_bitwise_the_plain_version(card, case, n):
+    """The head kernel, the worklist and the tail against the plain version,
+    bitwise: at the bench's tolerances; with no voxel in the tail (a budget
+    the head runs in full); with the largest tail the stop rules allow
+    (ftol = gtol = stall_tol = 0)."""
+    sig, _ = _make_data(n, TES3, seed=7)
+    s = torch.from_numpy(_edge_rows(sig) if n > 5 else sig).to(card)
+    kw = dict(_GR_KW)
+    if case == "no_tail":
+        kw["max_iters"] = 1
+    elif case == "largest_tail":
+        kw.update(ftol=0.0, gtol=0.0, stall_tol=0.0)
+    out_k = fused_fit._gr_varpro_fit_cuda(s, TES3, LO3, HI3, GUESS, **kw)
+    torch.cuda.synchronize()
+    assert _bitwise(out_k, fused_fit._gr_varpro_fit_plain(s, TES3, LO3, HI3, GUESS, **kw))
+
+
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("case", ["bench", "no_tail", "largest_tail"])
+@pytest.mark.parametrize("model", ["gaussian_rician", "rician"])
+def test_fit3_cont_sweep_and_tail_are_bitwise_the_plain_version(card, model, case, n):
+    """The continuation's sweep, worklist and tail against the plain
+    version, bitwise, from the kernel's own 4-iteration prefix: as is;
+    with every voxel entering converged (no tail); with every voxel
+    entering unconverged (the largest tail)."""
+    sig, _ = _make_data(n, TES3, seed=8)
+    s = torch.from_numpy(_edge_rows(sig) if n > 5 else sig).to(card)
+    lo = LO3[:2] + (max(LO3[2], 1e-2),)
+    x0, st0 = fused_fit._fit3_cuda(s, model, TES3, lo, HI3, GUESS, max_iters=4, **_CONT_KW)
+    if case != "bench":
+        st0 = st0.clone()
+        st0[1] = 1.0 if case == "no_tail" else 0.0
+    out_k = fused_fit._fit3_cont_cuda(s, model, TES3, lo, HI3, GUESS, x0, st0, max_iters=56,
+                                      **_CONT_KW)
+    torch.cuda.synchronize()
+    assert _bitwise(out_k, fused_fit._fit3_cont_plain(s, model, TES3, lo, HI3, GUESS, x0, st0,
+                                                      max_iters=56, **_CONT_KW))
+
+
+@pytest.mark.parametrize("kernel", ["gr_varpro", "fit3_cont"])
+def test_split_kernels_give_permuted_bits_and_repeat(card, kernel):
+    """A permuted input gives the permuted output bitwise (no result depends
+    on which lane or slot a voxel takes), and two calls in a row give the
+    same bits."""
+    sig, _ = _make_data(1 << 16, TES3, seed=9)
+    s = torch.from_numpy(_edge_rows(sig)).to(card)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(s.shape[0])).to(card)
+    if kernel == "gr_varpro":
+        def run(sig_, *_):
+            return torch.cat(fused_fit._gr_varpro_fit_cuda(sig_, TES3, LO3, HI3, GUESS, **_GR_KW))
+        starts = ()
+    else:
+        lo = LO3[:2] + (max(LO3[2], 1e-2),)
+        starts = fused_fit._fit3_cuda(s, "rician", TES3, lo, HI3, GUESS, max_iters=4, **_CONT_KW)
+
+        def run(sig_, x0, st0):
+            return torch.cat(fused_fit._fit3_cont_cuda(sig_, "rician", TES3, lo, HI3, GUESS, x0,
+                                                       st0, max_iters=56, **_CONT_KW))
+    first = run(s, *starts)
+    again = run(s, *starts)
+    permuted = run(s[perm].contiguous(), *(t[:, perm].contiguous() for t in starts))
+    torch.cuda.synchronize()
+    assert _bitwise((first,), (again,))
+    assert _bitwise((permuted,), (first[:, perm],))
 
 
 def test_kernel_rsqrt_is_torch_rsqrt(card):

@@ -83,6 +83,56 @@ bool fit_t(int T, const float* sig, long n, const Fit3Params& p, int it, float* 
   return true;
 }
 
+// The continuation as the card runs it: the sweep enters every voxel's
+// loop (x0 clipped, the objective there) and writes a voxel that enters
+// converged, or with no budget, or pushes its entered state; then the tail
+// over the worklist's slots from the last to the first. Returns the slots
+// pushed.
+template <class Model, int T>
+long cont(const float* sig, long n, const Fit3Params& p, int max_iters, const float* x0,
+          const float* st0, float* x, float* st) {
+  std::vector<float> rows((size_t)kContRows * n);
+  long pushed = 0;
+  auto write = [&](const Newton<T>& nt, long i) {
+    for (int c = 0; c < 3; ++c) x[c * n + i] = nt.x[c];
+    st[i] = nt.f;
+    st[n + i] = nt.convf;
+    st[2 * n + i] = nt.nit;
+  };
+  for (long i = 0; i < n; ++i) {
+    float s[T], ls[T];
+    for (int t = 0; t < T; ++t) s[t] = sig[i * T + t];
+    Model::template prepare<T>(s, ls);
+    Newton<T> nt;
+    for (int c = 0; c < 3; ++c) nt.x[c] = x0[c * n + i];
+    nt.convf = st0[n + i];
+    nt.nit = st0[2 * n + i];
+    newton3_begin<Model, T>(s, ls, p, nt);
+    if (cont_runs(nt.convf, max_iters)) save_cont_slot<T>(rows.data(), n, pushed++, (int)i, nt);
+    else write(nt, i);
+  }
+  for (long slot = pushed - 1; slot >= 0; --slot) {
+    Newton<T> nt;
+    const int i = load_cont_slot<T>(rows.data(), n, slot, p, nt);
+    float s[T], ls[T];
+    for (int t = 0; t < T; ++t) s[t] = sig[(long)i * T + t];
+    Model::template prepare<T>(s, ls);
+    int left = max_iters;
+    while (!cont_step<Model, T>(s, ls, p, nt, left)) {
+    }
+    write(nt, i);
+  }
+  return pushed;
+}
+
+template <class Model>
+long cont_t(int T, const float* sig, long n, const Fit3Params& p, int it, const float* x0,
+            const float* st0, float* x, float* st) {
+  if (T == 3) return cont<Model, 3>(sig, n, p, it, x0, st0, x, st);
+  if (T == 6) return cont<Model, 6>(sig, n, p, it, x0, st0, x, st);
+  std::exit(2);
+}
+
 std::vector<float> read_floats(const char* path, size_t count) {
   std::vector<float> v(count);
   FILE* f = std::fopen(path, "rb");
@@ -95,11 +145,31 @@ std::vector<float> read_floats(const char* path, size_t count) {
 
 // fit3_host model T max_iters n params.bin signal.bin out.bin
 //   out.bin: x (3, n) then stats (3, n), float32
+// fit3_host cont model T max_iters n params.bin signal.bin start.bin out.bin
+//   start.bin: x0 (3, n) then st0 (3, n); prints the slots pushed
 // fit3_host argmin f0 f1 f2: prints the winning start
 int main(int argc, char** argv) {
   if (argc == 5 && std::string(argv[1]) == "argmin") {
     std::printf("%d\n", argmin_start(std::strtof(argv[2], nullptr), std::strtof(argv[3], nullptr),
                                      std::strtof(argv[4], nullptr)));
+    return 0;
+  }
+  if (argc == 10 && std::string(argv[1]) == "cont") {
+    const int model = std::atoi(argv[2]), T = std::atoi(argv[3]), it = std::atoi(argv[4]);
+    const long n = std::atol(argv[5]);
+    std::vector<float> pf = read_floats(argv[6], kParamFloats);
+    Fit3Params p;
+    std::memcpy(&p, pf.data(), sizeof(p));
+    std::vector<float> sig = read_floats(argv[7], (size_t)n * T);
+    std::vector<float> start = read_floats(argv[8], 6 * (size_t)n), out(6 * (size_t)n);
+    const float *x0 = start.data(), *st0 = start.data() + 3 * n;
+    const long pushed = model == 0
+        ? cont_t<GaussRician>(T, sig.data(), n, p, it, x0, st0, out.data(), out.data() + 3 * n)
+        : cont_t<Rician>(T, sig.data(), n, p, it, x0, st0, out.data(), out.data() + 3 * n);
+    FILE* f = std::fopen(argv[9], "wb");
+    std::fwrite(out.data(), sizeof(float), out.size(), f);
+    std::fclose(f);
+    std::printf("%ld\n", pushed);
     return 0;
   }
   if (argc != 8) return 2;
@@ -224,3 +294,53 @@ def test_host_argmin_start_is_numpys_argmin(fit3_host, fs):
     out = subprocess.run([str(fit3_host), "argmin", *(repr(float(v)) for v in fs)],
                          capture_output=True, text=True, check=True).stdout
     assert int(out) == int(np.argmin(np.asarray(fs, np.float32)))
+
+
+@pytest.mark.parametrize("start", ["prefix", "all_running", "no_budget"])
+@pytest.mark.parametrize("tes", [TES3, TES6], ids=["3te", "6te"])
+@pytest.mark.parametrize("model", ["gaussian_rician", "rician"])
+def test_host_continuation_sweep_and_tail_are_bitwise_the_plain_version(
+        fit3_host, f64_math, tmp_path, model, tes, start):
+    """The continuation's sweep (every voxel's f re-evaluated at the clipped
+    x0; converged voxels written), worklist of entered states (e recomputed
+    on resuming) and tail (slots taken in reverse) against
+    ``_fit3_cont_plain``: from the plain 4-iteration
+    prefix, from the same x0 with every voxel running (the largest tail),
+    and with no budget (every voxel written by the sweep)."""
+    lo = LO_RICIAN if model == "rician" else LO
+    sig = _signal(tes, seed=len(tes) + 1)
+    x0, st0 = fused_fit._fit3_plain(torch.from_numpy(sig), model, tes, lo, HI, GUESS,
+                                    max_iters=4, **TOLS)
+    if start == "all_running":
+        # no voxel enters converged; a few enter with convf0 NaN or 0.25,
+        # which the resumed loop carries (nmax keeps the NaN)
+        st0 = st0.clone()
+        st0[1] = 0.0
+        st0[1, :4] = float("nan")
+        st0[1, 4:8] = 0.25
+    max_iters = 0 if start == "no_budget" else 56
+    params = fused_fit._fit3_kernel_params(tes, lo, HI, GUESS, TOLS["ftol"], TOLS["gtol"],
+                                           TOLS["stall_tol"])
+    (tmp_path / "params.bin").write_bytes(np.asarray(params, np.float32).tobytes())
+    (tmp_path / "signal.bin").write_bytes(sig.tobytes())
+    (tmp_path / "start.bin").write_bytes(torch.cat([x0, st0]).numpy().astype(np.float32).tobytes())
+    out = subprocess.run([str(fit3_host), "cont", str(fused_fit._MODEL_ID[model]), str(len(tes)),
+                          str(max_iters), str(N_VOX), str(tmp_path / "params.bin"),
+                          str(tmp_path / "signal.bin"), str(tmp_path / "start.bin"),
+                          str(tmp_path / "out.bin")], capture_output=True, text=True, check=True)
+    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(2, 3, N_VOX)
+    x, st = fused_fit._fit3_cont_plain(torch.from_numpy(sig), model, tes, lo, HI, GUESS, x0, st0,
+                                       max_iters=max_iters, **TOLS)
+    want = np.stack([x.numpy(), st.numpy()])
+    assert np.isfinite(want[0]).all() and np.isfinite(want[1, 0]).all()
+    same = _same_bits(got, want).all(axis=(0, 1))
+    assert same.all(), f"{(~same).sum()} of {N_VOX} voxels differ, first {np.flatnonzero(~same)[:5]}"
+    running = ~(st0[1] > 0.5).numpy() if max_iters else np.zeros(N_VOX, bool)
+    assert int(out.stdout) == running.sum()
+    assert start != "all_running" or running.all()
+    # a voxel the sweep wrote keeps its x0 (in the box already), convf0 and
+    # nit0, and its f re-evaluated there is the prefix's f to the bit
+    done = ~running
+    assert done.any() == (start != "all_running")
+    assert _same_bits(got[0][:, done], x0.numpy()[:, done]).all()
+    assert _same_bits(got[1][:, done], st0.numpy()[:, done]).all()
