@@ -12,17 +12,21 @@ BIDS session. Phases 8-9, the SynthSeg U-Net: the S2D conv kernel against
 its plain version at the 160^3 level-0 shape and two ragged ones, then the
 segmentation step ``run_segmentation`` with ``SynthSegRunner(mode="torch")``
 and ``FT2_UNET_S2D=kernel`` over a synthetic 160^3 recon, at the full
-SynthSeg width with random weights. Each phase prints one line with its
-wall time; any failed gate or error exits non-zero. The second-to-last
-lines are the kernels' JSON record and the card's name and power limit;
-the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
-Exits non-zero before doing anything where ``torch.cuda.is_available()``
-is False, and fails to import outside a checkout of the repository.
+SynthSeg width with random weights. Phase 10, the start from the protocol
+guess: ``fit_stack`` with ``loglinear_init=False`` (the two-phase solver)
+per model at 2^20 voxels, held against the same call on the CPU on a
+subset. Each phase prints one line with its wall time; any failed gate or
+error exits non-zero. The second-to-last lines are the kernels' JSON
+record and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX. Exits non-zero
+before doing anything where ``torch.cuda.is_available()`` is False, and
+fails to import outside a checkout of the repository.
 """
 
 from __future__ import annotations
 
 import csv
+import ctypes
 import json
 import math
 import os
@@ -40,9 +44,11 @@ import torch
 from fetal_t2mapping_tpu_torch import build
 from fetal_t2mapping_tpu_torch import config as C
 from fetal_t2mapping_tpu_torch.core import EchoStack, Volume, nifti
+from fetal_t2mapping_tpu_torch.core.stack import pad_bucket
 from fetal_t2mapping_tpu_torch.labels import SynthSegRunner, conv_s2d, unet3d
 from fetal_t2mapping_tpu_torch.models import fused_fit
 from fetal_t2mapping_tpu_torch.models.oracle import _objective, curve_fit_t2, fit_batch_scipy
+from fetal_t2mapping_tpu_torch.models.t2map import fit_stack
 from fetal_t2mapping_tpu_torch.pipeline import run_segmentation
 from fetal_t2mapping_tpu_torch.pipeline.t2map_pipeline import process_t2maps
 from fetal_t2mapping_tpu_torch.utils.bids import get_img_path
@@ -121,6 +127,35 @@ def fit_bound(n, T, out_bytes, steps, starts=1, in_extra=0):
     and T per accepted Newton step (``steps`` summed over voxels) — so the
     bound is a lower one."""
     return bound(n * (T * 4 + in_extra + out_bytes), n * T * (1 + starts) + T * steps, FP32_OPS)
+
+
+def gauss_ops(T: int, gtol: float):
+    """fp32 operations of csrc/gauss_fit.cu at T echoes, counted from the
+    source as fit3_ops counts fit3.cu (proj_grad five, a logical and/or
+    one). Returns (prelude, iteration): the prelude once per voxel — the
+    prior k box 2, the log-linear start 12 T + 14 and its clips 4, e at t2
+    1 + 2 T, the objective 4 T, the 12-point grid (a dot, k, the objective,
+    the compare and T + 4 selects) 84 T + 84; one accepted loop turn — the
+    gradient and curvature sums 13 T - 4 and scalings 6, the Schur
+    reduction 9, the KKT test 8, the damped step 10 and its clip 3, e at
+    the candidate 1 + 2 T, k there 4 T + 2, the objective 4 T, the stop
+    tests and update T + 53, and the gtol test 2 T + 14 when gtol > 0."""
+    prelude = 2 + (12 * T + 14) + 4 + (1 + 2 * T) + 4 * T + (84 * T + 84)
+    iteration = (13 * T - 4) + 6 + 9 + 8 + 10 + 3 + (1 + 2 * T) + (4 * T + 2) + 4 * T \
+        + (T + 53) + (2 * T + 14 if gtol > 0 else 0)
+    return prelude, iteration
+
+
+def gauss_bound(n, T, steps, gtol):
+    """Bound of ft2_gauss_fit on n voxels x T echoes: the larger of the
+    bytes (signal in; k, t2, f float32, converged uint8, n_iter int32 out:
+    17 bytes) and the fp32 operations of every voxel's prelude plus its
+    accepted loop turns (``steps``, n_iter summed; rejected turns are not
+    counted, so the bound is a lower one). Returns (ms, by, operations)."""
+    prelude, iteration = gauss_ops(T, gtol)
+    n_ops = n * prelude + steps * iteration
+    ms, by = bound(n * (T * 4 + 17), n_ops, FP32_OPS)
+    return ms, by, n_ops
 
 
 def fit3_ops(model: str, T: int):
@@ -225,7 +260,7 @@ def phase1_build() -> float:
         for entry, body in re.findall(r"Compiling entry function '(\S+)'.*?\n(.*?Used \d+ registers[^\n]*)",
                                       log, re.S):
             inst = re.search(r"(Rician|GaussRician)?E?Li(\d)E", entry)
-            kind = re.search(r"(?:gr_varpro|fit3)_([a-z]+)_kernel", entry)
+            kind = re.search(r"(?:gauss|gr_varpro|fit3)_([a-z]+)_kernel", entry)
             if name == "conv_s2d":
                 key = f"conv_s2d/{'bf16' if 'conv_s2d_bf16' in entry else 'fp32'}"
             elif inst:
@@ -238,11 +273,14 @@ def phase1_build() -> float:
             regs[key] = (int(re.search(r"Used (\d+) registers", body).group(1)),
                          int(spill.group(1)) if spill else 0, int(stack.group(1)) if stack else 0)
     spills = {k: v[1] for k, v in regs.items() if v[1]}
+    gauss_regs = {k[len("gauss_fit/"):]: v[:2] for k, v in sorted(regs.items())
+                  if k.startswith("gauss_fit/")}
     flags = {name: " ".join(build.SOURCE_FLAGS[name]) or "-" for name in libs}
     print(f"phase 1 build: {sorted(libs)} -> sm_90a ({' '.join(build.COMMON_FLAGS)}; per source "
           f"{flags}) in {dt:.2f} s; registers/spill bytes/stack bytes at T=3 and 8 and of the conv: "
           f"{ {k: v for k, v in sorted(regs.items()) if k.endswith(('T3', 'T8', 'bf16', 'fp32'))} }",
           flush=True)
+    print(f"phase 1 gauss_fit registers/spill bytes per kernel and T: {gauss_regs}", flush=True)
     cuobjdump = shutil.which("cuobjdump", path=os.path.dirname(build.nvcc())) \
         or shutil.which("cuobjdump")
     if cuobjdump:
@@ -269,25 +307,31 @@ def phase1_build() -> float:
 
 
 def compare(s, tes, ident, no_prior=False):
-    """Kernel vs plain version on one (N, T) CUDA batch, gated by the
-    bench.py:638-652 bands on identifiable voxels (params 1e-3 and
-    objective 1e-2 relative, convergence rate within 0.01). Returns
-    (summary text, largest absolute (k, T2) difference there). The
-    kernel launch made here is not part of the main path's count."""
+    """Kernel (head + tail) vs plain version on one (N, T) CUDA batch,
+    gated bitwise on every output of every voxel (k, t2, f, converged,
+    n_iter) and by the bench.py:638-652 bands on identifiable voxels
+    (params 1e-3 and objective 1e-2 relative, convergence rate within
+    0.01). Returns (summary text, largest absolute (k, T2) difference
+    there). The kernel launch made here is not part of the main path's
+    count."""
     idv = torch.from_numpy(ident).cuda()
-    kk, tk, fk, ck, _ = fused_fit._gauss_fit(s, tes, LO, HI, no_prior=no_prior, **FIT_KW)
-    kp, tp, fp, cp, _ = fused_fit._gauss_fit_plain(s, tes, LO, HI, no_prior=no_prior, **FIT_KW)
+    out_k = fused_fit._gauss_fit(s, tes, LO, HI, no_prior=no_prior, **FIT_KW)
+    out_p = fused_fit._gauss_fit_plain(s, tes, LO, HI, no_prior=no_prior, **FIT_KW)
+    (kk, tk, fk, ck, _), (kp, tp, fp, cp, _) = out_k, out_p
     xk, xp = torch.stack([kk, tk]), torch.stack([kp, tp])
     rel_x = ((xk - xp).abs() / xp.abs().clamp(min=1.0))[:, idv].max().item()
     rel_f = ((fk - fp).abs() / fp.abs().clamp(min=1.0))[idv].max().item()
     dconv = abs(ck.float().mean().item() - cp.float().mean().item())
-    bitwise = (xk == xp).all(0).float().mean().item()
+    all_k = torch.stack([t.float() for t in out_k])
+    all_p = torch.stack([t.float() for t in out_p])
+    bitwise = ((all_k == all_p) | (all_k.isnan() & all_p.isnan())).all(0).float().mean().item()
     name = f"{s.shape[0]} x T={len(tes)}{' no_prior' if no_prior else ''}"
     gate(rel_x <= 1e-3 and rel_f <= 1e-2 and dconv <= 0.01,
          f"kernel vs plain {name}: rel x {rel_x:.3e} (> 1e-3) / f {rel_f:.3e} "
          f"(> 1e-2) / dconv {dconv:.4f} (> 0.01)")
+    gate(bitwise == 1.0, f"gauss kernel vs plain {name}: bitwise on {bitwise:.6f} of the voxels")
     text = (f" {name}: x {rel_x:.2e} f {rel_f:.2e} dconv {dconv:.4f}"
-            f" bitwise {bitwise:.4f};")
+            f" bitwise {bitwise:.6f};")
     return text, (xk - xp).abs()[:, idv].max().item()
 
 
@@ -331,8 +375,7 @@ def phase3_headline():
     text, diff = compare(s, TES3, ident)
 
     nit = fused_fit._gauss_fit(s, TES3, LO, HI, no_prior=False, **FIT_KW)[4]
-    # out: k, t2, f (float32), converged (uint8), n_iter (int32) = 17 bytes
-    g_bound = fit_bound(n, 3, out_bytes=17, steps=nit.double().sum().item())
+    g_bound = gauss_bound(n, 3, nit.double().sum().item(), FIT_KW["gtol"])
     kernel_ms = cuda_ms(lambda: fused_fit._gauss_fit(s, TES3, LO, HI, no_prior=False, **FIT_KW), 3)
     full_ms = cuda_ms(lambda: fused_fit._gauss_fit(
         s, TES3, LO, HI, no_prior=False, **dict(FIT_KW, full_budget=True)), 3)
@@ -342,7 +385,8 @@ def phase3_headline():
           f"{full_ms:.3f} ms, plain {plain_ms:.1f} ms; max rel T2 err vs "
           f"curve_fit {max_rel:.3e} ({int(interior.sum())} voxels), converged "
           f"{conv:.5f}, unconverged-identifiable {unconv_ident:.2e}, mean "
-          f"accepted steps {mean_iter:.3f}; bound {g_bound[0]:.4f} ms ({g_bound[1]}); "
+          f"accepted steps {mean_iter:.3f}; bound {g_bound[0]:.4f} ms ({g_bound[1]}: "
+          f"{g_bound[2]:.4g} fp32 operations); "
           f"kernel vs plain{text}", flush=True)
     return kernel_ms, plain_ms, diff, g_bound
 
@@ -534,12 +578,14 @@ def warp_profile(s):
     result (converged, iterations, accepted steps), gated to give the sorted
     output bitwise; the mean iterations per voxel and per warp (the most of
     its 32 lanes) as made and sorted; the share a split kernel sends to its
-    tail; its bound; gr_varpro's time at max_iters = 0 (the prelude alone)
-    and fit3_cont's (the sweep alone: every voxel written with its objective
-    at x0); and a split kernel's time on the sorted input with its tail's
-    voxels shuffled among their own places (lanes mixed as in the input as
-    made, memory as contiguous as sorted). Prints one line per tolerances."""
+    tail; its bound; gauss's and gr_varpro's time at max_iters = 0 (the
+    prelude alone) and fit3_cont's (the sweep alone: every voxel written
+    with its objective at x0); and a split kernel's time on the sorted
+    input with its tail's voxels shuffled among their own places (lanes
+    mixed as in the input as made, memory as contiguous as sorted). Prints
+    one line per tolerances."""
     n = s.shape[0]
+    gauss_head = build.load_lib("gauss_fit").ft2_gauss_head_iters()
     head_iters = build.load_lib("gr_varpro_fit").ft2_gr_head_iters()
     shuffle = torch.Generator(device=s.device).manual_seed(0)
     for tname, tol in TOLERANCES.items():
@@ -553,8 +599,8 @@ def warp_profile(s):
         runs = {  # name: (call(signal, max_iters, (x0, st0)), budget, converged row,
                   #        steps row, iterations in the head (None: not split), bound(steps))
             "gauss": (lambda sig, it, p0: fused_fit._gauss_fit(
-                sig, TES3, LO, HI, max_iters=it, no_prior=False, **two), 60, 3, 4, None,
-                lambda st: fit_bound(n, 3, out_bytes=17, steps=st)),
+                sig, TES3, LO, HI, max_iters=it, no_prior=False, **two), 60, 3, 4, gauss_head,
+                lambda st: gauss_bound(n, 3, st, gtol)),
             "gr_varpro": (lambda sig, it, p0: fused_fit._gr_varpro_fit_cuda(
                 sig, TES3, LO3, HI3, GUESS3, max_iters=it, **two), 60, 4, 5, head_iters,
                 lambda st: gr_varpro_bound(n, 3, st, gtol)),
@@ -606,7 +652,7 @@ def warp_profile(s):
         text = "; ".join(
             f"{name} {r['ms']:.3f} ms, sorted input {r['sorted_ms']:.3f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]})"
-            + (f", {'prelude' if name == 'gr_varpro' else 'sweep'} alone {r['alone_ms']:.3f} ms, "
+            + (f", {'sweep' if name == 'fit3_cont' else 'prelude'} alone {r['alone_ms']:.3f} ms, "
                f"sent to the tail {r['tail_share']:.5f}, sorted with the tail's voxels shuffled "
                f"in place {r['mixed_ms']:.3f} ms" if "tail_share" in r else "")
             + f", iterations per voxel {r['voxel_iters']:.3f}, per warp {r['warp_iters']:.3f} "
@@ -615,6 +661,82 @@ def warp_profile(s):
             for name, r in rows.items())
         print(f"phase 6 warps 256^3 x 3 TEs, {tname} tolerances (ftol {ftol:g}, gtol {gtol:g}): "
               f"{text}", flush=True)
+
+
+GAUSS_HEADS = (0, 1, 2, 4)   # the head lengths gauss_head_lengths builds and times
+
+
+def gauss_head_lengths(s, rounds=5):
+    """The gaussian fit's head length (``kHeadIters`` in csrc/gauss_fit.cu)
+    on this card: the source built once per length in GAUSS_HEADS (the line
+    that sets it replaced; one nvcc each, all at once), each build held
+    bitwise to the plain version on ``s`` and timed on ``s`` as made under
+    the bench's and the pipeline's tolerances, in ``rounds`` rounds that
+    take the lengths in turn (reversed every other round). Prints one line
+    per tolerances: each length's median time over the rounds and its
+    range, and the head and tail kernels' registers at T = 3."""
+    line = f"constexpr int kHeadIters = {build.load_lib('gauss_fit').ft2_gauss_head_iters()};"
+    with open(build.KERNEL_SOURCES["gauss_fit"]) as f:
+        src = f.read()
+    gate(src.count(line) == 1, f"gauss_head_lengths: {line!r} is not in gauss_fit.cu once")
+    out_dir = tempfile.mkdtemp(prefix="ft2_gauss_heads_")
+    t0 = time.perf_counter()
+    procs = {}
+    for k in GAUSS_HEADS:
+        path = os.path.join(out_dir, f"gauss_fit_k{k}.cu")
+        with open(path, "w") as f:
+            f.write(src.replace(line, f"constexpr int kHeadIters = {k};"))
+        cmd = [build.nvcc(), *build.nvcc_flags("gauss_fit"), f"-I{build.CSRC}", "-o",
+               path[:-3] + ".so", path]
+        procs[k] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+    libs, regs = {}, {}
+    for k, proc in procs.items():
+        log = proc.communicate()[0]
+        gate(proc.returncode == 0, f"gauss_head_lengths: build of kHeadIters {k}: {log[-2000:]}")
+        libs[k] = ctypes.CDLL(os.path.join(out_dir, f"gauss_fit_k{k}.so"))
+        for fn, argtypes in build.SIGNATURES["gauss_fit"].items():
+            getattr(libs[k], fn).argtypes = argtypes
+            getattr(libs[k], fn).restype = ctypes.c_int
+        gate(libs[k].ft2_gauss_head_iters() == k, f"gauss_head_lengths: build {k} reports "
+             f"{libs[k].ft2_gauss_head_iters()}")
+        regs[k] = {kind: int(used) for kind, used in re.findall(
+            r"Compiling entry function '\S*gauss_(head|tail)_kernelILi3E\S*'.*?Used (\d+) registers",
+            log, re.S)}
+    built_s = time.perf_counter() - t0
+
+    def fit(k, **kw):  # the wrapper, with build k's library in place of the product's
+        load = build.load_lib
+        build.load_lib = lambda name: libs[k] if name == "gauss_fit" else load(name)
+        try:
+            return fused_fit._gauss_fit_cuda(s, TES3, LO, HI, max_iters=60, no_prior=False,
+                                             full_budget=False, stall_iters=3, **kw)
+        finally:
+            build.load_lib = load
+
+    for tname, tol in TOLERANCES.items():
+        kw = dict(ftol=tol["ftol"], gtol=tol["gtol"], stall_tol=max(tol["ftol"], 1e-3))
+        want = torch.stack([t.float() for t in fused_fit._gauss_fit_plain(
+            s, TES3, LO, HI, max_iters=60, no_prior=False, full_budget=False, stall_iters=3,
+            **kw)])
+        for k in GAUSS_HEADS:
+            got = torch.stack([t.float() for t in fit(k, **kw)])
+            gate(bool(((got == want) | (got.isnan() & want.isnan())).all()),
+                 f"gauss_head_lengths, {tname} tolerances: kHeadIters {k} is not bitwise the "
+                 f"plain version")
+        times = {k: [] for k in GAUSS_HEADS}
+        for r in range(rounds):
+            for k in (GAUSS_HEADS if r % 2 == 0 else GAUSS_HEADS[::-1]):
+                times[k].append(cuda_ms(lambda: fit(k, **kw), 3))
+        print(f"phase 6 gauss head lengths 256^3 x 3 TEs, {tname} tolerances (ftol "
+              f"{tol['ftol']:g}, gtol {tol['gtol']:g}), median ms over {rounds} rounds (range): "
+              + ", ".join(f"kHeadIters {k} {np.median(v):.3f} ({min(v):.3f}-{max(v):.3f})"
+                          for k, v in times.items())
+              + f"; every build bitwise the plain version; built in {built_s:.1f} s, registers "
+              f"at T=3 {regs}; the product's kHeadIters is "
+              f"{build.load_lib('gauss_fit').ft2_gauss_head_iters()}", flush=True)
+        del want
+    shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def phase6_headline3():
@@ -693,6 +815,7 @@ def phase6_headline3():
               f"{res.n_iter.float().mean().item():.3f}, n_overflow {res.n_overflow};{text}",
               flush=True)
     warp_profile(s)
+    gauss_head_lengths(s)
     return times, worst, bounds
 
 
@@ -986,6 +1109,133 @@ def phase9_segmentation():
     return launches
 
 
+# ------------------------------------------------ the guess start (two-phase solver)
+GUESS_SHAPE, GUESS_SUB = (64, 128, 128), 16   # 2^20 voxels; the first 16^3 of them
+GUESS_MODELS = {  # model: (low field, TEs, k range, T2 range), as phases 4 and 7
+    "gaussian": (True, TES_SESSION, (600.0, 5000.0), (20.0, 500.0)),
+    **{model: row[:4] for model, row in SESSIONS3.items()},
+}
+BANDS = {"gaussian": (1e-3, 1e-2), "gaussian_rician": (1e-2, 3e-2), "rician": (1e-2, 3e-2)}
+
+
+def guess_echoes(model, seed):
+    """GUESS_SHAPE echoes of one model's data (additive noise for gaussian,
+    the magnitude of complex noise for the 3-parameter models, sigma 8) and
+    the identifiable voxels (last echo >= 3 sigma)."""
+    _, tes, k_range, t2_range = GUESS_MODELS[model]
+    rng = np.random.default_rng(seed)
+    k = rng.uniform(*k_range, GUESS_SHAPE).astype(np.float32)
+    t2 = rng.uniform(*t2_range, GUESS_SHAPE).astype(np.float32)
+    echoes = []
+    for te in tes:
+        a = k * np.exp(-te / t2)
+        noise = rng.normal(0, NOISE, GUESS_SHAPE).astype(np.float32)
+        if model == "gaussian":
+            echoes.append(np.maximum(a + noise, 1e-2).astype(np.float32))
+        else:
+            echoes.append(np.hypot(a + noise, rng.normal(0, NOISE, GUESS_SHAPE)).astype(np.float32))
+    return echoes, k * np.exp(-tes[-1] / t2) >= 3 * NOISE
+
+
+def fully_masked(echoes, tes):
+    mask = Volume(np.ones(echoes[0].shape, np.uint8))
+    return EchoStack.from_volumes([Volume(np.ascontiguousarray(e)) for e in echoes],
+                                  [mask] * len(tes), tes)
+
+
+def guess_cols(o):
+    """(x (k, T2, sigma), fun, converged, n_overflow) of a fit_stack output,
+    voxels in the volume's flat order."""
+    x = np.stack([o.k.data.ravel(), o.t2.data.ravel(), o.sigma.data.ravel()], axis=1)
+    return x, o.fun.data.ravel(), o.converged.data.ravel() > 0.5, o.n_overflow
+
+
+def guess_outside(model, a, b, ident):
+    """The ``ident`` voxels where fits a and b (guess_cols) leave the
+    bench.py:638-652 bands (k and T2, objective)."""
+    bx, bf = BANDS[model]
+    rel_x = (np.abs(a[0] - b[0]) / np.maximum(np.abs(b[0]), 1.0))[:, :2].max(axis=1)
+    rel_f = np.abs(a[1] - b[1]) / np.maximum(np.abs(b[1]), 1.0)
+    return ident & ~((rel_x <= bx) & (rel_f <= bf))
+
+
+def guess_bands(model, fit, echoes, tes, ident, what):
+    """fit(echoes, device) on the card against the CPU: the convergence
+    rates within 0.01, and the bands on every identifiable voxel both
+    converged (gaussian) or, for the 3-parameter models, on every such
+    voxel but those with a witness: the float64 objectives at the two
+    answers within each other's objective band (two equally good minima),
+    or rounding-sensitive (one side's own answer leaves the bands when the
+    echoes move by one float32 ulp, up or down). n_overflow equal, or, where
+    one side's own count moves under such a change, within 0.01 of the
+    voxels. Returns the summary text, with the witness of each voxel
+    outside the bands (the first 8)."""
+    a, b = (guess_cols(fit(echoes, dev)) for dev in ("cuda", "cpu"))
+    ident = ident.ravel()
+    both = ident & a[2] & b[2]
+    dconv = abs(float(a[2].mean()) - float(b[2].mean()))
+    out = np.flatnonzero(guess_outside(model, a, b, both))
+    sig = np.stack([e.ravel() for e in echoes], axis=1).astype(np.float64)
+    objective, te = _objective(model), np.asarray(tes, np.float64)
+    f64 = np.array([[objective(x[i].astype(np.float64), te, sig[i]) for x in (a[0], b[0])]
+                    for i in out]).reshape(-1, 2)
+    equal = np.abs(f64[:, 0] - f64[:, 1]) <= BANDS[model][1] * np.maximum(
+        np.abs(f64).min(axis=1), 1.0)
+    sensitive, counts, moved = np.zeros(ident.size, bool), {}, False
+    for own, dev in ((a, "cuda"), (b, "cpu")):
+        for towards, way in ((np.inf, "up"), (0.0, "down")):
+            other = guess_cols(fit([np.nextafter(e, np.float32(towards)) for e in echoes], dev))
+            sensitive |= guess_outside(model, other, own, ident)
+            counts[f"{dev} {way}"] = other[3]
+            moved |= other[3] != own[3]
+    witness = "; ".join(
+        f"voxel {i}: float64 objective card {f[0]:.6g} / CPU {f[1]:.6g}, "
+        f"{'equally good' if eq else ''}{'; ' if eq and sensitive[i] else ''}"
+        f"{'rounding-sensitive' if sensitive[i] else ''}"
+        for i, f, eq in list(zip(out, f64, equal))[:8])
+    unexplained = out[~equal & ~sensitive[out]]
+    ovf_ok = a[3] == b[3] or (moved and abs(a[3] - b[3]) <= 0.01 * ident.size)
+    text = (f"{what}: {out.size} of {int(both.sum())} outside the bands ({int(equal.sum())} "
+            f"equally good minima, {int(sensitive[out].sum())} rounding-sensitive"
+            f"{': ' + witness if witness else ''}), dconv {dconv:.4f}, n_overflow card "
+            f"{a[3]} / CPU {b[3]} (echoes one ulp up or down: {counts})")
+    gate(both.sum() >= 16 and dconv <= 0.01 and ovf_ok
+         and (out.size == 0 if model == "gaussian" else unexplained.size == 0),
+         f"{model} guess start, {text}; without a witness: {unexplained[:8]}")
+    return text
+
+
+def phase10_guess_start():
+    """fit_stack with loglinear_init=False — the two-phase solver from the
+    protocol guess clipped into each voxel's box, torch ops on the device,
+    no hand kernel — once per model on the card over a fully masked
+    GUESS_SHAPE stack (2^20 voxels): finite maps, n_overflow and the time;
+    then the same call on the card and on the CPU over its first 16^3
+    voxels, held together by guess_bands."""
+    text = ""
+    for model, (low_field, tes, _, _) in GUESS_MODELS.items():
+        echoes, ident = guess_echoes(model, seed=17)
+        cfg = C.fit_config(model, low_field, loglinear_init=False)
+        stack = fully_masked(echoes, tes)
+        t0 = time.perf_counter()
+        out = fit_stack(stack, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name in ("t2", "k", "sigma", "res", "fun"):
+            data = getattr(out, name).data
+            gate(data.shape == GUESS_SHAPE and bool(np.isfinite(data).all()),
+                 f"{model} guess start: map {name} {data.shape} / non-finite values")
+        sub = [e[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB] for e in echoes]
+        bands = guess_bands(model, lambda e, dev: fit_stack(fully_masked(e, tes), cfg, device=dev),
+                            sub, tes, ident[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB],
+                            f"card vs CPU on {GUESS_SUB ** 3} voxels")
+        text += (f" {model}: {wall:.3f} s (fit_stack {out.fit_seconds:.3f} s), converged "
+                 f"{float((out.converged.data > 0.5).mean()):.5f}, n_overflow {out.n_overflow} "
+                 f"of the {pad_bucket(out.n_voxels)} gathered rows; {bands};")
+    print(f"phase 10 guess start (fit_stack, loglinear_init=False, two-phase solver, "
+          f"{GUESS_SHAPE[0]}x{GUESS_SHAPE[1]}x{GUESS_SHAPE[2]} on cuda):{text}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -1010,6 +1260,7 @@ def main() -> int:
     launches3 = timed("phase 7", phase7_sessions3, has_mpl)
     conv_err, conv_times, conv_bound = timed("phase 8", phase8_conv)
     seg_launches = timed("phase 9", phase9_segmentation)
+    timed("phase 10", phase10_guess_start)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

@@ -1,4 +1,4 @@
-// Device helpers shared by the 3-parameter fit kernels (gr_varpro_fit.cu,
+// Device helpers shared by the fit kernels (gauss_fit.cu, gr_varpro_fit.cu,
 // fit3.cu): NaN-keeping clips, left-to-right echo sums, the weighted
 // log-linear start, the exact T = 3 gaussian_rician interpolant, and the
 // worklist that compacts the voxels still running into a tail kernel.

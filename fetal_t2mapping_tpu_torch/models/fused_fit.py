@@ -2,10 +2,10 @@
 
 The whole fit of a voxel — starts, basin selection and the damped-Newton
 loop — runs in one call. Each fit has hand-written CUDA kernels used on a
-CUDA tensor (one thread per voxel; the gaussian_rician VARPRO fit and the
-multistart continuation as a head and a persistent tail, which resumes
-the voxels still running from a worklist so no warp waits on one
-straggler), and a plain PyTorch version of the same algorithm,
+CUDA tensor (one thread per voxel; the gaussian and gaussian_rician VARPRO
+fits and the multistart continuation as a head and a persistent tail,
+which resumes the voxels still running from a worklist so no warp waits
+on one straggler), and a plain PyTorch version of the same algorithm,
 vectorised over voxels, used on a CPU tensor. The choice follows the
 tensor's device only: there is no fallback from a kernel to its plain
 version.
@@ -127,10 +127,11 @@ def resolve_strategy(strategy: str) -> str:
     block runs until its slowest voxel converged. On the GPU a warp runs
     until its slowest lane stops, the same effect at 32 voxels (measured on
     the H100, PERF.md), and the compaction lives inside the kernels
-    instead: the gaussian_rician VARPRO fit and the rician continuation push
-    the voxels still running after their head into a worklist that a
-    persistent tail kernel drains, resuming the exact carried state. So
-    'auto' gives 'single'; 'twophase' is not ported and raises."""
+    instead: the gaussian and gaussian_rician VARPRO fits and the rician
+    continuation push the voxels still running after their head into a
+    worklist that a persistent tail kernel drains, resuming the exact
+    carried state. So 'auto' gives 'single'; 'twophase' is not ported and
+    raises."""
     if strategy == "twophase":
         raise NotImplementedError(
             "strategy 'twophase' (refit of the straggler tail) is not ported: "
@@ -899,8 +900,9 @@ def _worklist(n_rows: int, n: int, dev):
 def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
                     ftol: float, gtol: float, no_prior: bool,
                     full_budget: bool, stall_iters: int, stall_tol: float):
-    """Launch the gaussian fit kernel on ``signal``'s device and stream;
-    same outputs as ``_gauss_fit_plain``."""
+    """Launch csrc/gauss_fit.cu (its head and tail kernels; one pass with
+    full_budget) on ``signal``'s device and stream; same outputs as
+    ``_gauss_fit_plain``."""
     global KERNEL_LAUNCHES
     lib = build.load_lib("gauss_fit")
     n, T = signal.shape
@@ -910,12 +912,15 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
     out = torch.empty((3, n), dtype=torch.float32, device=dev)   # k, t2, f
     conv = torch.empty(n, dtype=torch.uint8, device=dev)
     nit = torch.empty(n, dtype=torch.int32, device=dev)
+    # the head kernel's worklist for the tail (unused by the full-budget pass)
+    rows, counters = _worklist(0 if full_budget else lib.ft2_gauss_slot_rows(T), n, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_gauss_fit(
             signal.data_ptr(), n, T, params.ctypes.data, int(max_iters),
             int(stall_iters), int(no_prior), int(full_budget),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            conv.data_ptr(), nit.data_ptr(), build.stream(dev))
+            conv.data_ptr(), nit.data_ptr(), rows.data_ptr(), counters.data_ptr(),
+            build.stream(dev))
     build.check_launch(err, "gauss_fit")
     KERNEL_LAUNCHES += 1
     return out[0], out[1], out[2], conv.view(torch.bool), nit

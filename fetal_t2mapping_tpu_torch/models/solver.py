@@ -9,14 +9,15 @@ clipping. Converged voxels are frozen, so per-voxel results do not depend
 on the batch they run in.
 
 ``models.t2map.fit_stack`` draws its sampled convergence traces from
-``fit_batch_traced`` and runs no-prior 3-parameter configurations through
-``fit_batch_multistart``; every other full-volume fit goes through
-``models.fused_fit``.
+``fit_batch_traced``, runs no-prior 3-parameter configurations through
+``fit_batch_multistart`` and configurations that start from the protocol
+guess (``loglinear_init=False``) through ``fit_batch_twophase``; every
+other full-volume fit goes through ``models.fused_fit``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -36,9 +37,10 @@ class FitResult(NamedTuple):
     fun: torch.Tensor        # (N,) final objective value
     converged: torch.Tensor  # (N,) bool
     n_iter: torch.Tensor     # (N,) int32 accepted-step count
-    # unconverged voxels denied a refit slot; always 0 on this package's
-    # single-pass paths, where every voxel gets the full budget
-    n_overflow: Optional[int] = None
+    # unconverged voxels denied a refit slot: a () int32 tensor from
+    # fit_batch_twophase, 0 on the fused single-pass paths, where every
+    # voxel gets the full budget, None elsewhere
+    n_overflow: Optional[Union[int, torch.Tensor]] = None
 
 
 def _solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -159,6 +161,57 @@ def fit_batch(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
         x, f, lam, conv, nit, _ = _step(fgh, obj, x, f, lam, conv, nit, te,
                                         signal, lo, hi, ftol, gtol)
     return FitResult(x=x, fun=f, converged=conv, n_iter=nit)
+
+
+def _tail_partition(conv: torch.Tensor, capacity: int):
+    """Stable partition on the device, no host sync: indices of up to
+    ``capacity`` unconverged voxels, unconverged first (a stable sort of the
+    converged flags). Returns (tail_idx (capacity,) int64, n_tail () int32).
+    Slots past n_tail point at converged voxels (or, where capacity > N, at
+    voxel 0); callers mask them with n_tail."""
+    order = torch.argsort(conv.to(torch.int32), stable=True)
+    if capacity > order.shape[0]:
+        order = torch.nn.functional.pad(order, (0, capacity - order.shape[0]))
+    return order[:capacity], torch.sum(~conv, dtype=torch.int32)
+
+
+def fit_batch_twophase(signal, te, x0, lo, hi, *, model: str, phase1_iters: int = 12,
+                       max_iters: int = 60, ftol: float = 1e-9, gtol: float = 0.0,
+                       tail_frac: float = 0.0625) -> FitResult:
+    """Two-phase fit (the reference's ``fit_batch_twophase``): a short
+    lock-step pass over every voxel, then a refit of the unconverged tail.
+
+    Phase 1 runs ``phase1_iters`` iterations from ``x0``. Up to
+    ``tail_frac`` of N unconverged voxels (a multiple of 128, at least 128,
+    at most N) are gathered, unconverged first in a stable order, and
+    refit from phase 1's x for the rest of the budget, with lambda
+    restarted. Their x, objective and flag are replaced and their
+    accepted steps added; voxels beyond that capacity keep phase 1's
+    result and are counted in ``n_overflow`` (a () int32 tensor). Runs on
+    ``signal``'s device."""
+    signal, te, x0, lo, hi, *_ = _prep(signal, te, x0, lo, hi)
+    n = x0.shape[0]
+    r1 = fit_batch(signal, te, x0, lo, hi, model=model, max_iters=phase1_iters,
+                   ftol=ftol, gtol=gtol)
+    capacity = min(n, max(128, int(n * tail_frac) // 128 * 128))
+    tail_idx, n_tail = _tail_partition(r1.converged, capacity)
+    r2 = fit_batch(signal[tail_idx], te, r1.x[tail_idx], lo[tail_idx], hi[tail_idx],
+                   model=model, max_iters=max(max_iters - phase1_iters, 0),
+                   ftol=ftol, gtol=gtol)
+
+    # merge: slots at or past n_tail go to a spare row n, dropped after
+    valid = torch.arange(capacity, device=signal.device) < n_tail
+    safe_idx = torch.where(valid, tail_idx, torch.full_like(tail_idx, n))
+
+    def merged(a, b, accumulate=False):
+        out = torch.cat([a, a[:1]])
+        out.index_put_((safe_idx,), b, accumulate=accumulate)
+        return out[:n]
+
+    return FitResult(x=merged(r1.x, r2.x), fun=merged(r1.fun, r2.fun),
+                     converged=merged(r1.converged, r2.converged),
+                     n_iter=merged(r1.n_iter, r2.n_iter, accumulate=True),
+                     n_overflow=torch.clamp(n_tail - capacity, min=0))
 
 
 def fit_batch_multistart(signal, te, x0s, lo, hi, *, model: str,

@@ -5,8 +5,10 @@ one host->device upload -> fused fit (``fused_fit.fit_fused``: the CUDA
 kernels on a GPU, their plain versions on the CPU) -> signed-mean residual
 on the device -> ONE packed (C, N) download -> scatter back to volume
 maps, plus the sampled per-iteration traces for the convergence figures.
-All three noise models run; no-prior 3-parameter configurations go
-through the batched multistart solver, as in the reference.
+All three noise models run; as in the reference, no-prior 3-parameter
+configurations go through the batched multistart solver, and
+configurations that start from the protocol guess
+(``loglinear_init=False``) through the two-phase solver.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..utils.profiling import profiler
 from .fused_fit import fit_fused
 from .init import grid_init, loglinear_init
 from .signal import check_model, predict_signal
-from .solver import fit_batch_multistart, fit_batch_traced
+from .solver import fit_batch_multistart, fit_batch_traced, fit_batch_twophase
 
 
 @dataclasses.dataclass
@@ -42,6 +44,10 @@ class T2FitOutput:
     trace_t2: np.ndarray       # fitted T2 of the sampled voxels
     n_voxels: int
     fit_seconds: float
+    # rows of the fitted batch the two-phase refit had no room for
+    # (loglinear_init=False): the solver's count over the batch as gathered,
+    # whose rows past n_voxels repeat the last voxel; 0 on the other paths
+    n_overflow: int = 0
 
 
 def _bounds_for(cfg: FitConfig, batch: np.ndarray):
@@ -58,6 +64,21 @@ def _bounds_for(cfg: FitConfig, batch: np.ndarray):
         hi[:, 0] = NO_PRIOR_K_UPPER
         lo[:, 1], hi[:, 1] = NO_PRIOR_T2_BOUNDS
     return lo, hi
+
+
+def _guess_start(cfg: FitConfig, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The protocol initial guess clipped into each voxel's box: (N, P)."""
+    guess = torch.tensor(cfg.initial_guess, dtype=torch.float32, device=lo.device)
+    return torch.minimum(torch.maximum(guess.expand_as(lo), lo), hi)
+
+
+def _init_for(cfg: FitConfig, batch: torch.Tensor, te: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """The solver's start: the log-linear estimate, or with
+    ``loglinear_init=False`` the clipped protocol guess."""
+    if cfg.loglinear_init:
+        return loglinear_init(batch, te, lo, hi)
+    return _guess_start(cfg, lo, hi)
 
 
 def _fused_bounds(cfg: FitConfig):
@@ -97,17 +118,16 @@ def fit_stack(
 ) -> T2FitOutput:
     """Fit every masked voxel of the stack on ``device`` and assemble maps.
 
-    With prior bounds every model runs the fused fit. Without them, the
+    From the log-linear start (``cfg.loglinear_init``, the default), with
+    prior bounds every model runs the fused fit; without them, the
     3-parameter models run the batched multistart solver from the
     log-linear start, the T2 grid-scan basin and the protocol guess
-    (reference t2map.py:209-220); gaussian derives its per-voxel k bound
-    inside the fused fit. Only the log-linear start is ported:
-    ``loglinear_init=False`` raises NotImplementedError."""
+    (reference t2map.py:209-220), and gaussian derives its per-voxel k
+    bound inside the fused fit. With ``loglinear_init=False`` every model
+    runs the two-phase solver from the protocol guess clipped into each
+    voxel's box (reference t2map.py:221-225), and the traces start there
+    too; ``n_overflow`` counts the gathered rows its refit had no room for."""
     check_model(cfg.model)
-    if not cfg.loglinear_init:
-        raise NotImplementedError(
-            "fit_stack runs the fused fit, which starts from the log-linear "
-            "init; loglinear_init=False is not ported")
     dev = resolve_device(device)
     batch, flat_idx, n = stack.gather(granule=granule)
     te = np.asarray(stack.tes, np.float32)
@@ -121,17 +141,19 @@ def fit_stack(
     # residual below
     batch_dev = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(dev)
     te_dev = torch.from_numpy(te).to(dev)
-    if cfg.n_params == 3 and not cfg.prior:
-        # non-convex 3-parameter objectives with per-voxel bounds: keep the
-        # best of three starts per voxel
+    solver_kw = dict(model=cfg.model, max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol)
+    if not cfg.loglinear_init or (cfg.n_params == 3 and not cfg.prior):
+        # the batched solvers, on (N, P) per-voxel boxes
         lo, hi = (torch.from_numpy(b).to(dev) for b in _bounds_for(cfg, batch))
-        x0_cfg = torch.minimum(torch.maximum(torch.tensor(
-            cfg.initial_guess, dtype=torch.float32, device=dev).expand_as(lo), lo), hi)
-        x0s = torch.stack([loglinear_init(batch_dev, te_dev, lo, hi),
-                           grid_init(batch_dev, te_dev, lo, hi), x0_cfg])
-        result = fit_batch_multistart(batch_dev, te_dev, x0s, lo, hi, model=cfg.model,
-                                      max_iters=cfg.max_iters, ftol=cfg.ftol,
-                                      gtol=cfg.gtol)
+        if not cfg.loglinear_init:
+            result = fit_batch_twophase(batch_dev, te_dev, _guess_start(cfg, lo, hi), lo, hi,
+                                        **solver_kw)
+        else:
+            # non-convex 3-parameter objectives with per-voxel bounds: keep
+            # the best of three starts per voxel
+            x0s = torch.stack([loglinear_init(batch_dev, te_dev, lo, hi),
+                               grid_init(batch_dev, te_dev, lo, hi), _guess_start(cfg, lo, hi)])
+            result = fit_batch_multistart(batch_dev, te_dev, x0s, lo, hi, **solver_kw)
     else:
         lo_f, hi_f, np_flag = _fused_bounds(cfg)
         result = fit_fused(batch_dev, te, lo_f, hi_f, model=cfg.model,
@@ -159,10 +181,9 @@ def fit_stack(
         tr_batch = torch.from_numpy(np.ascontiguousarray(batch[tr_sel])).to(dev)
         tr_lo, tr_hi = (torch.from_numpy(b).to(dev)
                         for b in _bounds_for(cfg, batch[tr_sel]))
-        tr_x0 = loglinear_init(tr_batch, te_dev, tr_lo, tr_hi)
         _, traces = fit_batch_traced(
-            tr_batch, te_dev, tr_x0, tr_lo, tr_hi, model=cfg.model,
-            max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol)
+            tr_batch, te_dev, _init_for(cfg, tr_batch, te_dev, tr_lo, tr_hi), tr_lo, tr_hi,
+            **solver_kw)
         # one download for the three trace planes
         tr_packed = torch.stack([traces["f_val"], traces["step_size"],
                                  traces["active"].to(torch.float32)]).cpu().numpy()
@@ -181,4 +202,5 @@ def fit_stack(
         trace_t2=t2_v[tr_sel],
         n_voxels=n,
         fit_seconds=fit_seconds,
+        n_overflow=0 if result.n_overflow is None else int(result.n_overflow),
     )

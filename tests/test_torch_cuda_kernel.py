@@ -8,10 +8,11 @@ and both use the card's IEEE division and accurate expf/logf, so they are
 expected to agree to the last bit; the bench.py:638-652 bands are the gate
 (3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01), and
 the split kernels (gr_varpro's head and tail, the continuation's sweep and
-tail) are held to it bitwise, also on a permuted input and a second call. The
-S2D conv kernel sums in another order than its plain version: fp32 within
-1e-5 of scale (TF32 off), bf16 within one ulp of the element on >= 99.9% of
-elements and within two ulps of the output's largest magnitude everywhere.
+tail, and the gaussian fit's) are held to it bitwise, also on a permuted
+input and a second call. The S2D conv kernel sums in another order than its
+plain version: fp32 within 1e-5 of scale (TF32 off), bf16 within one ulp
+of the element on >= 99.9% of elements and within two ulps of the output's
+largest magnitude everywhere.
 """
 
 import numpy as np
@@ -135,9 +136,31 @@ def _edge_rows(sig):
     return sig
 
 
+_GAUSS_KW = dict(max_iters=60, ftol=1e-2, gtol=1e-2, no_prior=False, full_budget=False,
+                 stall_iters=3, stall_tol=1e-2)
 _GR_KW = dict(max_iters=60, ftol=1e-2, gtol=1e-2, full_budget=False, stall_iters=3,
               stall_tol=1e-2)
 _CONT_KW = dict(ftol=1e-2, gtol=1e-2, stall_tol=1e-2)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("case", ["bench", "no_tail", "largest_tail"])
+def test_gauss_head_and_tail_are_bitwise_the_plain_version(card, case, n):
+    """The gaussian fit's head kernel, the worklist and the tail against the
+    plain version, bitwise: at the bench's tolerances (no_prior at 4099
+    voxels); with no voxel in the tail (a budget the head runs in full);
+    with the largest tail the stop rules allow (ftol = gtol = stall_tol = 0)."""
+    sig, _ = _make_data(n, TES3, seed=6)
+    s = torch.from_numpy(_edge_rows(sig) if n > 5 else sig).to(card)
+    kw = dict(_GAUSS_KW, no_prior=n > 1000)
+    if case == "no_tail":
+        kw["max_iters"] = build.load_lib("gauss_fit").ft2_gauss_head_iters()
+    elif case == "largest_tail":
+        kw.update(ftol=0.0, gtol=0.0, stall_tol=0.0)
+    out_k = fused_fit._gauss_fit_cuda(s, TES3, LO, HI, **kw)
+    torch.cuda.synchronize()
+    out_p = fused_fit._gauss_fit_plain(s, TES3, LO, HI, **kw)
+    assert _bitwise(tuple(t.float() for t in out_k), tuple(t.float() for t in out_p))
 
 
 @pytest.mark.parametrize("n", [1, 33, 4099])
@@ -181,7 +204,7 @@ def test_fit3_cont_sweep_and_tail_are_bitwise_the_plain_version(card, model, cas
                                                       max_iters=56, **_CONT_KW))
 
 
-@pytest.mark.parametrize("kernel", ["gr_varpro", "fit3_cont"])
+@pytest.mark.parametrize("kernel", ["gauss", "gr_varpro", "fit3_cont"])
 def test_split_kernels_give_permuted_bits_and_repeat(card, kernel):
     """A permuted input gives the permuted output bitwise (no result depends
     on which lane or slot a voxel takes), and two calls in a row give the
@@ -189,7 +212,12 @@ def test_split_kernels_give_permuted_bits_and_repeat(card, kernel):
     sig, _ = _make_data(1 << 16, TES3, seed=9)
     s = torch.from_numpy(_edge_rows(sig)).to(card)
     perm = torch.from_numpy(np.random.default_rng(0).permutation(s.shape[0])).to(card)
-    if kernel == "gr_varpro":
+    if kernel == "gauss":
+        def run(sig_, *_):
+            return torch.stack([t.float() for t in fused_fit._gauss_fit_cuda(
+                sig_, TES3, LO, HI, **_GAUSS_KW)])
+        starts = ()
+    elif kernel == "gr_varpro":
         def run(sig_, *_):
             return torch.cat(fused_fit._gr_varpro_fit_cuda(sig_, TES3, LO3, HI3, GUESS, **_GR_KW))
         starts = ()
