@@ -15,7 +15,14 @@ and ``FT2_UNET_S2D=kernel`` over a synthetic 160^3 recon, at the full
 SynthSeg width with random weights. Phase 10, the start from the protocol
 guess: ``fit_stack`` with ``loglinear_init=False`` (the two-phase solver)
 per model at 2^20 voxels, held against the same call on the CPU on a
-subset. Each phase prints one line with its wall time; any failed gate or
+subset. Phases 11-12, stage 2 (torch ops on the card, no hand kernel):
+``register_rigid`` on bench.py's 192^3 blob scene (gated at 0.01 rad and
+0.5 mm), the multi-pair and cross-contrast affine solves, the card against
+the CPU at 48^3; then one in-vivo session (3 TEs x ax/cor/sag slab stacks
+fusing to 240^3) through ``process_qmri`` and ``process_t2maps`` on it,
+gated on the recon and the T2 map against the simulation's truth, and one
+240^3 in-vitro phantom through ``process_qmri``, card equal to CPU. Each
+phase prints one line with its wall time; any failed gate or
 error exits non-zero. The second-to-last lines are the kernels' JSON
 record and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Exits non-zero
@@ -28,6 +35,7 @@ from __future__ import annotations
 import csv
 import ctypes
 import json
+import logging
 import math
 import os
 import re
@@ -1236,6 +1244,354 @@ def phase10_guess_start():
           f"{GUESS_SHAPE[0]}x{GUESS_SHAPE[1]}x{GUESS_SHAPE[2]} on cuda):{text}", flush=True)
 
 
+# ------------------------------------------------ stage 2: registration and the session
+def rigid_matrix(rx, ry, rz, t, center):
+    """World transform of an ITK Euler3D pose (Rz @ Rx @ Ry) about ``center``."""
+    cx, sx = np.cos(rx), np.sin(rx)
+    cy, sy = np.cos(ry), np.sin(ry)
+    cz, sz = np.cos(rz), np.sin(rz)
+    R = (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+         @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+         @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]]))
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = center - R @ center + np.asarray(t, np.float64)
+    return T
+
+
+def blob_scene(n: int, T: np.ndarray, device, seed: int = 9) -> np.ndarray:
+    """bench.py:686-720's scene: 40 Gaussian blobs in an n^3 1 mm grid
+    (world xyz = voxel index), sampled at T @ w; made on ``device``. Centres
+    and widths are scaled by n / 192 below 192^3."""
+    rng = np.random.default_rng(seed)
+    f = min(1.0, n / 192.0)
+    centers = torch.as_tensor(rng.uniform(25 * f, n - 25 * f, (40, 3)), dtype=torch.float32,
+                              device=device)
+    widths = rng.uniform(3.0, 8.0, 40) * max(f, 0.4)
+    amps = rng.uniform(50.0, 150.0, 40)
+    ax = torch.arange(n, dtype=torch.float32, device=device)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    pts = torch.stack([xx, yy, zz], -1)
+    Tt = torch.as_tensor(T, dtype=torch.float32, device=device)
+    w = pts @ Tt[:3, :3].T + Tt[:3, 3]
+    img = torch.zeros((n, n, n), dtype=torch.float32, device=device)
+    for i in range(40):
+        d2 = torch.sum(torch.square(w - centers[i]), -1)
+        img += float(amps[i]) * torch.exp(-d2 / (2.0 * float(widths[i]) ** 2))
+    return img.cpu().numpy()
+
+
+def pose_error(T_true, matrix, center):
+    """(rotation error rad, translation error mm) of T_true @ matrix."""
+    comp = T_true @ matrix
+    rot = float(np.arccos(np.clip((np.trace(comp[:3, :3]) - 1) / 2, -1, 1)))
+    return rot, float(np.abs(comp[:3, 3] - center + comp[:3, :3] @ center).max())
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed_solves(fn, reps=3):
+    """Median wall time of ``fn()`` over ``reps`` solves (after one warm
+    solve), each synced on the solved parameters; returns (ms, last)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        out = fn()
+        for r in (out if isinstance(out, list) else [out]):
+            r.params_device.sum().item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def phase11_registration(n: int = 192, device: str = "cuda"):
+    """register_rigid(ncc) at the default settings on bench.py's 192^3 blob
+    scene and its moved copy (rx 0.05, ry -0.04, rz 0.04 rad, t (4, -3, 3)
+    mm): gated at 0.01 rad and 0.5 mm (bench.py:722-729). Then the fusion's
+    call (register_rigid_multi, 2 movings), register_affine(cr) on a
+    cross-contrast pair, a profile of one rigid solve, and the card against
+    the CPU at 48^3 (stop_tol=None, the CPU tests' REG_FAST levels and
+    1e-4 of max(1, |p|))."""
+    from fetal_t2mapping_tpu_torch.recon import registration
+
+    center = np.full(3, (n - 1) / 2.0)
+    T1 = rigid_matrix(0.05, -0.04, 0.04, [4.0, -3.0, 3.0], center)
+    T2 = rigid_matrix(-0.03, 0.05, -0.02, [-3.0, 2.0, -4.0], center)
+    t0 = time.perf_counter()
+    fixed = Volume(blob_scene(n, np.eye(4), device))
+    moving, moving2 = Volume(blob_scene(n, T1, device)), Volume(blob_scene(n, T2, device))
+    # cross contrast: a nonlinear intensity map of the moved scene
+    moving_cc = moving.with_data((200.0 * np.sqrt(moving.data / 150.0)).astype(np.float32))
+    setup_s = time.perf_counter() - t0
+
+    rigid_ms, res = timed_solves(lambda: registration.register_rigid(fixed, moving, metric="ncc",
+                                                                     device=device))
+    rot, tr = pose_error(T1, res.matrix, center)
+    gate(rot < 0.01 and tr < 0.5, f"{n}^3 rigid recovery {rot:.4f} rad / {tr:.3f} mm "
+                                  "(gates 0.01 rad, 0.5 mm)")
+    multi_ms, regs = timed_solves(
+        lambda: registration.register_rigid_multi(fixed, [moving, moving2], metric="ncc",
+                                                  device=device))
+    multi_err = [pose_error(T, r.matrix, center) for T, r in zip((T1, T2), regs)]
+    for r_, t_ in multi_err:
+        gate(r_ < 0.01 and t_ < 0.5, f"{n}^3 multi-pair recovery {r_:.4f} rad / {t_:.3f} mm")
+    affine_ms, aff = timed_solves(
+        lambda: registration.register_affine(fixed, moving_cc, metric="cr", device=device), reps=1)
+    aff_err = pose_error(T1, aff.matrix, center)
+
+    # one rigid solve under the profiler: the card's busy time by kernel
+    prof_line = "not measured"
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            registration.register_rigid(fixed, moving, metric="ncc",
+                                        device=device).params_device.sum().item()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+                and str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+        prof_line = (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle share "
+                     f"{1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in kern)} kernel launches; top "
+                     + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                                 for e in top))
+    except Exception as exc:   # the profiler is untried on this machine: report, do not fail
+        prof_line = f"profiler unavailable ({type(exc).__name__}: {exc})"
+
+    # the card against the CPU at 48^3
+    m = 48
+    c48 = np.full(3, (m - 1) / 2.0)
+    T48 = rigid_matrix(0.05, -0.04, 0.04, [2.0, -1.5, 1.5], c48)
+    f48, m48 = Volume(blob_scene(m, np.eye(4), "cpu")), Volume(blob_scene(m, T48, "cpu"))
+    worst = 0.0
+    for metric in ("ncc", "mi"):
+        kw = dict(levels=(2, 1), sigmas=(1.0, 0.0), iters=(8, 4), samples=(512, 512),
+                  metric=metric, stop_tol=None)
+        a = registration.register_rigid(f48, m48, device="cpu", **kw).params
+        b = registration.register_rigid(f48, m48, device=device, **kw).params
+        worst = max(worst, float(np.abs(a - b).max()) / max(1.0, float(np.abs(a).max())))
+    gate(worst <= 1e-4, f"48^3 card vs CPU params differ by {worst:.3e} of max(1,|p|) > 1e-4")
+    # how far the CPU's own answer moves when the moving image moves by one ulp
+    kw = dict(levels=(2, 1), sigmas=(1.0, 0.0), iters=(8, 4), samples=(512, 512), metric="ncc",
+              stop_tol=None)
+    a = registration.register_rigid(f48, m48, device="cpu", **kw).params
+    m48_ulp = m48.with_data(np.nextafter(m48.data, np.float32(np.inf)).astype(np.float32))
+    b = registration.register_rigid(f48, m48_ulp, device="cpu", **kw).params
+    ulp_move = float(np.abs(a - b).max()) / max(1.0, float(np.abs(a).max()))
+    kw = dict(metric="ncc", stop_tol=None)
+    a = registration.register_rigid(f48, m48, device="cpu", **kw).params
+    b = registration.register_rigid(f48, m48, device=device, **kw).params
+    default_diff = float(np.abs(a - b).max()) / max(1.0, float(np.abs(a).max()))
+    print(f"phase 11 registration {n}^3 (scene set-up {setup_s:.1f} s): register_rigid ncc median "
+          f"{rigid_ms:.1f} ms, iters_run {res.iters_run.tolist()}, host syncs per solve "
+          f"{res.host_syncs}, recovery {rot:.5f} rad / {tr:.4f} mm; register_rigid_multi (2 "
+          f"movings) median {multi_ms:.1f} ms, iters_run {regs[0].iters_run.tolist()}, host syncs "
+          f"{regs[0].host_syncs}, recovery {[(round(r_, 5), round(t_, 4)) for r_, t_ in multi_err]}; "
+          f"register_affine cr (cross contrast) {affine_ms:.1f} ms, iters_run "
+          f"{aff.iters_run.tolist()}, recovery {aff_err[0]:.5f} rad / {aff_err[1]:.4f} mm; "
+          f"profile of one rigid solve: {prof_line}; 48^3 card vs CPU (REG_FAST, stop_tol=None, "
+          f"ncc and mi) {worst:.2e} of max(1,|p|) (the CPU's ncc answer moves {ulp_move:.2e} under "
+          f"a one-ulp change of the moving image), at the default levels {default_diff:.2e}",
+          flush=True)
+    return rigid_ms
+
+
+SESSION_TES = (114, 202, 299)
+SESSION_N = 240
+# small known rigid offsets of the cor and sag stacks: (angle rad, axis pair, shift mm)
+SESSION_MOTION = {"cor": (0.02, (0, 2), (1.2, -0.8, 1.0)),
+                  "sag": (-0.02, (1, 2), (-1.0, 0.9, -1.1))}
+
+
+def session_truth(n: int = SESSION_N):
+    """bench.py:1213-1223: the brain ellipsoid (half-axes 0.75, 0.85, 0.65),
+    its T2 field and proton density, as functions of world (x, y, z) in mm
+    (the truth grid is 1 mm, origin 0)."""
+    def fields(x, y, z):
+        g = lambda v: -1.0 + 2.0 * v / (n - 1)
+        gx, gy, gz = g(x), g(y), g(z)
+        support = (gz / 0.75) ** 2 + (gy / 0.85) ** 2 + (gx / 0.65) ** 2
+        t2 = 140.0 + 30.0 * np.sin(2 * gx) * np.cos(2 * gy) * np.cos(2 * gz)
+        pd = np.where(support <= 1.0, 900.0 * (1 + 0.2 * np.sin(5 * gx) * np.cos(4 * gy)), 0.0)
+        return support, t2.astype(np.float32), pd.astype(np.float32)
+    return fields
+
+
+def _write_invivo_session(root: str, n: int, seed: int = 12):
+    """3 TEs x ax/cor/sag acquisitions, 240 x 240 at 1 mm in plane with
+    4 mm slabs of 60 slices (bench.py:1198-1260's geometry), cor and sag
+    rigidly offset (SESSION_MOTION), noise sigma 4, as NIfTI inputs of a
+    BIDS tree with its metadata CSV."""
+    rng = np.random.default_rng(seed)
+    fields = session_truth(n)
+    ax = np.arange(n, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
+    _, t2, pd = fields(xx, yy, zz)
+    del zz, yy, xx
+    geo = {   # (origin, row-major direction) of the slab stacks, spacing (1, 1, 4)
+        "ax": ((0.0, 0.0, 1.5), (1, 0, 0, 0, 1, 0, 0, 0, 1)),
+        "cor": ((0.0, 1.5, n - 1.0), (1, 0, 0, 0, 0, 1, 0, -1, 0)),
+        "sag": ((n - 2.5, 0.0, n - 1.0), (0, 0, -1, 1, 0, 0, 0, -1, 0)),
+    }
+    bids = os.path.join(root, "projects/")
+    logs = os.path.join(root, "dicom/logs/")
+    os.makedirs(logs)
+    rows, writes = [], []
+    for te in SESSION_TES:
+        vol = pd * np.exp(-te / t2)
+        stacks = {"ax": vol.reshape(n // 4, 4, n, n).mean(1),
+                  "cor": vol.reshape(n, n // 4, 4, n).mean(2).transpose(1, 0, 2)[:, ::-1],
+                  "sag": vol.reshape(n, n, n // 4, 4).mean(3).transpose(2, 0, 1)[::-1, ::-1]}
+        for otype, data in stacks.items():
+            origin, direction = geo[otype]
+            v = Volume(np.ascontiguousarray(data, np.float32), spacing=(1.0, 1.0, 4.0),
+                       origin=origin, direction=direction)
+            if otype in SESSION_MOTION:
+                ang, (i, j), shift = SESSION_MOTION[otype]
+                R = np.eye(3)
+                R[i, i] = R[j, j] = np.cos(ang)
+                R[i, j], R[j, i] = -np.sin(ang), np.sin(ang)
+                c = v.center_world()
+                v = Volume(v.data, spacing=v.spacing,
+                           origin=tuple(c + R @ (np.asarray(v.origin) - c) + np.asarray(shift)),
+                           direction=tuple((R @ v.direction_matrix).reshape(-1)))
+            noisy = v.data + rng.normal(0.0, 4.0, v.data.shape).astype(np.float32)
+            acq = {"prj": "prj-smoke", "sub": "sub-01", "ses": "ses-01",
+                   "run": f"run-{otype}-{te}", "EchoTime": te / 1000.0,
+                   "ImageOrientationPatientSTR": otype, "CoilString": "Body"}
+            writes.append((get_img_path(bids, acq, C.IN_DIRNAME), v.with_data(noisy)))
+            rows.append(acq)
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        for fut in [ex.submit(nifti.write, p, v) for p, v in writes]:
+            fut.result()
+    with open(os.path.join(logs, "smoke.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return bids, logs, fields
+
+
+def _phantom_recon(n: int = SESSION_N, seed: int = 13) -> np.ndarray:
+    """A 240^3 NIST-phantom recon: a cylindrical body, vials along z at the
+    default seed set, a dark closed hole, noise."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.ogrid[:n, :n, :n]
+    disk = (yy - 178) ** 2 + (xx - 184) ** 2
+    vol = np.where((disk < 62 ** 2) & (zz > 40) & (zz < 200), 250.0, 8.0).astype(np.float32)
+    for sx, sy, _ in C.PHANTOM_SEEDS[C.DEFAULT_PHANTOM_SEEDS_KEY]:
+        vol[:, ((yy - sy) ** 2 + (xx - sx) ** 2 < 25)[0]] = 700.0
+    vol[(disk < 5 ** 2) & (zz > 90) & (zz < 120)] = 30.0
+    return vol + rng.normal(0, 6.0, vol.shape).astype(np.float32)
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase12_session(n: int = SESSION_N, device: str = "cuda"):
+    """One in-vivo session at clinical size through process_qmri on the
+    card (SynthSeg 'fake'), then stage 3 (process_t2maps, gaussian) on the
+    same tree; then one in-vitro session on a 240^3 phantom recon, on the
+    card and on the CPU."""
+    from fetal_t2mapping_tpu_torch.pipeline import process_qmri
+
+    stage_names = ("recon.resample", "recon.fuse", "fuse.fuse", "fuse.reg_echo", "fuse.denoise",
+                   "fuse.write", "recon.synthseg", "recon.masks_bet", "recon.feta",
+                   "recon.atlas", "t2map.load", "t2map.fit", "t2map.save")
+    records = _Records()
+    logging.getLogger("fetal_t2mapping_tpu_torch.recon").addHandler(records)
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_s2_") as root:
+        os.environ["FSLDIR"] = os.path.join(root, "no_fsl")       # no atlases: the step skips
+        t0 = time.perf_counter()
+        bids, logs, fields = _write_invivo_session(root, n)
+        setup_s = time.perf_counter() - t0
+        rows = set_metadata(logs, ["smoke.csv"], low_field=True)
+        profiler.reset()
+        fused_fit.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        process_qmri(bids, rows, in_vivo=True, low_field=True,
+                     synthseg=SynthSegRunner(mode="fake"), device=device)
+        stage2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summaries = process_t2maps(rows, bids, list(SESSION_TES), C.fit_config("gaussian", True),
+                                   low_field=True, sim="smoke", make_plots=False, device=device)
+        stage3_s = time.perf_counter() - t0
+        launches = fused_fit.KERNEL_LAUNCHES
+        gate(launches > 0, "the chained stage-3 run launched no gauss_fit kernel")
+        gate(any("skipping atlas labels" in m for m in records.messages),
+             "the atlas step did not warn and skip")
+        stages = {k: round(v["seconds"], 3) for k, v in profiler.as_dict().items()
+                  if k in stage_names}
+
+        errs = {}
+        union = np.zeros((n,) * 3, bool)
+        for te in SESSION_TES:
+            acq = next(r for r in rows if r["EchoTime"] == te / 1000.0)
+            recon = nifti.read(get_img_path(bids, acq, C.RECON_DIRNAME))
+            mask = nifti.read(get_img_path(bids, acq, C.MASK_DIRNAME))
+            bet = nifti.read(get_img_path(bids, acq, C.BET_DIRNAME))
+            feta = nifti.read(get_img_path(bids, acq, C.FETA_DIRNAME))
+            gate((recon.data.dtype, mask.data.dtype, bet.data.dtype, feta.data.dtype)
+                 == (np.float32, np.uint8, np.float32, np.int16),
+                 "recon/mask/BET/FeTA dtypes")
+            gate(recon.shape == (n,) * 3, f"recon shape {recon.shape}")
+            union = union | (mask.data > 0)
+            gate(np.array_equal(bet.data, recon.data * (mask.data > 0)), "BET != recon x mask")
+            w = recon.world_grid()
+            support, t2_true, pd = fields(w[..., 0], w[..., 1], w[..., 2])
+            truth = pd * np.exp(-te / t2_true)
+            core = support <= 0.85 ** 2
+            errs[te] = float(np.median(np.abs(recon.data[core] - truth[core]) / truth[core]))
+            gate(errs[te] < 0.06, f"TE {te}: fused recon median rel err {errs[te]:.4f} >= 0.06")
+        t2_fit = nifti.read(summaries[0]["maps"]["t2"]).data
+        inside = union & (support <= 1.0)
+        t2_err = float(np.median(np.abs(t2_fit[inside] - t2_true[inside]) / t2_true[inside]))
+        gate(t2_err <= 5e-2, f"stage-3 median rel T2 err {t2_err:.4f} > 5e-2 inside the mask")
+        mask_frac = float(union.mean())
+
+    # in vitro: the card against the CPU, exactly
+    vol = _phantom_recon(n)
+    out = {}
+    vitro_s = {}
+    for dev in (device, "cpu"):
+        with tempfile.TemporaryDirectory(prefix="ft2_smoke_vitro_") as root:
+            bids = os.path.join(root, "projects/")
+            acq = {"prj": "prj-003", "sub": "sub-01", "ses": "ses-01", "run": "run-114",
+                   "EchoTime": 0.114, "ImageOrientationPatientSTR": "ax", "CoilString": "Body"}
+            nifti.write(get_img_path(bids, acq, C.RECON_DIRNAME), Volume(vol))
+            t0 = time.perf_counter()
+            process_qmri(bids, [acq], in_vivo=False, low_field=True, device=dev)
+            vitro_s[dev] = round(time.perf_counter() - t0, 2)
+            out[dev] = [nifti.read(get_img_path(bids, acq, d)).data
+                        for d in (C.MASK_DIRNAME, C.PHANTOM_LABELS_DIRNAME)]
+    for a, b, what in zip(out[device], out["cpu"], ("mask", "labels")):
+        gate(a.dtype == b.dtype == np.uint8 and np.array_equal(a, b),
+             f"in-vitro {what}: card != CPU ({int((a != b).sum())} voxels)")
+    n_labels = len(np.unique(out[device][1])) - 1
+    in_grid = sum(max(sd) < n for sd in C.PHANTOM_SEEDS[C.DEFAULT_PHANTOM_SEEDS_KEY])
+    gate(n_labels == in_grid, f"{n_labels} sphere labels for {in_grid} seeds in the grid")
+    print(f"phase 12 session (process_qmri in vivo, 3 TEs x ax/cor/sag {n}x{n}x{n // 4} at 1x1x4 "
+          f"mm -> {n}^3, SynthSeg fake; data set-up {setup_s:.1f} s): stage 2 {stage2_s:.2f} s, "
+          f"stage 3 (process_t2maps gaussian) {stage3_s:.2f} s, gauss_fit launches {launches}; "
+          f"fused recon median rel err vs truth on the core {errs}; mask share {mask_frac:.3f}; "
+          f"stage-3 median rel T2 err vs truth in mask and brain {t2_err:.4f}; stage seconds "
+          f"{stages}; in vitro ({n}^3 phantom, masks + labels) card {vitro_s[device]} s, CPU "
+          f"{vitro_s['cpu']} s, equal", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -1261,6 +1617,8 @@ def main() -> int:
     conv_err, conv_times, conv_bound = timed("phase 8", phase8_conv)
     seg_launches = timed("phase 9", phase9_segmentation)
     timed("phase 10", phase10_guess_start)
+    timed("phase 11", phase11_registration)
+    timed("phase 12", phase12_session)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

@@ -3,7 +3,8 @@
 The geometry model mirrors what the reference pipeline propagates through
 SimpleITK images (spacing / origin / direction, cf. reference
 utils/t2map_utils.py:21-23 which copies exactly these three onto output maps),
-but is a plain frozen dataclass over a host numpy array.
+but is a plain frozen dataclass over a host numpy array, or a torch tensor
+while a volume moves between steps on the device.
 
 Conventions
 -----------

@@ -12,7 +12,11 @@ tail, and the gaussian fit's) are held to it bitwise, also on a permuted
 input and a second call. The S2D conv kernel sums in another order than its
 plain version: fp32 within 1e-5 of scale (TF32 off), bf16 within one ulp
 of the element on >= 99.9% of elements and within two ulps of the output's
-largest magnitude everywhere.
+largest magnitude everywhere. Stage 2 has no hand kernel: its torch ops on
+the card are held against the CPU (interp values and coordinate gradients
+1e-5 of scale, nearest equal; TV per slice to the CPU iterate at the card's
+stop or one either side; morphology equal; a short registration's params
+1e-4 of max(1, |p|) with the same plateau stops).
 """
 
 import numpy as np
@@ -329,3 +333,111 @@ def test_segment_volume_kernel_path_on_cuda(no_tf32):
     lab16 = unet3d.segment_volume(params, vol, use_s2d="kernel")
     assert conv_s2d.CONV_S2D_LAUNCHES == before + 6
     assert (lab16 == dense).mean() >= 0.97
+
+
+# ------------------------------------------------ stage 2 on the card
+# (plain torch ops, no hand kernel: the card against the CPU, at the
+# tolerances the CPU tests hold the port to against the JAX package)
+def _cavity_mask(shape, seed):
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    m = np.zeros(shape, bool)
+    for _ in range(5):
+        c = rng.uniform(0.25, 0.75, 3) * np.asarray(shape)
+        r = rng.uniform(2.5, 5.0)
+        d = np.sqrt((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2)
+        m |= (d <= r) & (d >= r - 1.2)
+    return m | (rng.random(shape) > 0.9)
+
+
+def test_interp_values_and_gradient_on_cuda(card):
+    from fetal_t2mapping_tpu_torch.ops import interp
+
+    rng = np.random.default_rng(0)
+    vol = torch.from_numpy(rng.uniform(0, 100, (40, 44, 48)).astype(np.float32))
+    coords = torch.from_numpy(rng.uniform(-1.5, 49.5, (1 << 16, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        c = coords.to(dev, copy=True).requires_grad_(True)
+        v = interp.sample_trilinear(vol.to(dev), c, cval=float("nan"))
+        torch.where(torch.isnan(v), 0.0, v).square().sum().backward()
+        out[str(dev)] = (v.detach().cpu(), c.grad.cpu(),
+                         interp.sample_nearest(vol.to(dev), coords.to(dev)).cpu())
+    (v0, g0, n0), (v1, g1, n1) = out.values()
+    assert torch.equal(torch.isnan(v0), torch.isnan(v1))
+    fin = ~torch.isnan(v0)
+    assert (v1[fin] - v0[fin]).abs().max() <= 1e-5 * v0[fin].abs().max()
+    assert (g1 - g0).abs().max() <= 1e-5 * g0.abs().max()
+    assert torch.equal(n0, n1)
+
+
+def test_tv_slices_stop_on_their_own_on_cuda(card):
+    """Each slice of the card's result is the CPU iterate at the card's stop
+    for that slice, or one iteration either side, to 1e-5 of the scale; the
+    slices stop at different iterations."""
+    from fetal_t2mapping_tpu_torch.ops import tv
+
+    rng = np.random.default_rng(10)
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, 32)] * 3, indexing="ij")
+    clean = 0.3 * (np.sqrt(z ** 2 + y ** 2 + x ** 2) < 0.7) + 1.0
+    vol = torch.from_numpy((clean + rng.normal(0, 1.0, clean.shape)
+                            * np.geomspace(0.01, 1.0, 32)[:, None, None]).astype(np.float32))
+    got = tv.tv_denoise_slices(vol.to(card)).cpu()
+    scale = got.abs().max()
+    stops = []
+    for s in range(vol.shape[0]):
+        x1 = vol[s:s + 1].to(card)
+        full = tv._tv2d(x1, 0.1, 2e-4, 200)
+        lo, hi = 1, 200
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if torch.equal(tv._tv2d(x1, 0.1, 2e-4, mid), full) else (mid + 1, hi)
+        stops.append(lo)
+        its = [tv._tv2d(vol[s:s + 1], 0.1, 0.0, n)[0] for n in (lo - 1, lo, lo + 1) if n >= 1]
+        assert min((u - got[s]).abs().max() for u in its) <= 1e-5 * scale, s
+    assert len(set(stops)) >= 4 and max(stops) < 200, stops
+
+
+@pytest.mark.parametrize("shape", [(48, 52, 56), (60, 64, 1)])
+def test_morphology_exact_on_cuda(card, shape):
+    from fetal_t2mapping_tpu_torch.ops import morphology
+
+    m = torch.from_numpy(_cavity_mask(shape, seed=7))
+    assert torch.equal(morphology.fill_holes(m.to(card)).cpu(), morphology.fill_holes(m))
+    img = torch.where(m, 80.0, 0.5)
+    assert torch.equal(morphology.build_slice_mask(img.to(card)).cpu(),
+                       morphology.build_slice_mask(img))
+    if shape[2] > 1:
+        for fn, r, box in (("binary_dilate", 4, False), ("binary_erode", 2, False),
+                           ("binary_closing", 5, True)):
+            f = getattr(morphology, fn)
+            assert torch.equal(f(m.to(card), r, box=box).cpu(), f(m, r, box=box)), fn
+
+
+def test_short_registration_on_cuda(card):
+    """Rigid ncc at REG_FAST-like levels, fixed budget and plateau exit:
+    the card's solve against the CPU's, to 1e-4 of max(1, |p|)."""
+    from fetal_t2mapping_tpu_torch.core.volume import Volume
+    from fetal_t2mapping_tpu_torch.recon import registration, resample
+
+    rng = np.random.default_rng(3)
+    zz, yy, xx = np.meshgrid(*[np.arange(36)] * 3, indexing="ij")
+    data = np.zeros((36,) * 3, np.float32)
+    for _ in range(8):
+        c, s = rng.uniform(8, 28, 3), rng.uniform(2, 4)
+        data += rng.uniform(0.5, 1.5) * np.exp(
+            -((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2) / (2 * s * s))
+    fixed = Volume(data.astype(np.float32), spacing=(1.5, 1.5, 1.5))
+    T = np.eye(4)
+    T[:3, 3] = [2.0, -1.5, 1.0]
+    moving = resample.resample_to_reference(fixed, fixed, transform=T, device="cpu")
+    for stop, iters in ((None, (8, 4)), (1e-3, (80, 40))):
+        kw = dict(levels=(2, 1), sigmas=(1.0, 0.0), iters=iters, samples=(512, 4096),
+                  stop_tol=stop)
+        a = registration.register_rigid(fixed, moving, device="cpu", **kw)
+        b = registration.register_rigid(fixed, moving, device=card, **kw)
+        assert b.params_device.device.type == "cuda"
+        err = np.abs(a.params - b.params).max() / max(1.0, np.abs(a.params).max())
+        assert err <= 1e-4, (stop, a.params, b.params)
+        if stop is not None:
+            assert np.array_equal(a.iters_run, b.iters_run)

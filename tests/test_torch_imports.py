@@ -47,7 +47,10 @@ def test_importing_every_module_leaves_jax_out():
         assert f"fetal_t2mapping_tpu_torch.models.{name}" in expected
     for name in ("unet3d", "conv_s2d", "synthseg"):
         assert f"fetal_t2mapping_tpu_torch.labels.{name}" in expected
-    for name in ("build", "pipeline.recon_pipeline"):
+    for name in ("build", "pipeline.recon_pipeline", "cli.qmri_reconstruction",
+                 "ops.interp", "ops.filtering", "ops.tv", "ops.morphology",
+                 "recon.resample", "recon.registration", "recon.fuse", "recon.denoise",
+                 "labels.masks", "labels.feta", "labels.phantom"):
         assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
 
