@@ -21,8 +21,15 @@ subset. Phases 11-12, stage 2 (torch ops on the card, no hand kernel):
 the CPU at 48^3; then one in-vivo session (3 TEs x ax/cor/sag slab stacks
 fusing to 240^3) through ``process_qmri`` and ``process_t2maps`` on it,
 gated on the recon and the T2 map against the simulation's truth, and one
-240^3 in-vitro phantom through ``process_qmri``, card equal to CPU. Each
-phase prints one line with its wall time; any failed gate or
+240^3 in-vitro phantom through ``process_qmri``, card equal to CPU. Phase
+13, the serving path: ``fit_volume`` per model on bench.py's 240^3 x 3-TE
+request (and ~5% and ~50% ellipsoid masks), its dense, block and
+voxel-exact layouts timed, bitwise equal to each other and to
+``fit_fused`` on the gathered voxels, the model's kernels launched once
+per request. Phase 14: N4 bias correction at 240^3 (two card runs bitwise,
+card vs CPU at 48^3, the shared-field variant and the stage-2 step), the
+ROI tables on a 240^3 T2 map (card equal to CPU) and the LUT estimate at
+256^3. Each phase prints one line with its wall time; any failed gate or
 error exits non-zero. The second-to-last lines are the kernels' JSON
 record and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Exits non-zero
@@ -1592,6 +1599,333 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
     return launches
 
 
+# ------------------------------------------------ the serving path (fit_volume)
+SERVING_N = 240
+# axis scales of bench.py:438-440's ellipsoid (0.75 / 0.85 / 0.65: 21.7% of
+# a 240^3 grid) for masks of ~5%, that 21.7% (the bench's request) and ~50%
+SERVING_MASKS = {"5%": 0.613, "22%": 1.0, "50%": 1.329}
+# per fit: bounds, guess and tolerances of the bench's rows (the serving row
+# runs fit_volume's defaults, the 3-parameter rows bench.py:242-243), and
+# the kernels one request launches
+SERVING_FITS = {
+    "gaussian": dict(model="gaussian", lo=LO, hi=HI, guess=None, ftol=1e-9, gtol=0.0,
+                     varpro3=None, kernels=("KERNEL_LAUNCHES",)),
+    "gaussian_rician": dict(model="gaussian_rician", lo=LO3, hi=HI3, guess=GUESS3, varpro3=True,
+                            kernels=("GR_VARPRO_LAUNCHES",), **TOL3),
+    "gaussian_rician multistart": dict(model="gaussian_rician", lo=LO3, hi=HI3, guess=GUESS3,
+                                       varpro3=False, kernels=("FIT3_LAUNCHES",
+                                                               "FIT3_CONT_LAUNCHES"), **TOL3),
+    "rician": dict(model="rician", lo=LO3, hi=HI3, guess=GUESS3, varpro3=None,
+                   kernels=("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES"), **TOL3),
+}
+LAYOUTS = {"dense": dict(compact=False), "block": dict(compact=True),
+           "voxel": dict(compact=True, block=1)}
+VF_MAPS = ("t2", "k", "sigma", "fun", "converged", "n_iter")
+
+
+def serving_request(n: int, scale: float, seed: int, device: str):
+    """bench.py:431-440's request made on the card from a seeded generator:
+    k ~ U(600, 5000), T2 ~ U(20, 500), noise sigma 8 (clipped at 1e-2),
+    the 0.75 / 0.85 / 0.65 ellipsoid mask with its axes scaled by ``scale``."""
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (n, n, n)
+    k = torch.rand(shape, generator=g, device=dev) * (5000.0 - 600.0) + 600.0
+    t2 = torch.rand(shape, generator=g, device=dev) * (500.0 - 20.0) + 20.0
+    te = torch.tensor(TES3, device=dev)
+    sig = k[..., None] * torch.exp(-te / t2[..., None])
+    sig = torch.clamp_min(sig + NOISE * torch.randn(sig.shape, generator=g, device=dev), 1e-2)
+    ax = (torch.arange(n, dtype=torch.float32, device=dev) - (n - 1) / 2) / (n / 2)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    mask = ((zz / (0.75 * scale)) ** 2 + (yy / (0.85 * scale)) ** 2
+            + (xx / (0.65 * scale)) ** 2) <= 1.0
+    return sig.contiguous(), mask, t2
+
+
+def serving_ms(call, rounds=3, per_round=4):
+    """Median over ``rounds`` of the host-to-host ms per request of
+    ``per_round`` requests issued back to back, then one CUDA sync."""
+    times = []
+    for _ in range(rounds):
+        _sync()
+        t0 = time.perf_counter()
+        outs = [call() for _ in range(per_round)]
+        _sync()
+        times.append((time.perf_counter() - t0) / per_round * 1e3)
+        del outs
+    return float(np.median(times))
+
+
+def crossover(points):
+    """Mask fraction where the dense layout starts to beat block compaction,
+    by linear interpolation of (block ms - dense ms) over mask_frac (and
+    extrapolation from the nearest two points outside them), clipped to
+    [0, 1]."""
+    points = sorted(points)
+    d = [(mf, blk - den) for mf, den, blk in points]
+    for (m0, d0), (m1, d1) in zip(d, d[1:]):
+        if d0 < 0 <= d1 or d0 >= 0 > d1:
+            return float(np.clip(m0 - d0 * (m1 - m0) / (d1 - d0), 0.0, 1.0))
+    (m0, d0), (m1, d1) = (d[-2], d[-1]) if d[-1][1] < 0 else (d[0], d[1])
+    if d1 == d0:
+        return 1.0 if d1 < 0 else 0.0
+    return float(np.clip(m0 - d0 * (m1 - m0) / (d1 - d0), 0.0, 1.0))
+
+
+def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
+    """fit_volume, the serving path, on 240^3 x 3-TE requests per model:
+    the dense, block (32) and voxel-exact layouts, each for 3 rounds of 4
+    requests; all three bitwise equal per voxel and equal to fit_fused on
+    the gathered voxels; the 22% request gated; launches per request
+    counted from 0 around one compact='auto' request."""
+    from fetal_t2mapping_tpu_torch.models import volume_fit
+
+    launches, times = {}, {}
+    for fit_name, fit in SERVING_FITS.items():
+        model, lo, hi = fit["model"], fit["lo"], fit["hi"]
+        kw = dict(model=model, guess=fit["guess"], ftol=fit["ftol"], gtol=fit["gtol"],
+                  varpro3=fit["varpro3"], check_capacity=False, device=device)
+        points, text = [], []
+        for name, scale in SERVING_MASKS.items():
+            sig, mask, t2 = serving_request(n, scale, seed=21, device=device)
+            n_vox = mask.numel()
+            n_blocks = int(volume_fit._count_touched_blocks(mask, n_vox, 32))
+            mask_frac = math.ceil(106 * n_blocks * 32 / n_vox) / 100   # 6% over the touched blocks
+            res = {lay: volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac,
+                                              **lk, **kw)
+                   for lay, lk in LAYOUTS.items()}
+            _sync()
+            d = res["dense"]
+            n_masked = int(d.n_masked)
+            gate(n_masked == int(mask.sum()), f"serving {fit_name} {name}: n_masked {n_masked}")
+            for lay, r in res.items():
+                gate(int(r.n_overflow) == 0, f"serving {fit_name} {name} {lay}: n_overflow "
+                     f"{int(r.n_overflow)}")
+                for m in VF_MAPS:
+                    gate(torch.equal(getattr(r, m), getattr(d, m)),
+                         f"serving {fit_name} {name}: layout {lay} map {m} differs from dense")
+                    gate(not bool(getattr(r, m)[~mask].any()),
+                         f"serving {fit_name} {name} {lay}: map {m} not 0 outside the mask")
+            ff = fused_fit.fit_fused(sig.reshape(-1, 3)[mask.reshape(-1)], TES3, lo, hi,
+                                     model=model, guess=fit["guess"], ftol=fit["ftol"],
+                                     gtol=fit["gtol"], varpro3=fit["varpro3"], device=device)
+            sigma = ff.x[:, 2] if ff.x.shape[1] == 3 else torch.zeros_like(ff.fun)
+            for m, want in (("t2", ff.x[:, 1]), ("k", ff.x[:, 0]), ("sigma", sigma),
+                            ("fun", ff.fun), ("converged", ff.converged), ("n_iter", ff.n_iter)):
+                gate(torch.equal(getattr(d, m)[mask], want),
+                     f"serving {fit_name} {name}: map {m} differs from fit_fused on the gathered voxels")
+            med_rel = ((d.t2[mask] - t2[mask]).abs() / t2[mask]).median().item()
+            conv = d.converged[mask].float().mean().item()
+            if name == "22%":
+                gate(med_rel <= 5e-2, f"serving {fit_name}: median rel T2 err {med_rel:.3e} > 5e-2")
+                if model == "gaussian":
+                    gate(conv >= 0.98, f"serving gaussian: converged {conv:.5f} < 0.98")
+                for c in COUNTERS:
+                    setattr(fused_fit, c, 0)
+                volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac, **kw)
+                _sync()
+                counts = {c: getattr(fused_fit, c) for c in COUNTERS}
+                for c in COUNTERS:
+                    # the plain versions (device "cpu", a rehearsal) count nothing
+                    want = int(c in fit["kernels"] and device == "cuda")
+                    gate(counts[c] == want, f"serving {fit_name}: {c} {counts[c]} per request, "
+                         f"expected {want}")
+                launches[fit_name] = counts
+            del res, d, ff
+            ms = {lay: serving_ms(lambda lk=lk: volume_fit.fit_volume(
+                sig, mask, TES3, lo, hi, mask_frac=mask_frac, **lk, **kw))
+                for lay, lk in LAYOUTS.items()}
+            times[(fit_name, name)] = (mask_frac, ms)
+            points.append((mask_frac, ms["dense"], ms["block"]))
+            compact = volume_fit.resolve_compact("auto", model, mask_frac, fit["varpro3"])
+            pick = "block" if compact else "dense"
+            text.append(f"{name} mask ({n_masked} voxels, mask_frac {mask_frac}, auto -> {pick}): "
+                        + ", ".join(f"{lay} {t:.3f} ms ({n_masked / t * 1e3:.4g} voxels/s)"
+                                    for lay, t in ms.items())
+                        + f", median rel T2 err {med_rel:.3e}, converged {conv:.5f}")
+            del sig, mask, t2
+        print(f"phase 13 serving {fit_name} (fit_volume, {n}^3 x 3 TEs, 3 rounds of 4 "
+              f"requests, bitwise across layouts and with fit_fused): " + "; ".join(text)
+              + f"; dense/block crossover at mask_frac {crossover(points):.3f}; launches per "
+              f"request {launches[fit_name]}", flush=True)
+    return launches, times
+
+
+# ------------------------------------------------ N4 and the stage-4 analysis
+def n4_scene(n: int, seed: int = 0, bias_strength: float = 0.6):
+    """tests/test_biasfield.py's scene (two tissue classes with 2% noise in
+    a sphere under a known smooth multiplicative field), its 128 mm box
+    centred in a 240 mm field of view of n^3 voxels: a 122 mm brain."""
+    rng = np.random.default_rng(seed)
+    ax = np.linspace(-1, 1, n, dtype=np.float32) * np.float32(240.0 / 128.0)
+    z, y, x = ax[:, None, None], ax[None, :, None], ax[None, None, :]
+    r = np.sqrt(z * z + y * y + x * x)
+    tissue = np.where(r < 0.6, np.float32(1000.0), np.float32(600.0))
+    tissue = tissue * (1 + 0.02 * rng.standard_normal(tissue.shape, dtype=np.float32))
+    field = np.exp(np.float32(bias_strength) * (0.7 * z + 0.5 * y * y - 0.3 * x))
+    mask = r < 0.95
+    img = np.where(mask, tissue * field, 0.0).astype(np.float32)
+    return img, mask, field.astype(np.float32), tissue
+
+
+def n4_gates(res, img, mask, field, tissue, what):
+    err_before = float(np.std(np.log(img[mask] / tissue[mask])))
+    err_after = float(np.std(np.log(np.maximum(res.corrected.data[mask], 1e-6) / tissue[mask])))
+    corr = float(np.corrcoef(np.log(res.field.data[mask]).ravel(),
+                             np.broadcast_to(np.log(field), mask.shape)[mask])[0, 1])
+    gate(err_after < 0.5 * err_before, f"n4 {what}: residual log-field error {err_after:.4f} "
+         f"not below half of {err_before:.4f}")
+    gate(corr > 0.9, f"n4 {what}: field correlation {corr:.4f} <= 0.9")
+    return f"log-field error {err_before:.4f} -> {err_after:.4f}, field correlation {corr:.4f}"
+
+
+def n4_held(a, b, mask, what):
+    """Card against CPU: corrected and field within 1e-4 relative on the
+    mask, |mean| / std of each update within 5e-3 (tests/test_torch_biasfield.py)."""
+    rel = max(float(np.max(np.abs(x.data[mask] - y.data[mask]) / np.abs(y.data[mask])))
+              for x, y in ((a.corrected, b.corrected), (a.field, b.field)))
+    inv = float(np.max(np.abs(1 / a.field_cv - 1 / b.field_cv)))
+    gate(rel <= 1e-4 and inv <= 5e-3, f"n4 {what}: card vs CPU rel {rel:.3e} (> 1e-4) or "
+         f"|mean|/std {inv:.3e} (> 5e-3)")
+    return rel, inv
+
+
+def roi_scene(n: int, seed: int = 31):
+    """A T2 map U(40, 400) with FeTA tissues 1-7 in shells (5% of the
+    brain's voxels set to 0) and 50 atlas labels in blocks of (n / 12)^3."""
+    rng = np.random.default_rng(seed)
+    ax = np.linspace(-1, 1, n, dtype=np.float32)
+    r = np.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None, :] ** 2)
+    feta = np.where(r < 0.9, np.minimum((r / 0.9 * 7).astype(np.int16) + 1, 7), 0).astype(np.int16)
+    feta[(rng.random(feta.shape) < 0.05) & (feta > 0)] = 0
+    atlas = np.kron(rng.integers(0, 51, (12, 12, 12)).astype(np.int16),
+                    np.ones((n // 12,) * 3, np.int16))
+    return rng.uniform(40.0, 400.0, feta.shape).astype(np.float32), feta, atlas
+
+
+def timed_s(fn):
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return time.perf_counter() - t0, out
+
+
+def phase14_n4_analysis(n: int = SESSION_N, n_lut: int = N_HEADLINE3, device: str = "cuda"):
+    """N4 at 240^3 (the defaults and three levels, two card runs bitwise,
+    card vs CPU at 48^3, shared_log_bias over 3 echoes,
+    run_biasfield_correction per acquisition and shared on a small tree);
+    the ROI tables on a 240^3 T2 map, card equal to CPU; lut_t2 at 256^3."""
+    import pandas as pd
+
+    from fetal_t2mapping_tpu_torch.analysis.roi import (roi_stats_per_label, t2_per_atlas_roi,
+                                                        t2_per_tissue_feta)
+    from fetal_t2mapping_tpu_torch.models.lut import lut_t2
+    from fetal_t2mapping_tpu_torch.pipeline.recon_pipeline import run_biasfield_correction
+    from fetal_t2mapping_tpu_torch.recon.biasfield import n4_bias_correction, shared_log_bias
+
+    img, mask, field, tissue = n4_scene(n)
+    mm = (240.0 / n,) * 3                           # a 240 mm field of view: 1 mm at 240^3
+    vol, mvol = Volume(img, spacing=mm), Volume(mask.astype(np.uint8), spacing=mm)
+    s1, a = timed_s(lambda: n4_bias_correction(vol, mvol, device=device))
+    s1b, b = timed_s(lambda: n4_bias_correction(vol, mvol, device=device))
+    gate(np.array_equal(a.corrected.data, b.corrected.data) and np.array_equal(a.field.data, b.field.data)
+         and np.array_equal(a.field_cv, b.field_cv), "n4: two card runs differ")
+    single = n4_gates(a, img, mask, field, tissue, "single level")
+    s3, c = timed_s(lambda: n4_bias_correction(vol, mvol, ctrl_spacing_mm=(200.0, 100.0, 50.0),
+                                               device=device))
+    multi = n4_gates(c, img, mask, field, tissue, "three levels")
+    gate(c.field_cv.shape == (120,), f"n4 three levels: field_cv {c.field_cv.shape}")
+    echoes = [vol.with_data((img * np.float32(np.exp(-te / 150.0))).astype(np.float32))
+              for te in TES_SESSION]
+    s_sh, (corrected, shared) = timed_s(lambda: shared_log_bias(echoes, [mvol] * 3, device=device))
+    corr_sh = float(np.corrcoef(np.log(shared.data[mask]),
+                                np.broadcast_to(np.log(field), mask.shape)[mask])[0, 1])
+    gate(corr_sh > 0.9 and len(corrected) == 3, f"shared_log_bias: field correlation {corr_sh:.4f}")
+    # card against CPU at 48^3 (5 mm voxels: the same 240 mm field of view)
+    img48, mask48, *_ = n4_scene(48, seed=1)
+    v48 = Volume(img48, spacing=(5.0, 5.0, 5.0))
+    m48 = Volume(mask48.astype(np.uint8), spacing=(5.0, 5.0, 5.0))
+    s_cpu, on_cpu = timed_s(lambda: n4_bias_correction(v48, m48, device="cpu"))
+    rel, inv = n4_held(n4_bias_correction(v48, m48, device=device), on_cpu, mask48, "48^3")
+    # the stage-2 step on a small tree: 2 orientations x 2 TEs at 48^3
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_n4_") as root:
+        bids = os.path.join(root, "projects/")
+        rows = []
+        for otype in ("ax", "cor"):
+            for te in (114, 202):
+                acq = {"prj": "prj-004", "sub": "sub-001", "ses": "ses-01",
+                       "run": f"run-{otype}-{te}", "EchoTime": te / 1000.0,
+                       "ImageOrientationPatientSTR": otype, "CoilString": "Body"}
+                nifti.write(get_img_path(bids, acq, C.RESAMP_DIRNAME),
+                            v48.with_data((img48 * np.float32(np.exp(-te / 150.0))).astype(np.float32)),
+                            dtype=np.float32)
+                rows.append(acq)
+        outs = {}
+        for shared_flag in (False, True):
+            run_biasfield_correction(rows, bids, shared=shared_flag, overwrite=True, device=device)
+            outs[shared_flag] = [nifti.read(get_img_path(bids, a, C.N4_DIRNAME)).data for a in rows]
+        for shared_flag, datas in outs.items():
+            for a, d in zip(rows, datas):
+                gate(d.shape == img48.shape and bool(np.isfinite(d).all()),
+                     f"run_biasfield_correction shared={shared_flag}: {a['run']} output")
+        one = n4_bias_correction(v48.with_data((img48 * np.float32(np.exp(-114 / 150.0))).astype(
+            np.float32)), device=device)
+        gate(np.array_equal(outs[False][0], one.corrected.data),
+             "run_biasfield_correction: output differs from n4_bias_correction on its input")
+    print(f"phase 14 n4 ({n}^3, {mm[0]:g} mm, known field; {single}): defaults {s1:.3f} s and {s1b:.3f} s, "
+          f"bitwise equal; (200, 100, 50) mm {s3:.3f} s ({multi}); shared_log_bias x 3 echoes "
+          f"{s_sh:.3f} s (field correlation {corr_sh:.4f}); card vs CPU at 48^3 rel {rel:.3e}, "
+          f"|mean|/std {inv:.3e} (CPU {s_cpu:.2f} s); run_biasfield_correction per acquisition "
+          f"and shared on 2 x 2 volumes at 48^3: written", flush=True)
+
+    # ROI tables on a 240^3 T2 map (timed on the card), card against CPU at 96^3
+    labels = [{"index": i, "name": f"roi_{i}"} for i in range(1, 51)]
+    gt = {"gm": 150.0, "wm": 200.0}
+
+    def roi_tables(scene, dev):
+        t2map, feta, atlas = scene
+        return (t2_per_atlas_roi(t2map, feta, atlas, labels, tissue_class=3, device=dev),
+                t2_per_tissue_feta(t2map, feta, gt=gt, device=dev),
+                roi_stats_per_label(t2map, atlas, n_labels=51, device=dev))
+
+    scene = tuple(torch.from_numpy(x).to(device) for x in roi_scene(n))
+    roi_s, tables = timed_s(lambda: roi_tables(scene, device))
+    again = roi_stats_per_label(scene[0], scene[2], n_labels=51, device=device)
+    gate(again.equals(tables[2]), "roi_stats_per_label: two card runs differ")
+    n_roi = int((tables[0]["nvoxel"] > 0).sum())
+    small = roi_scene(96)
+    card, host = roi_tables(small, device), roi_tables(small, "cpu")
+    for i, what in enumerate(("t2_per_atlas_roi", "t2_per_tissue_feta")):
+        try:
+            pd.testing.assert_frame_equal(card[i], host[i])
+        except AssertionError as e:
+            gate(False, f"{what}: card differs from CPU: {e}")
+    gate(np.array_equal(card[2]["n"], host[2]["n"]), "roi_stats_per_label: counts differ from CPU")
+    ok = host[2]["n"].to_numpy() > 0
+    mean_rel = float(np.max(np.abs(card[2]["mean"][ok] - host[2]["mean"][ok]) / host[2]["mean"][ok]))
+    gate(mean_rel <= 1e-9, f"roi_stats_per_label: means {mean_rel:.3e} from the CPU's")
+    print(f"phase 14 roi ({n}^3 T2 map, 7 FeTA tissues, 50 atlas labels in tissue 3 with "
+          f"{n_roi} non-empty; per-label moments of 51 labels): {roi_s:.3f} s, two runs of the "
+          f"moments bitwise; card vs CPU at 96^3: atlas and tissue tables equal, moment counts "
+          f"equal, means {mean_rel:.1e} apart", flush=True)
+
+    # the LUT at 256^3 x 3 TEs
+    sig, k_true, t2_true, _ = make_data3(n_lut, TES3, seed=33)
+    sig_dev = torch.from_numpy(sig).to(device)
+    out = lut_t2(sig_dev, te=TES3, device=device)
+    t2_true = torch.from_numpy(t2_true).to(device)
+    gate(tuple(out.shape) == (n_lut, 2) and bool(torch.isfinite(out).all()),
+         "lut_t2: output shape / non-finite values")
+    lut_rel = ((out[:, 1] - t2_true).abs() / t2_true).median().item()
+    lut_ms = (cuda_ms(lambda: lut_t2(sig_dev, te=TES3, device=device), 5) if device == "cuda"
+              else timed_s(lambda: lut_t2(sig_dev, te=TES3, device=device))[0] * 1e3)
+    print(f"phase 14 lut_t2 ({n_lut} voxels x 3 TEs, noise sigma 8): {lut_ms:.3f} ms, median rel T2 err "
+          f"vs truth {lut_rel:.3e}", flush=True)
+    return {"n4_s": s1, "n4_3lvl_s": s3, "shared_s": s_sh, "roi_s": roi_s,
+            "lut_ms": lut_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -1619,6 +1953,8 @@ def main() -> int:
     timed("phase 10", phase10_guess_start)
     timed("phase 11", phase11_registration)
     timed("phase 12", phase12_session)
+    timed("phase 13", phase13_serving)
+    timed("phase 14", phase14_n4_analysis)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

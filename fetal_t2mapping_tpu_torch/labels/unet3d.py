@@ -271,24 +271,24 @@ def _conv_weight(w: np.ndarray, device, dtype) -> torch.Tensor:
     return w.to(device=device, dtype=dtype).contiguous(memory_format=torch.channels_last_3d)
 
 
-def to_torch_params(params: Dict[str, np.ndarray], device="cpu",
+def to_torch_params(params: Dict[str, np.ndarray], device="cuda",
                     dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree (numpy, DHWIO kernels, the layout of
     load_params) -> tensors on ``device``: conv weights (out, in, k, k, k)
     in ``dtype``; biases and BN scale/shift in fp32."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return {k: (_conv_weight(v, dev, dtype) if k.endswith("_w")
                 else _tensor(v, dev, torch.float32))
             for k, v in params.items()}
 
 
-def to_torch_s2d_params(s2d_params: Dict[str, np.ndarray], device="cpu",
+def to_torch_s2d_params(s2d_params: Dict[str, np.ndarray], device="cuda",
                         dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """``s2d_level0_params`` output -> tensors on ``device``: the 2^3 S2D
     kernels as packed (8C, C') matrices (``pack_taps``) and the folded
     upsample kernel as (8c0, c_up, 3, 3, 3), both in ``dtype``; biases and
     the tiled BN vectors in fp32."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     out = {}
     for k, v in s2d_params.items():
         if k == "dec0_0_up_w":

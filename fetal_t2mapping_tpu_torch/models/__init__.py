@@ -3,6 +3,7 @@ from .init import grid_init, loglinear_init
 from .solver import fit_batch, fit_batch_multistart, fit_batch_traced, FitResult
 from .fused_fit import fit_fused
 from .t2map import fit_stack, T2FitOutput
+from .volume_fit import fit_volume, VolumeFitResult
 
 __all__ = [
     "gauss_model",
@@ -18,4 +19,6 @@ __all__ = [
     "fit_fused",
     "fit_stack",
     "T2FitOutput",
+    "fit_volume",
+    "VolumeFitResult",
 ]

@@ -38,6 +38,7 @@ from ..labels.masks import extract_brain, mask_from_labels, phantom_mask
 from ..labels.phantom import phantom_labels_from_seeds
 from ..labels.synthseg import SynthSegRunner
 from ..ops.morphology import binary_closing, binary_dilate, binary_opening
+from ..recon.biasfield import n4_bias_correction, shared_log_bias
 from ..recon.denoise import denoise_volume
 from ..recon.fuse import fuse_orientations
 from ..recon.registration import register_affine, register_rigid, register_rigid_multi
@@ -143,11 +144,33 @@ def run_reconstruct_volumes(metadata: List[Dict], bids_path: str, *, denoise: bo
             log.info("recon saved: %s", out_path)
 
 
-def run_biasfield_correction(metadata: List[Dict], bids_path: str, **kwargs) -> None:
-    """Optional N4 bias correction (reference utils/qmri_utils.py:254-357):
-    not ported yet."""
-    raise NotImplementedError(
-        "N4 bias-field correction (recon/biasfield) is not ported; ROADMAP Queue 1 item 8")
+def run_biasfield_correction(metadata: List[Dict], bids_path: str, *, shared: bool = False,
+                             overwrite: bool = False, device="cuda", **n4_kwargs) -> None:
+    """Optional N4 bias correction of the resampled volumes (reference
+    utils/qmri_utils.py:254-357). ``shared=False`` corrects each acquisition
+    independently; ``shared=True`` pools the log-bias across echo times per
+    (prj, sub, ses, orientation) — the coil bias is TE-independent."""
+    if not shared:
+        for acq in metadata:
+            out_path = get_img_path(bids_path, acq, C.N4_DIRNAME)
+            if nifti.exists(out_path) and not overwrite:
+                continue
+            vol = nifti.read(get_img_path(bids_path, acq, C.RESAMP_DIRNAME))
+            with _stage("recon.n4", device):
+                res = n4_bias_correction(vol, device=device, **n4_kwargs)
+            _write(out_path, res.corrected, np.float32)
+            log.info("n4: %s", out_path)
+        return
+    for _, md in _groups(metadata, "prj", "sub", "ses", "ImageOrientationPatientSTR"):
+        out_paths = [get_img_path(bids_path, a, C.N4_DIRNAME) for a in md]
+        if all(nifti.exists(p) for p in out_paths) and not overwrite:
+            continue
+        vols = [nifti.read(get_img_path(bids_path, a, C.RESAMP_DIRNAME)) for a in md]
+        with _stage("recon.n4", device):
+            corrected, _ = shared_log_bias(vols, device=device, **n4_kwargs)
+        for out_path, vol in zip(out_paths, corrected):
+            _write(out_path, vol, np.float32)
+            log.info("n4 (shared): %s", out_path)
 
 
 def register_high_to_low_field(metadata: List[Dict], bids_path: str,

@@ -4,6 +4,7 @@ from .registration import (register_rigid, register_affine,
                            register_and_resample)
 from .fuse import fuse_orientations
 from .denoise import denoise_volume
+from .biasfield import n4_bias_correction, shared_log_bias
 
 __all__ = [
     "resample_volume",
@@ -15,4 +16,6 @@ __all__ = [
     "register_and_resample",
     "fuse_orientations",
     "denoise_volume",
+    "n4_bias_correction",
+    "shared_log_bias",
 ]

@@ -16,7 +16,11 @@ largest magnitude everywhere. Stage 2 has no hand kernel: its torch ops on
 the card are held against the CPU (interp values and coordinate gradients
 1e-5 of scale, nearest equal; TV per slice to the CPU iterate at the card's
 stop or one either side; morphology equal; a short registration's params
-1e-4 of max(1, |p|) with the same plateau stops).
+1e-4 of max(1, |p|) with the same plateau stops). The serving wrapper
+``fit_volume`` on the card: each layout launches the model's kernels and
+gives the bits of ``fit_fused`` on the masked voxels alone. N4: two card
+runs bitwise, the card within the CPU tests' tolerances of the CPU. ROI
+tables: the card's equal the CPU's.
 """
 
 import numpy as np
@@ -441,3 +445,113 @@ def test_short_registration_on_cuda(card):
         assert err <= 1e-4, (stop, a.params, b.params)
         if stop is not None:
             assert np.array_equal(a.iters_run, b.iters_run)
+
+
+def _serving_volume(n, seed):
+    rng = np.random.default_rng(seed)
+    shape = (n, n, n)
+    k = rng.uniform(600.0, 5000.0, shape).astype(np.float32)
+    t2 = rng.uniform(20.0, 500.0, shape).astype(np.float32)
+    sig = k[..., None] * np.exp(-np.asarray(TES3, np.float32) / t2[..., None])
+    sig = np.maximum(sig + rng.normal(0, 8.0, sig.shape), 1e-2).astype(np.float32)
+    ax = (np.arange(n, dtype=np.float32) - (n - 1) / 2) / (n / 2)
+    zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
+    return sig, (zz / 0.75) ** 2 + (yy / 0.85) ** 2 + (xx / 0.65) ** 2 <= 1.0
+
+
+@pytest.mark.parametrize("model,lo,hi,guess,counters", [
+    ("gaussian", LO, HI, None, ("KERNEL_LAUNCHES",)),
+    ("gaussian_rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
+     ("GR_VARPRO_LAUNCHES",)),
+    ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
+     ("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES"))])
+def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo, hi, guess,
+                                                                counters):
+    """Every layout of fit_volume on the card launches the model's kernels
+    and gives the bits of fit_fused on the masked voxels alone (a batch of
+    mostly filler for the dense layout)."""
+    from fetal_t2mapping_tpu_torch.models import fit_volume
+
+    sig, mask = _serving_volume(40, seed=8)
+    s, m = torch.from_numpy(sig).to(card), torch.from_numpy(mask).to(card)
+    kw = dict(model=model, guess=guess, device=card)
+    for name in counters:
+        setattr(fused_fit, name, 0)
+    layouts = [fit_volume(s, m, TES3, lo, hi, compact=False, **kw),
+               fit_volume(s, m, TES3, lo, hi, compact=True, mask_frac=0.6, **kw),
+               fit_volume(s, m, TES3, lo, hi, compact=True, mask_frac=0.6, block=1, **kw)]
+    torch.cuda.synchronize()
+    for name in counters:
+        assert getattr(fused_fit, name) == 3, name
+    ref = fused_fit.fit_fused(s.reshape(-1, 3)[m.reshape(-1)], TES3, lo, hi, **kw)
+    sigma = ref.x[:, 2] if ref.x.shape[1] == 3 else torch.zeros_like(ref.fun)
+    for res in layouts:
+        assert res.t2.device.type == "cuda" and int(res.n_overflow) == 0
+        assert int(res.n_masked) == int(mask.sum())
+        for got, want in ((res.t2, ref.x[:, 1]), (res.k, ref.x[:, 0]), (res.sigma, sigma),
+                          (res.fun, ref.fun), (res.converged, ref.converged),
+                          (res.n_iter, ref.n_iter)):
+            assert torch.equal(got[m], want)
+            assert not got[~m].any()
+
+
+def _n4_scene(n, seed=0):
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, n)] * 3, indexing="ij")
+    tissue = np.where(np.sqrt(z**2 + y**2 + x**2) < 0.6, 1000.0, 600.0)
+    tissue = tissue * (1 + 0.02 * rng.standard_normal(tissue.shape))
+    field = np.exp(0.6 * (0.7 * z + 0.5 * y * y - 0.3 * x))
+    mask = np.sqrt(z**2 + y**2 + x**2) < 0.95
+    return np.where(mask, tissue * field, 0.0).astype(np.float32), mask
+
+
+def test_n4_on_cuda_repeats_bitwise_and_matches_cpu(card):
+    """Two card runs give the same bits (the histogram is summed exactly);
+    the card is within the CPU tests' 1e-4 of the CPU on the mask, and
+    |mean| / std of each update within 5e-3 (tests/test_torch_biasfield.py)."""
+    from fetal_t2mapping_tpu_torch.core.volume import Volume
+    from fetal_t2mapping_tpu_torch.recon.biasfield import n4_bias_correction
+
+    img, mask = _n4_scene(48)
+    vol = Volume(img, spacing=(128 / 48,) * 3)
+    mvol = Volume(mask.astype(np.uint8), spacing=(128 / 48,) * 3)
+    for kw in (dict(), dict(n_iters=20, ctrl_spacing_mm=(200.0, 100.0, 50.0))):
+        a = n4_bias_correction(vol, mvol, device=card, **kw)
+        b = n4_bias_correction(vol, mvol, device=card, **kw)
+        c = n4_bias_correction(vol, mvol, device="cpu", **kw)
+        assert np.array_equal(a.corrected.data, b.corrected.data)
+        assert np.array_equal(a.field.data, b.field.data)
+        assert np.array_equal(a.field_cv, b.field_cv)
+        for x, y in ((a.corrected.data, c.corrected.data), (a.field.data, c.field.data)):
+            assert np.max(np.abs(x[mask] - y[mask]) / np.abs(y[mask])) <= 1e-4
+        assert np.max(np.abs(1 / a.field_cv - 1 / c.field_cv)) <= 5e-3
+
+
+def test_roi_tables_on_cuda_equal_cpu(card):
+    """Atlas and tissue tables: the card's equal the CPU's (exact counts;
+    numpy statistics on the same gathered voxels); per-label moments: exact
+    counts, float64 means to 1e-12, two card runs bitwise."""
+    import pandas as pd
+
+    from fetal_t2mapping_tpu_torch.analysis.roi import (roi_stats_per_label, t2_per_atlas_roi,
+                                                        t2_per_tissue_feta)
+
+    rng = np.random.default_rng(12)
+    n = 48
+    t2 = rng.uniform(40.0, 400.0, (n, n, n)).astype(np.float32)
+    feta = rng.integers(0, 8, (n // 4,) * 3).astype(np.int16)
+    feta = np.kron(feta, np.ones((4, 4, 4), np.int16))
+    atlas = np.kron(rng.integers(0, 21, (n // 8,) * 3).astype(np.int16), np.ones((8, 8, 8), np.int16))
+    labels = [{"index": i, "name": f"r{i}"} for i in range(1, 21)]
+    for cls in (2, 5):
+        pd.testing.assert_frame_equal(t2_per_atlas_roi(t2, feta, atlas, labels, cls, device=card),
+                                      t2_per_atlas_roi(t2, feta, atlas, labels, cls, device="cpu"))
+    pd.testing.assert_frame_equal(t2_per_tissue_feta(t2, feta, gt={"gm": 100.0}, device=card),
+                                  t2_per_tissue_feta(t2, feta, gt={"gm": 100.0}, device="cpu"))
+    a = roi_stats_per_label(t2, atlas, device=card)
+    b = roi_stats_per_label(t2, atlas, device=card)
+    c = roi_stats_per_label(t2, atlas, device="cpu")
+    assert a.equals(b)
+    assert np.array_equal(a["n"], c["n"])
+    ok = c["n"].to_numpy() > 0
+    np.testing.assert_allclose(a["mean"][ok], c["mean"][ok], rtol=1e-12)

@@ -50,7 +50,9 @@ def test_importing_every_module_leaves_jax_out():
     for name in ("build", "pipeline.recon_pipeline", "cli.qmri_reconstruction",
                  "ops.interp", "ops.filtering", "ops.tv", "ops.morphology",
                  "recon.resample", "recon.registration", "recon.fuse", "recon.denoise",
-                 "labels.masks", "labels.feta", "labels.phantom"):
+                 "labels.masks", "labels.feta", "labels.phantom",
+                 "models.volume_fit", "models.lut", "recon.biasfield", "analysis.roi",
+                 "analysis.noise", "analysis.stats", "analysis.figures"):
         assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
 
@@ -101,6 +103,72 @@ def test_segment_volume_defaults_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="is_available"):
             unet3d.segment_volume(params, np.ones((8, 8, 8), np.float32), cfg,
                                   use_s2d=use_s2d)
+
+
+def test_weight_converters_default_to_cuda(monkeypatch):
+    from fetal_t2mapping_tpu_torch.labels import unet3d
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = unet3d.UNetConfig(n_levels=2, base_features=2, n_labels=3)
+    params = unet3d.random_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        unet3d.to_torch_params(params)
+    with pytest.raises(RuntimeError, match="is_available"):
+        unet3d.to_torch_s2d_params(unet3d.s2d_level0_params(params, cfg))
+
+
+def _fit_volume():
+    from fetal_t2mapping_tpu_torch.models import fit_volume
+
+    fit_volume(np.ones((4, 4, 4, 3), np.float32), np.ones((4, 4, 4), bool),
+               (114.0, 202.0, 299.0), (0.0, 10.0), (1e6, 2000.0))
+
+
+def _n4():
+    from fetal_t2mapping_tpu_torch.core.volume import Volume
+    from fetal_t2mapping_tpu_torch.recon import n4_bias_correction
+
+    n4_bias_correction(Volume(np.ones((4, 4, 4), np.float32)))
+
+
+def _shared_n4():
+    from fetal_t2mapping_tpu_torch.core.volume import Volume
+    from fetal_t2mapping_tpu_torch.recon import shared_log_bias
+
+    shared_log_bias([Volume(np.ones((4, 4, 4), np.float32))])
+
+
+def _lut():
+    from fetal_t2mapping_tpu_torch.models.lut import lut_t2
+
+    lut_t2(np.ones((4, 3), np.float32), te=(114.0, 202.0, 299.0))
+
+
+def _roi_moments():
+    from fetal_t2mapping_tpu_torch.analysis.roi import roi_stats_per_label
+
+    roi_stats_per_label(np.ones((4, 4, 4), np.float32), np.ones((4, 4, 4), np.int16))
+
+
+def _roi_atlas():
+    from fetal_t2mapping_tpu_torch.analysis.roi import t2_per_atlas_roi
+
+    ones = np.ones((4, 4, 4), np.int16)
+    t2_per_atlas_roi(np.ones((4, 4, 4), np.float32), ones, ones, [{"index": 1, "name": "a"}], 1)
+
+
+def _roi_tissue():
+    from fetal_t2mapping_tpu_torch.analysis.roi import t2_per_tissue_feta
+
+    t2_per_tissue_feta(np.ones((4, 4, 4), np.float32), np.ones((4, 4, 4), np.int16))
+
+
+@pytest.mark.parametrize("call", [_fit_volume, _n4, _shared_n4, _lut, _roi_moments, _roi_atlas,
+                                  _roi_tissue], ids=lambda f: f.__name__.strip("_"))
+def test_serving_and_analysis_default_to_cuda(monkeypatch, call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
 
 
 @pytest.mark.parametrize("model,lo,hi", [

@@ -335,9 +335,14 @@ def test_high_to_low_field_matches_reference(invivo, tmp_path):
         _held(a, b, "hf->lf")
 
 
-def test_biasfield_correction_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pipe.run_biasfield_correction([], "unused")
+def test_biasfield_correction_not_ported(tmp_path):
+    """N4 is ported: the step raises nothing, and with no acquisitions it
+    writes nothing, per acquisition or shared. Its outputs are held to the
+    JAX package's in test_torch_biasfield.py."""
+    for shared in (False, True):
+        assert pipe.run_biasfield_correction([], str(tmp_path), shared=shared,
+                                             device="cpu") is None
+    assert os.listdir(tmp_path) == []
 
 
 # ---------------------------------------------------------------- atlases

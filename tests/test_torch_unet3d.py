@@ -119,7 +119,7 @@ def test_s2d_level0_params_equal_reference(kw, bn):
         np.testing.assert_array_equal(got[k], want[k])
     # on the device: packed S2D matrices (pack_taps), folded upsample as a
     # conv3d weight, fp32 vectors
-    t = unet3d.to_torch_s2d_params(got)
+    t = unet3d.to_torch_s2d_params(got, device="cpu")
     for k, v in want.items():
         if k == "dec0_0_up_w":
             np.testing.assert_array_equal(t[k].permute(2, 3, 4, 1, 0).numpy(), v)
@@ -133,7 +133,7 @@ def test_s2d_level0_params_equal_reference(kw, bn):
 
 def test_to_torch_params_layout():
     params = ref.random_params(ref.UNetConfig(n_levels=2, base_features=2, batch_norm=True), 0)
-    t = unet3d.to_torch_params(params, dtype=torch.bfloat16)
+    t = unet3d.to_torch_params(params, device="cpu", dtype=torch.bfloat16)
     for k, v in params.items():
         if k.endswith("_w"):
             assert t[k].dtype == torch.bfloat16
@@ -192,7 +192,7 @@ def _forward_inputs(kw, shape, bn, seed=1):
 def test_unet_apply_logits_match_reference(kw, shape, bn):
     rcfg, cfg, params, pj, x = _forward_inputs(kw, shape, bn)
     want = np.asarray(ref.unet_apply(pj, jnp.asarray(x), rcfg, jnp.float32))
-    got = unet3d.unet_apply(unet3d.to_torch_params(params), torch.from_numpy(x), cfg)
+    got = unet3d.unet_apply(unet3d.to_torch_params(params, device="cpu"), torch.from_numpy(x), cfg)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert _rel(got.numpy(), want) < 1e-4
 
@@ -206,8 +206,8 @@ def test_unet_apply_s2d_matches_reference_pallas(kw, shape, bn):
     s2d_j = {k: jnp.asarray(v) for k, v in ref.s2d_level0_params(params, rcfg).items()}
     want = np.asarray(ref.unet_apply_s2d(pj, s2d_j, jnp.asarray(x), rcfg, jnp.float32,
                                          return_logits=True, conv_impl="pallas"))
-    tp = unet3d.to_torch_params(params)
-    ts = unet3d.to_torch_s2d_params(unet3d.s2d_level0_params(params, cfg))
+    tp = unet3d.to_torch_params(params, device="cpu")
+    ts = unet3d.to_torch_s2d_params(unet3d.s2d_level0_params(params, cfg), device="cpu")
     before = conv_s2d.CONV_S2D_LAUNCHES
     for impl in ("torch", "kernel"):
         got = unet3d.unet_apply_s2d(tp, ts, torch.from_numpy(x), cfg, torch.float32,
@@ -247,7 +247,7 @@ def test_segment_volume_infers_cfg_and_synthseg_labels():
 def test_bf16_path_agrees_with_fp32_labels():
     """tests/test_unet3d.py:215-235 for the port: bf16 operands, fp32 sums."""
     cfg = unet3d.UNetConfig(n_levels=3, n_conv_per_level=2, base_features=4, n_labels=5)
-    tp32 = unet3d.to_torch_params(unet3d.random_params(cfg, seed=3))
+    tp32 = unet3d.to_torch_params(unet3d.random_params(cfg, seed=3), device="cpu")
     x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 16, 16, 16, 1))
                          .astype(np.float32))
     lg32 = unet3d.unet_apply(tp32, x, cfg, torch.float32).numpy()
@@ -286,8 +286,8 @@ def test_segment_volume_rejects_bad_s2d_requests():
 def test_unet_apply_s2d_argument_errors():
     cfg = unet3d.UNetConfig(n_levels=2, base_features=2, n_labels=3)
     params = unet3d.random_params(cfg, seed=0)
-    tp = unet3d.to_torch_params(params)
-    ts = unet3d.to_torch_s2d_params(unet3d.s2d_level0_params(params, cfg))
+    tp = unet3d.to_torch_params(params, device="cpu")
+    ts = unet3d.to_torch_s2d_params(unet3d.s2d_level0_params(params, cfg), device="cpu")
     x = torch.zeros((2, 8, 8, 8, 1))
     with pytest.raises(ValueError, match="single volume"):
         unet3d.unet_apply_s2d(tp, ts, x, cfg, conv_impl="kernel")
