@@ -29,7 +29,12 @@ voxel-exact layouts timed, bitwise equal to each other and to
 per request. Phase 14: N4 bias correction at 240^3 (two card runs bitwise,
 card vs CPU at 48^3, the shared-field variant and the stage-2 step), the
 ROI tables on a 240^3 T2 map (card equal to CPU) and the LUT estimate at
-256^3. Each phase prints one line with its wall time; any failed gate or
+256^3. Phase 15, stage 1 (host code): one 240 x 240 slice read through
+``utils.dicom.read_dcm`` in each transfer syntax (ms per slice, lossless
+ones exact), then phase 12's session written as nine multi-frame DICOMs
+and taken through the port's three CLIs, ``dcm2csv``,
+``qmri_reconstruction`` and ``t2mapping``, gated on the pixels and
+geometry written and on the truth. Each phase prints one line with its wall time; any failed gate or
 error exits non-zero. The second-to-last lines are the kernels' JSON
 record and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Exits non-zero
@@ -47,6 +52,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -238,20 +244,25 @@ def gr_varpro_bound(n, T, steps, gtol):
     return ms, by, n_ops
 
 
+def card_name_and_power_limit() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase0_environment():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_name_and_power_limit()
     print(smi, flush=True)
     nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     mods = {}
-    for name in ("triton", "pandas", "matplotlib"):
+    for name in ("triton", "pandas", "matplotlib", "PIL", "h5py"):
         try:
             __import__(name)
             mods[name] = True
         except ImportError:
             mods[name] = False
+    mods["dcm2niix"] = shutil.which("dcm2niix") is not None
     print(f"phase 0 environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA runtime {torch.version.cuda}, nvcc '{nvcc}', "
           f"imports {mods}, device {torch.cuda.get_device_name(0)} x "
@@ -1431,11 +1442,11 @@ def session_truth(n: int = SESSION_N):
     return fields
 
 
-def _write_invivo_session(root: str, n: int, seed: int = 12):
-    """3 TEs x ax/cor/sag acquisitions, 240 x 240 at 1 mm in plane with
-    4 mm slabs of 60 slices (bench.py:1198-1260's geometry), cor and sag
-    rigidly offset (SESSION_MOTION), noise sigma 4, as NIfTI inputs of a
-    BIDS tree with its metadata CSV."""
+def invivo_acquisitions(n: int, seed: int = 12):
+    """3 TEs x ax/cor/sag acquisitions, n x n at 1 mm in plane with 4 mm
+    slabs of n / 4 slices (bench.py:1198-1260's geometry at n = 240), cor
+    and sag rigidly offset (SESSION_MOTION), noise sigma 4: a list of
+    (orientation, TE ms, noisy Volume), and the truth's ``fields``."""
     rng = np.random.default_rng(seed)
     fields = session_truth(n)
     ax = np.arange(n, dtype=np.float32)
@@ -1447,10 +1458,7 @@ def _write_invivo_session(root: str, n: int, seed: int = 12):
         "cor": ((0.0, 1.5, n - 1.0), (1, 0, 0, 0, 0, 1, 0, -1, 0)),
         "sag": ((n - 2.5, 0.0, n - 1.0), (0, 0, -1, 1, 0, 0, 0, -1, 0)),
     }
-    bids = os.path.join(root, "projects/")
-    logs = os.path.join(root, "dicom/logs/")
-    os.makedirs(logs)
-    rows, writes = [], []
+    acqs = []
     for te in SESSION_TES:
         vol = pd * np.exp(-te / t2)
         stacks = {"ax": vol.reshape(n // 4, 4, n, n).mean(1),
@@ -1470,11 +1478,24 @@ def _write_invivo_session(root: str, n: int, seed: int = 12):
                            origin=tuple(c + R @ (np.asarray(v.origin) - c) + np.asarray(shift)),
                            direction=tuple((R @ v.direction_matrix).reshape(-1)))
             noisy = v.data + rng.normal(0.0, 4.0, v.data.shape).astype(np.float32)
-            acq = {"prj": "prj-smoke", "sub": "sub-01", "ses": "ses-01",
-                   "run": f"run-{otype}-{te}", "EchoTime": te / 1000.0,
-                   "ImageOrientationPatientSTR": otype, "CoilString": "Body"}
-            writes.append((get_img_path(bids, acq, C.IN_DIRNAME), v.with_data(noisy)))
-            rows.append(acq)
+            acqs.append((otype, te, v.with_data(noisy)))
+    return acqs, fields
+
+
+def _write_invivo_session(root: str, n: int, seed: int = 12):
+    """invivo_acquisitions' nine volumes as NIfTI inputs of a BIDS tree,
+    with its metadata CSV."""
+    acqs, fields = invivo_acquisitions(n, seed)
+    bids = os.path.join(root, "projects/")
+    logs = os.path.join(root, "dicom/logs/")
+    os.makedirs(logs)
+    rows, writes = [], []
+    for otype, te, v in acqs:
+        acq = {"prj": "prj-smoke", "sub": "sub-01", "ses": "ses-01",
+               "run": f"run-{otype}-{te}", "EchoTime": te / 1000.0,
+               "ImageOrientationPatientSTR": otype, "CoilString": "Body"}
+        writes.append((get_img_path(bids, acq, C.IN_DIRNAME), v))
+        rows.append(acq)
     with ThreadPoolExecutor(max_workers=8) as ex:
         for fut in [ex.submit(nifti.write, p, v) for p, v in writes]:
             fut.result()
@@ -1507,6 +1528,50 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
+STAGE_NAMES = ("recon.resample", "recon.fuse", "fuse.fuse", "fuse.reg_echo", "fuse.denoise",
+               "fuse.write", "recon.synthseg", "recon.masks_bet", "recon.feta", "recon.atlas",
+               "t2map.load", "t2map.fit", "t2map.save")
+
+
+def session_stages():
+    """Seconds per stage-2 and stage-3 step since the last profiler.reset()."""
+    return {k: round(v["seconds"], 3) for k, v in profiler.as_dict().items()
+            if k in STAGE_NAMES}
+
+
+def invivo_gates(bids, rows, fields, n, t2_path):
+    """Stage 2's and stage 3's outputs of an in-vivo session against the
+    simulation's truth: per TE the fused recon (median relative error on
+    the core < 0.06), BET = recon x mask exactly, the dtypes; the T2 map's
+    median relative error in the mask and the brain <= 5e-2. Returns the
+    recon errors, the T2 error, the mask's share and the T2 map."""
+    errs = {}
+    union = np.zeros((n,) * 3, bool)
+    for te in SESSION_TES:
+        acq = next(r for r in rows if r["EchoTime"] == te / 1000.0)
+        recon = nifti.read(get_img_path(bids, acq, C.RECON_DIRNAME))
+        mask = nifti.read(get_img_path(bids, acq, C.MASK_DIRNAME))
+        bet = nifti.read(get_img_path(bids, acq, C.BET_DIRNAME))
+        feta = nifti.read(get_img_path(bids, acq, C.FETA_DIRNAME))
+        gate((recon.data.dtype, mask.data.dtype, bet.data.dtype, feta.data.dtype)
+             == (np.float32, np.uint8, np.float32, np.int16),
+             "recon/mask/BET/FeTA dtypes")
+        gate(recon.shape == (n,) * 3, f"recon shape {recon.shape}")
+        union = union | (mask.data > 0)
+        gate(np.array_equal(bet.data, recon.data * (mask.data > 0)), "BET != recon x mask")
+        w = recon.world_grid()
+        support, t2_true, pd = fields(w[..., 0], w[..., 1], w[..., 2])
+        truth = pd * np.exp(-te / t2_true)
+        core = support <= 0.85 ** 2
+        errs[te] = float(np.median(np.abs(recon.data[core] - truth[core]) / truth[core]))
+        gate(errs[te] < 0.06, f"TE {te}: fused recon median rel err {errs[te]:.4f} >= 0.06")
+    t2_fit = nifti.read(t2_path).data
+    inside = union & (support <= 1.0)
+    t2_err = float(np.median(np.abs(t2_fit[inside] - t2_true[inside]) / t2_true[inside]))
+    gate(t2_err <= 5e-2, f"stage-3 median rel T2 err {t2_err:.4f} > 5e-2 inside the mask")
+    return errs, t2_err, float(union.mean()), t2_fit
+
+
 def phase12_session(n: int = SESSION_N, device: str = "cuda"):
     """One in-vivo session at clinical size through process_qmri on the
     card (SynthSeg 'fake'), then stage 3 (process_t2maps, gaussian) on the
@@ -1514,9 +1579,6 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
     card and on the CPU."""
     from fetal_t2mapping_tpu_torch.pipeline import process_qmri
 
-    stage_names = ("recon.resample", "recon.fuse", "fuse.fuse", "fuse.reg_echo", "fuse.denoise",
-                   "fuse.write", "recon.synthseg", "recon.masks_bet", "recon.feta",
-                   "recon.atlas", "t2map.load", "t2map.fit", "t2map.save")
     records = _Records()
     logging.getLogger("fetal_t2mapping_tpu_torch.recon").addHandler(records)
     with tempfile.TemporaryDirectory(prefix="ft2_smoke_s2_") as root:
@@ -1539,34 +1601,10 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
         gate(launches > 0, "the chained stage-3 run launched no gauss_fit kernel")
         gate(any("skipping atlas labels" in m for m in records.messages),
              "the atlas step did not warn and skip")
-        stages = {k: round(v["seconds"], 3) for k, v in profiler.as_dict().items()
-                  if k in stage_names}
+        stages = session_stages()
 
-        errs = {}
-        union = np.zeros((n,) * 3, bool)
-        for te in SESSION_TES:
-            acq = next(r for r in rows if r["EchoTime"] == te / 1000.0)
-            recon = nifti.read(get_img_path(bids, acq, C.RECON_DIRNAME))
-            mask = nifti.read(get_img_path(bids, acq, C.MASK_DIRNAME))
-            bet = nifti.read(get_img_path(bids, acq, C.BET_DIRNAME))
-            feta = nifti.read(get_img_path(bids, acq, C.FETA_DIRNAME))
-            gate((recon.data.dtype, mask.data.dtype, bet.data.dtype, feta.data.dtype)
-                 == (np.float32, np.uint8, np.float32, np.int16),
-                 "recon/mask/BET/FeTA dtypes")
-            gate(recon.shape == (n,) * 3, f"recon shape {recon.shape}")
-            union = union | (mask.data > 0)
-            gate(np.array_equal(bet.data, recon.data * (mask.data > 0)), "BET != recon x mask")
-            w = recon.world_grid()
-            support, t2_true, pd = fields(w[..., 0], w[..., 1], w[..., 2])
-            truth = pd * np.exp(-te / t2_true)
-            core = support <= 0.85 ** 2
-            errs[te] = float(np.median(np.abs(recon.data[core] - truth[core]) / truth[core]))
-            gate(errs[te] < 0.06, f"TE {te}: fused recon median rel err {errs[te]:.4f} >= 0.06")
-        t2_fit = nifti.read(summaries[0]["maps"]["t2"]).data
-        inside = union & (support <= 1.0)
-        t2_err = float(np.median(np.abs(t2_fit[inside] - t2_true[inside]) / t2_true[inside]))
-        gate(t2_err <= 5e-2, f"stage-3 median rel T2 err {t2_err:.4f} > 5e-2 inside the mask")
-        mask_frac = float(union.mean())
+        errs, t2_err, mask_frac, _ = invivo_gates(bids, rows, fields, n,
+                                                  summaries[0]["maps"]["t2"])
 
     # in vitro: the card against the CPU, exactly
     vol = _phantom_recon(n)
@@ -1926,6 +1964,328 @@ def phase14_n4_analysis(n: int = SESSION_N, n_lut: int = N_HEADLINE3, device: st
             "lut_ms": lut_ms}
 
 
+# ------------------------------------------ stage 1: DICOM ingest (host code)
+TS_EXPLICIT, TS_IMPLICIT, TS_RLE = "1.2.840.10008.1.2.1", "1.2.840.10008.1.2", "1.2.840.10008.1.2.5"
+TS_JPEGLL, TS_JPEG8, TS_JPEG12 = ("1.2.840.10008.1.2.4.70", "1.2.840.10008.1.2.4.50",
+                                  "1.2.840.10008.1.2.4.51")
+TS_J2K = "1.2.840.10008.1.2.4.90"
+ENHANCED_MR = b"1.2.840.10008.5.1.4.1.1.4.1"
+INGEST_DATE, INGEST_PARENT = "2026081710", "30540000"
+
+
+def _dcm_element(group, elem, vr: bytes, value: bytes, explicit=True) -> bytes:
+    """One little-endian data element, padded to even length."""
+    if len(value) % 2:
+        value += b"\x00" if vr in (b"UI", b"OB", b"OW") else b" "
+    if not explicit:
+        return struct.pack("<HHI", group, elem, len(value)) + value
+    if vr in (b"OB", b"OW", b"SQ", b"UN", b"UT"):
+        return struct.pack("<HH2sHI", group, elem, vr, 0, len(value)) + value
+    return struct.pack("<HH2sH", group, elem, vr, len(value)) + value
+
+
+def _ds(values) -> bytes:
+    """DS values at 10 significant digits: each fits DS's 16 characters."""
+    return "\\".join(f"{float(v):.10g}" for v in values).encode()
+
+
+def write_dicom(path, pix: np.ndarray, vol: Volume, te: float, *, ts=TS_EXPLICIT,
+                frames=None, acq_time="", series_uid="1.2.3", description="t2_haste",
+                bits_stored=None, explicit=True) -> None:
+    """A Part-10 MR file of ``pix`` ((frames,) rows, cols; uint16 or uint8)
+    with ``vol``'s geometry in LPS: IPP = the origin, IOP = the direction's
+    first two columns, frames along their cross product at the z spacing.
+    ``frames`` holds one encoded stream per frame (one fragment each) for
+    an encapsulated syntax; otherwise the pixels are stored native."""
+    pix = pix.reshape((-1,) + pix.shape[-2:])
+    n, rows, cols = pix.shape
+    D = np.asarray(vol.direction, np.float64).reshape(3, 3)
+    bits = pix.dtype.itemsize * 8
+
+    def el(g, e, vr, v):
+        return _dcm_element(g, e, vr, v, explicit)
+
+    meta_body = (_dcm_element(0x0002, 0x0002, b"UI", ENHANCED_MR)
+                 + _dcm_element(0x0002, 0x0010, b"UI", ts.encode()))
+    meta = _dcm_element(0x0002, 0x0000, b"UL", struct.pack("<I", len(meta_body))) + meta_body
+    body = b"".join([
+        el(0x0008, 0x002A, b"DT", acq_time.encode()),
+        el(0x0008, 0x0060, b"CS", b"MR"),
+        el(0x0008, 0x103E, b"LO", description.encode()),
+        el(0x0018, 0x0050, b"DS", _ds([vol.spacing[2]])),
+        el(0x0018, 0x0081, b"DS", _ds([te])),
+        el(0x0018, 0x0087, b"DS", b"0.55"),
+        el(0x0018, 0x0088, b"DS", _ds([vol.spacing[2]])),
+        el(0x0020, 0x000E, b"UI", series_uid.encode()),
+        el(0x0020, 0x0013, b"IS", b"1"),
+        el(0x0020, 0x0032, b"DS", _ds(vol.origin)),
+        el(0x0020, 0x0037, b"DS", _ds(list(D[:, 0]) + list(D[:, 1]))),
+        el(0x0028, 0x0002, b"US", struct.pack("<H", 1)),
+        el(0x0028, 0x0008, b"IS", str(n).encode()),
+        el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        el(0x0028, 0x0030, b"DS", _ds([vol.spacing[1], vol.spacing[0]])),   # (dy, dx)
+        el(0x0028, 0x0100, b"US", struct.pack("<H", bits)),
+        el(0x0028, 0x0101, b"US", struct.pack("<H", bits_stored or bits)),
+        el(0x0028, 0x0103, b"US", struct.pack("<H", 0)),
+    ])
+    if frames is None:
+        body += el(0x7FE0, 0x0010, b"OW", np.ascontiguousarray(pix).tobytes())
+    else:
+        body += struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF)
+        body += struct.pack("<HHI", 0xFFFE, 0xE000, 0)                 # empty offset table
+        for f in frames:
+            f = f + b"\x00" if len(f) % 2 else f
+            body += struct.pack("<HHI", 0xFFFE, 0xE000, len(f)) + f
+        body += struct.pack("<HHI", 0xFFFE, 0xE0DD, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x00" * 128 + b"DICM" + meta + body)
+
+
+def encode_lossless(frame: np.ndarray) -> bytes:
+    """One frame as a JPEG-lossless SV1 stream (the port's encoder)."""
+    from fetal_t2mapping_tpu_torch.utils import jpegll
+
+    return jpegll.encode(frame, predictor=1, precision=16)
+
+
+def encode_frames(pix: np.ndarray, workers: int) -> list:
+    """encode_lossless over the frames, in ``workers`` spawned processes
+    (the encoder is pure Python: ~2 s a 240 x 240 frame)."""
+    if workers <= 1:
+        return [encode_lossless(f) for f in pix]
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(encode_lossless, list(pix)))
+
+
+def _rle_frame(pix: np.ndarray) -> bytes:
+    """One uint16 frame as RLE Lossless (PS3.5 G): two byte planes, MSB
+    first, each PackBits-coded as literal runs of up to 128 bytes."""
+    segs = []
+    for plane in ((pix >> 8).astype(np.uint8).tobytes(), (pix & 0xFF).astype(np.uint8).tobytes()):
+        seg = bytearray()
+        for i in range(0, len(plane), 128):
+            chunk = plane[i:i + 128]
+            seg += bytes([len(chunk) - 1]) + chunk
+        segs.append(bytes(seg) + (b"\x00" if len(seg) % 2 else b""))
+    return struct.pack("<16I", 2, 64, 64 + len(segs[0]), *([0] * 13)) + b"".join(segs)
+
+
+def write_dicom_session(root: str, acqs, workers: int = 1):
+    """invivo_acquisitions' nine volumes as nine enhanced multi-frame
+    Part-10 files (one per acquisition) under
+    root/dicom/<YYYYMMDDHH>/<MMSS0000>/, with the master log_dcms.csv.
+    Pixels are rounded and clipped to uint16; AcquisitionDateTime orders
+    the runs as ``acqs`` lists them; the first TE's axial stack is
+    JPEG-lossless (one fragment per frame), the rest uncompressed.
+    Returns the session directory and {run: (orientation, TE, pixels, Volume)}."""
+    session = os.path.join(root, "dicom", INGEST_DATE, INGEST_PARENT)
+    logs = os.path.join(root, "dicom", "logs")
+    os.makedirs(session)
+    os.makedirs(logs)
+    with open(os.path.join(logs, "log_dcms.csv"), "w", newline="") as f:
+        csv.writer(f).writerows([["date", "dcm_parent", "prj", "sub", "ses"],
+                                 [INGEST_DATE, INGEST_PARENT, "prj-smoke", "sub-01", "ses-01"]])
+    written = {}
+    for i, (otype, te, v) in enumerate(acqs):
+        pix = np.clip(np.rint(v.data), 0, 65535).astype(np.uint16)
+        lossless = otype == "ax" and te == SESSION_TES[0]
+        write_dicom(os.path.join(session, f"IM{i:04d}"), pix, v, te,
+                    ts=TS_JPEGLL if lossless else TS_EXPLICIT,
+                    frames=encode_frames(pix, workers) if lossless else None,
+                    acq_time=f"{INGEST_DATE}{31 + i:02d}00.000000",
+                    series_uid=f"1.2.826.0.1.3680043.8.498.{i + 1}",
+                    description=f"t2_haste_{otype}_te{te}")
+        written[f"run-{i + 1:02d}"] = (otype, te, pix, v)
+    return session, written
+
+
+def phase15a_decoders(slice16: np.ndarray, vol: Volume, root: str):
+    """One rows x cols 16-bit slice through read_dcm in each transfer
+    syntax: ms per slice, lossless ones exact, 12-bit DCT within 4 at
+    quant 1 (tests/test_jpegdct.py:29-36), 8-bit baseline and JPEG 2000
+    where PIL imports."""
+    import io
+
+    from fetal_t2mapping_tpu_torch.utils import dicom, jpegdct
+
+    t0 = time.perf_counter()
+    build.load_host_lib()
+    host_build_s = time.perf_counter() - t0
+    s12 = np.minimum(slice16, 4095)
+    cases = {   # name -> (ts, pixels, encoded frames or None, explicit, bits stored, exact)
+        "explicit": (TS_EXPLICIT, slice16, None, True, 16, True),
+        "implicit": (TS_IMPLICIT, slice16, None, False, 16, True),
+        "rle": (TS_RLE, slice16, [_rle_frame(slice16)], True, 16, True),
+        "jpegll": (TS_JPEGLL, slice16, [encode_lossless(slice16)], True, 16, True),
+        "jpeg12": (TS_JPEG12, s12, [jpegdct.encode(s12, precision=12, quant=1)], True, 12,
+                   False),
+    }
+    try:
+        from PIL import Image, features
+
+        s8 = np.clip(slice16, 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(s8).save(buf, format="JPEG", quality=95)
+        cases["jpeg8 (PIL)"] = (TS_JPEG8, s8, [buf.getvalue()], True, 8, False)
+        if features.check("jpg_2000"):
+            buf = io.BytesIO()
+            Image.fromarray(slice16).save(buf, format="JPEG2000", irreversible=False, no_jp2=True)
+            cases["j2k (PIL)"] = (TS_J2K, slice16, [buf.getvalue()], True, 16, True)
+    except ImportError:
+        pass
+    ms, errs = {}, {}
+    for name, (ts, pix, frames, explicit, stored, exact) in cases.items():
+        path = os.path.join(root, f"{name.split()[0]}.dcm")
+        write_dicom(path, pix, vol, SESSION_TES[0], ts=ts, frames=frames, explicit=explicit,
+                    bits_stored=stored)
+        routes = [(name, None)]
+        if name == "jpegll":   # and again through utils/jpegll: the library's -11 route
+            routes = [("jpegll (host library)", None), ("jpegll (utils/jpegll)", lambda d: None)]
+        for label, patch in routes:
+            orig = build.jpegll_decode
+            if patch is not None:
+                build.jpegll_decode = patch
+            try:
+                times = []
+                for _ in range(1 if patch or name == "jpeg12" else 3):
+                    t0 = time.perf_counter()
+                    ds = dicom.read_dcm(path, with_pixels=True)
+                    times.append(time.perf_counter() - t0)
+            finally:
+                build.jpegll_decode = orig
+            got = np.frombuffer(ds.get("PixelData"), pix.dtype).reshape(pix.shape)
+            err = int(np.abs(got.astype(np.int64) - pix.astype(np.int64)).max())
+            ms[label], errs[label] = round(1e3 * float(np.median(times)), 3), err
+            if exact:
+                gate(err == 0, f"{label}: decoded slice differs from the source by {err}")
+            elif name == "jpeg12":
+                gate(err <= 4, f"{label}: max |err| {err} > 4 at quant 1")
+            else:
+                mean = float(np.abs(got.astype(np.float64) - pix).mean())
+                gate(mean <= 1.0, f"{label}: mean |err| {mean:.3f} > 1 at quality 95")
+    print(f"phase 15a decoders ({slice16.shape[0]}x{slice16.shape[1]} 16-bit slice through "
+          f"utils.dicom.read_dcm; host library built in {host_build_s:.2f} s): ms per slice "
+          f"{ms}, max |err| vs the source {errs}", flush=True)
+    return ms
+
+
+def phase15_ingest_chain(n: int = SESSION_N, device: str = "cuda", workers: int = 8):
+    """DICOM -> BIDS -> stage 2 -> stage 3 through the port's three CLIs:
+    phase 12's in-vivo session written as nine multi-frame DICOMs, ingested
+    by dcm2csv (the in-repo converter: dcm2niix is kept off PATH), then
+    qmri_reconstruction (SynthSeg fake) and t2mapping (gaussian) on the
+    CSV it wrote; gated on the pixels and geometry written and on the
+    simulation's truth."""
+    import contextlib
+    import glob
+    import io
+
+    from fetal_t2mapping_tpu_torch.cli import dcm2csv, qmri_reconstruction, t2mapping
+    from fetal_t2mapping_tpu_torch.utils import ingest, metadata
+
+    t_chain = time.perf_counter()
+    acqs, fields = invivo_acquisitions(n)
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_ingest_") as tmp:
+        ax = next(v for o, te, v in acqs if o == "ax" and te == SESSION_TES[0])
+        slice16 = np.clip(np.rint(ax.data[ax.shape[0] // 2]), 0, 65535).astype(np.uint16)
+        os.makedirs(os.path.join(tmp, "decoders"))
+        dec_ms = phase15a_decoders(slice16, ax, os.path.join(tmp, "decoders"))
+
+        root = os.path.join(tmp, "qMRI")
+        t0 = time.perf_counter()
+        session, written = write_dicom_session(root, acqs, workers)
+        write_s = time.perf_counter() - t0
+
+        path_env = os.environ.get("PATH", "")
+        os.environ["PATH"] = os.pathsep.join(
+            d for d in path_env.split(os.pathsep)
+            if not os.path.exists(os.path.join(d, "dcm2niix")))
+        orig, decode_s = build.jpegll_decode, [0.0, 0]
+
+        def timed_decode(data):
+            t = time.perf_counter()
+            try:
+                return orig(data)
+            finally:
+                decode_s[0] += time.perf_counter() - t
+                decode_s[1] += 1
+
+        build.jpegll_decode = timed_decode
+        out = io.StringIO()
+        try:
+            route = "dcm2niix" if ingest.dcm2niix_available() else "in-repo converter"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = dcm2csv.main(["--path", session, "--process"])
+            ingest_s = time.perf_counter() - t0
+        finally:
+            build.jpegll_decode = orig
+            os.environ["PATH"] = path_env
+        gate(rc == 0, f"dcm2csv --process returned {rc}")
+        gate(route == "in-repo converter", f"dcm2csv ran {route} with dcm2niix off PATH")
+        gate(decode_s[1] == n // 4, f"{decode_s[1]} JPEG-lossless frames decoded, not {n // 4}")
+
+        csv_name = f"{INGEST_DATE}_{INGEST_PARENT}.csv"
+        rows = metadata.read_csv(os.path.join(root, "dicom", "logs", csv_name))
+        gate([r["run"] for r in rows] == sorted(written), f"runs {[r['run'] for r in rows]}")
+        bids = os.path.join(root, "projects/")
+        geo_err = [0.0, 0.0]
+        for r in rows:
+            otype, te, pix, v = written[r["run"]]
+            gate((r["EchoTime"], r["ImageOrientationPatientSTR"]) == (te / 1000.0, otype),
+                 f"{r['run']}: EchoTime {r['EchoTime']}, orientation "
+                 f"{r['ImageOrientationPatientSTR']}")
+            got = nifti.read(get_img_path(bids, r, C.IN_DIRNAME))
+            gate(got.data.dtype == np.int16 and np.array_equal(got.data, pix),
+                 f"{r['run']}: the ingested NIfTI is not the pixel array written")
+            gate(np.allclose(got.spacing, v.spacing, atol=1e-6), f"{r['run']}: spacing")
+            geo_err[0] = max(geo_err[0], float(np.abs(np.subtract(got.origin, v.origin)).max()))
+            geo_err[1] = max(geo_err[1], float(np.abs(got.direction_matrix
+                                                      - v.direction_matrix).max()))
+        gate(geo_err[0] <= 1e-3 and geo_err[1] <= 1e-6,
+             f"ingested affines: origin off by {geo_err[0]:.2e} mm, direction {geo_err[1]:.2e}")
+
+        os.environ["FSLDIR"] = os.path.join(tmp, "no_fsl")      # no atlases: the step skips
+        profiler.reset()
+        t0 = time.perf_counter()
+        rc = qmri_reconstruction.main(["--path", root, "--csv", csv_name, "--in_vivo", "--lf",
+                                       "--synthseg", "fake", "--device", device])
+        stage2_s = time.perf_counter() - t0
+        gate(rc == 0, f"qmri_reconstruction returned {rc}")
+        fused_fit.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = t2mapping.main(["--path", root, "--csv", csv_name, "--in_vivo", "--gaussian",
+                             "--lf", "--sim", "chain", "--device", device])
+        stage3_s = time.perf_counter() - t0
+        launches = fused_fit.KERNEL_LAUNCHES
+        stages = session_stages()
+        gate(rc == 0, f"t2mapping returned {rc}")
+        gate((launches > 0) == (torch.device(device).type == "cuda"),
+             f"the chain's stage 3 launched gauss_fit {launches} times on {device}")
+        t2_dir = os.path.dirname(get_img_path(bids, rows[0], C.T2MAP_DIRNAME))
+        t2_path, = glob.glob(os.path.join(t2_dir, "*sim-chain_t2map*.nii.gz"))
+        errs, t2_err, mask_frac, t2_fit = invivo_gates(bids, rows, fields, n, t2_path)
+        gate(bool(np.isfinite(t2_fit).all()), "non-finite values in the chain's T2 map")
+    chain_s = time.perf_counter() - t_chain
+    card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
+    print(f"phase 15 ingest chain (phase 12's session as 9 multi-frame DICOMs, ax TE "
+          f"{SESSION_TES[0]} JPEG-lossless, {n}x{n}x{n // 4} -> {n}^3; dcm2csv route: {route}; "
+          f"stage 2 and 3 on {device}): tree write {write_s:.2f} s ({workers} encoder processes), "
+          f"ingest {ingest_s:.2f} s (JPEG-lossless decode {decode_s[0]:.3f} s for {decode_s[1]} "
+          f"frames), stage 2 {stage2_s:.2f} s, stage 3 {stage3_s:.2f} s, whole chain "
+          f"{chain_s:.2f} s (decoders included); ingested NIfTIs equal to the pixels written, "
+          f"affines within {geo_err[0]:.2e} mm / {geo_err[1]:.2e}; fused recon median rel err "
+          f"{errs}; mask share {mask_frac:.3f}; stage-3 median rel T2 err {t2_err:.4f}; gauss_fit "
+          f"launches {launches}; stage seconds {stages}; {card}", flush=True)
+    return {"decoders_ms": dec_ms, "write_s": write_s, "ingest_s": ingest_s,
+            "stage2_s": stage2_s, "stage3_s": stage3_s, "chain_s": chain_s,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -1955,6 +2315,7 @@ def main() -> int:
     timed("phase 12", phase12_session)
     timed("phase 13", phase13_serving)
     timed("phase 14", phase14_n4_analysis)
+    timed("phase 15", phase15_ingest_chain)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

@@ -10,6 +10,11 @@ they round op by op like their plain versions and the reference, and with
 FMA contraction they missed the parity bands against them. The S2D conv is
 held to its plain version by a tolerance, not bitwise, and keeps nvcc's
 default contraction.
+
+The DICOM ingest's host library (``csrc/dicom_host.cpp``: the Part-10
+probe and the JPEG-lossless decoder) is built here too, with g++, into the
+same directory, and bound by :func:`dicom_probe` and
+:func:`jpegll_decode`. Its build raises on failure as well.
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ import functools
 import glob
 import os
 import subprocess
-from typing import Dict, Tuple
+import threading
+from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -147,3 +154,109 @@ def check_launch(err: int, what: str) -> None:
 def stream(dev) -> int:
     """The current CUDA stream of ``dev`` as an int for a C entry."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# --------------------------------------------- the ingest's host library (g++)
+HOST_SOURCE = os.path.join(CSRC, "dicom_host.cpp")
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
+#: the most pixels an untrusted JPEG-lossless frame header may ask for: 2^26
+#: (128 MiB of uint16) dwarfs any real DICOM frame, and a crafted 65535 x
+#: 65535 x 4 header would otherwise allocate ~34 GB before decoding a pixel
+MAX_JPEG_PIXELS = 1 << 26
+_U8P, _U16P, _I32P = (ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint16),
+                      ctypes.POINTER(ctypes.c_int32))
+HOST_SIGNATURES = {
+    "ft2_dicom_probe_batch": ([ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, _I32P,
+                               ctypes.c_int32], ctypes.c_int),
+    "ft2_jpegll_info": ([_U8P, ctypes.c_uint64, _I32P, _I32P, _I32P, _I32P], ctypes.c_int),
+    "ft2_jpegll_decode": ([_U8P, ctypes.c_uint64, _U16P, ctypes.c_uint64], ctypes.c_int),
+    "ft2_free": ([_U8P], None),
+    "ft2_version": ([], ctypes.c_char_p),
+}
+
+
+def gxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
+def host_lib_path() -> str:
+    return os.path.join(BUILD_DIR, "libdicom_host.so")
+
+
+def build_host_lib() -> str:
+    """Compile ``csrc/dicom_host.cpp`` with g++ into ``_build/`` when the
+    library is missing or older than its source, under a private name and
+    renamed into place; return its path. A failed build raises with the
+    compiler's output."""
+    lib = host_lib_path()
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(HOST_SOURCE):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [gxx(), *HOST_FLAGS, "-o", tmp, HOST_SOURCE]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_lib():
+    """The ctypes handle of the ingest's host library (built first if
+    stale), with every C entry's types declared."""
+    lib = ctypes.CDLL(build_host_lib())
+    for fn, (argtypes, restype) in HOST_SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def jpegll_decode(data: bytes):
+    """Decode a T.81 lossless JPEG stream with the host library -> uint16
+    (uint8 at precision <= 8) array, (rows, cols) or (rows, cols, comps).
+
+    Returns None for a stream that parses but lies outside the library's
+    lossless scope (code -11), so that ``utils.jpegll.decode`` names the
+    feature; raises ValueError on a malformed stream or an implausible
+    frame header."""
+    lib = load_host_lib()
+    buf = ctypes.cast(ctypes.c_char_p(data), _U8P)
+    rows, cols, comps, prec = (ctypes.c_int32() for _ in range(4))
+    rc = lib.ft2_jpegll_info(buf, len(data), ctypes.byref(rows), ctypes.byref(cols),
+                             ctypes.byref(comps), ctypes.byref(prec))
+    if rc == -11:
+        return None
+    if rc != 0:
+        raise ValueError(f"jpegll: malformed stream (native code {rc})")
+    n = rows.value * cols.value * comps.value
+    if n <= 0 or n > MAX_JPEG_PIXELS:
+        raise ValueError(f"jpegll: implausible frame header "
+                         f"{rows.value}x{cols.value}x{comps.value}")
+    out = np.empty(n, np.uint16)
+    rc = lib.ft2_jpegll_decode(buf, len(data), out.ctypes.data_as(_U16P), n)
+    if rc != 0:
+        raise ValueError(f"jpegll: decode failed (native code {rc})")
+    arr = out.reshape(rows.value, cols.value, comps.value)
+    arr = arr[:, :, 0] if comps.value == 1 else arr
+    if prec.value <= 8:
+        arr = arr.astype(np.uint8)
+    return np.ascontiguousarray(arr)
+
+
+def dicom_probe(paths: Sequence[str], n_threads: int = 8) -> List[int]:
+    """Part-10 magic probe per path with the host library's thread pool:
+    1 DICOM, 0 not, -1 unreadable."""
+    lib = load_host_lib()
+    n = len(paths)
+    if n == 0:
+        return []
+    c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    flags = (ctypes.c_int32 * n)()
+    lib.ft2_dicom_probe_batch(c_paths, n, flags, n_threads)
+    return list(flags)

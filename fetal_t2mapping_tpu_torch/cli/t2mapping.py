@@ -2,6 +2,9 @@
 
 The flags of ``fetal_t2mapping_tpu.cli.t2mapping`` without ``--mesh``,
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch fit).
+The convergence figures are drawn where matplotlib imports; where it does
+not (the GPU machine may lack it), the CLI says so on stderr and writes
+the maps and tables without them.
 
 Example:
     python -m fetal_t2mapping_tpu_torch.cli.t2mapping --path /data/qMRI \\
@@ -11,6 +14,7 @@ Example:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import logging
 import os
 import sys
@@ -18,6 +22,10 @@ import sys
 from .. import config as C
 from ..pipeline.t2map_pipeline import process_t2maps
 from ..utils.metadata import set_metadata
+
+
+def have_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def parse_arguments(argv=None):
@@ -71,6 +79,10 @@ def main(argv=None):
         print("Warning: fitting with normalization is not optimal!", file=sys.stderr)
 
     cfg = C.fit_config(model, low_field, prior=not args.no_prior, norm=args.norm)
+    make_plots = have_matplotlib()
+    if not make_plots:
+        print("Warning: matplotlib is not importable: no convergence figures",
+              file=sys.stderr)
     metadata = set_metadata(csv_path, args.csv, low_field)
     process_t2maps(
         metadata, bids_path, tes, cfg,
@@ -78,6 +90,7 @@ def main(argv=None):
         low_field=low_field,
         fast=args.in_vitro_fast,
         sim=args.sim,
+        make_plots=make_plots,
         device=args.device,
     )
     return 0

@@ -7,6 +7,7 @@ import json
 import os
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 
@@ -52,9 +53,46 @@ def test_importing_every_module_leaves_jax_out():
                  "recon.resample", "recon.registration", "recon.fuse", "recon.denoise",
                  "labels.masks", "labels.feta", "labels.phantom",
                  "models.volume_fit", "models.lut", "recon.biasfield", "analysis.roi",
-                 "analysis.noise", "analysis.stats", "analysis.figures"):
+                 "analysis.noise", "analysis.stats", "analysis.figures",
+                 "utils.dicom", "utils.jpegll", "utils.jpegdct", "utils.dcm2nifti",
+                 "utils.ingest", "cli.dcm2csv", "labels.convert_synthseg"):
         assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
+
+
+_INGEST_PROBE = """
+import json, os, sys
+import numpy as np
+from fetal_t2mapping_tpu_torch import build
+from fetal_t2mapping_tpu_torch.utils import dicom, jpegll
+img = np.arange(48, dtype=np.uint16).reshape(6, 8) * 37
+ok = bool((build.jpegll_decode(jpegll.encode(img)) == img).all())
+flags = build.dicom_probe([sys.argv[1]])
+print(json.dumps({"ok": ok, "flags": flags, "lib": build.host_lib_path(),
+                  "leaked": sorted(m for m in sys.modules
+                                   if m == "jax" or m.startswith("jax.")
+                                   or m.startswith("jaxlib")
+                                   or m.startswith("fetal_t2mapping_tpu.")
+                                   or m == "fetal_t2mapping_tpu")}))
+"""
+
+
+def test_host_binding_runs_without_the_jax_package():
+    """The ingest's host library (csrc/dicom_host.cpp, built by build.py
+    with g++) decodes and probes in a process that never imports jax, the
+    JAX package or its native library."""
+    from fetal_t2mapping_tpu_torch import build
+
+    if shutil.which(build.gxx()) is None:
+        pytest.skip("needs g++ to build csrc/dicom_host.cpp")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _INGEST_PROBE, __file__], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ok"] and res["flags"] == [0] and res["leaked"] == []
+    assert res["lib"].startswith(os.path.join(os.path.dirname(build.__file__), "_build"))
+    assert os.path.basename(build.HOST_SOURCE) == "dicom_host.cpp"
 
 
 _JAX_IMPORT = re.compile(
