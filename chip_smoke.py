@@ -34,7 +34,16 @@ ROI tables on a 240^3 T2 map (card equal to CPU) and the LUT estimate at
 ones exact), then phase 12's session written as nine multi-frame DICOMs
 and taken through the port's three CLIs, ``dcm2csv``,
 ``qmri_reconstruction`` and ``t2mapping``, gated on the pixels and
-geometry written and on the truth. Each phase prints one line with its wall time; any failed gate or
+geometry written and on the truth. Phase 16, the host I/O layer: phase
+12's session written once as a BIDS tree of int16 inputs and taken through
+stage 2 in three fresh processes (``qmri_reconstruction.main``): (a) with
+the volume cache, the async writer and the native gzip off, (b) with the
+defaults, (c) with the defaults and ``--prewarm``; the three trees hold
+the same decompressed payloads, no write is left pending, the prewarm
+runs every step, stage 3 (``t2mapping --gaussian``, which launches
+gauss_fit.cu) on (b)'s tree meets the truth, and a process that queues
+writes of CUDA volumes and exits without a flush leaves complete files.
+Each phase prints one line with its wall time; any failed gate or
 error exits non-zero. The second-to-last lines are the kernels' JSON
 record and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Exits non-zero
@@ -64,7 +73,7 @@ import torch
 
 from fetal_t2mapping_tpu_torch import build
 from fetal_t2mapping_tpu_torch import config as C
-from fetal_t2mapping_tpu_torch.core import EchoStack, Volume, nifti
+from fetal_t2mapping_tpu_torch.core import EchoStack, Volume, nifti, volcache
 from fetal_t2mapping_tpu_torch.core.stack import pad_bucket
 from fetal_t2mapping_tpu_torch.labels import SynthSegRunner, conv_s2d, unet3d
 from fetal_t2mapping_tpu_torch.models import fused_fit
@@ -99,6 +108,7 @@ N_PARITY3, N_HEADLINE3, SIDE3 = 1 << 20, 256 ** 3, 240   # phases 5, 6, 7
 # H100 SXM published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s, fp32 outside the tensor cores and dense bf16 tensor-core FLOP/s
 HBM_BPS, FP32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def gate(ok: bool, what: str) -> None:
@@ -263,10 +273,16 @@ def phase0_environment():
         except ImportError:
             mods[name] = False
     mods["dcm2niix"] = shutil.which("dcm2niix") is not None
+    zlib_h = subprocess.run([build.gxx(), "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                            capture_output=True, text=True).returncode == 0
+    t0 = time.perf_counter()
+    build.load_gzio_lib()
+    gzio_s = time.perf_counter() - t0
     print(f"phase 0 environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA runtime {torch.version.cuda}, nvcc '{nvcc}', "
-          f"imports {mods}, device {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}", flush=True)
+          f"imports {mods}, zlib.h {'found' if zlib_h else 'NOT found'} by {build.gxx()} "
+          f"(csrc/gzio_host.cpp built and loaded in {gzio_s:.2f} s), device "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     return smi, mods["matplotlib"]
 
 
@@ -926,7 +942,9 @@ def phase7_sessions3(make_plots: bool):
             med_rel = float(np.median(np.abs(maps["t2"][mask] - t2_true[mask]) / t2_true[mask]))
             gate(med_rel <= 5e-2, f"{model}: median rel T2 err vs truth {med_rel:.3e} > 5e-2")
             stages = {k: round(v["seconds"], 4) for k, v in profiler.as_dict().items()}
-            io_s = stages.get("t2map.load", 0.0) + stages.get("t2map.save", 0.0)
+            # the gzip the session waits for: the reads, the queueing of the
+            # map writes and the wait for the writer pool at the end
+            io_s = sum(stages.get(k, 0.0) for k in ("t2map.load", "t2map.save", "io.flush_wait"))
             fit_s = stages.get("t2map.fit", 0.0)
             print(f"phase 7 main path {model} (process_t2maps, 240^3, "
                   f"{'low' if low_field else 'high'} field, TEs {tes}, {summ['n_voxels']} masked "
@@ -1482,10 +1500,12 @@ def invivo_acquisitions(n: int, seed: int = 12):
     return acqs, fields
 
 
-def _write_invivo_session(root: str, n: int, seed: int = 12):
+def _write_invivo_session(root: str, n: int, seed: int = 12, acqs=None):
     """invivo_acquisitions' nine volumes as NIfTI inputs of a BIDS tree,
-    with its metadata CSV."""
-    acqs, fields = invivo_acquisitions(n, seed)
+    with its metadata CSV; or ``acqs`` as they are (returning no fields)."""
+    fields = None
+    if acqs is None:
+        acqs, fields = invivo_acquisitions(n, seed)
     bids = os.path.join(root, "projects/")
     logs = os.path.join(root, "dicom/logs/")
     os.makedirs(logs)
@@ -1544,7 +1564,10 @@ def invivo_gates(bids, rows, fields, n, t2_path):
     simulation's truth: per TE the fused recon (median relative error on
     the core < 0.06), BET = recon x mask exactly, the dtypes; the T2 map's
     median relative error in the mask and the brain <= 5e-2. Returns the
-    recon errors, the T2 error, the mask's share and the T2 map."""
+    recon errors, the T2 error, the mask's share and the T2 map (those two
+    None without a ``t2_path``). Reads the files: the volume cache is
+    emptied first."""
+    volcache.clear()
     errs = {}
     union = np.zeros((n,) * 3, bool)
     for te in SESSION_TES:
@@ -1565,6 +1588,8 @@ def invivo_gates(bids, rows, fields, n, t2_path):
         core = support <= 0.85 ** 2
         errs[te] = float(np.median(np.abs(recon.data[core] - truth[core]) / truth[core]))
         gate(errs[te] < 0.06, f"TE {te}: fused recon median rel err {errs[te]:.4f} >= 0.06")
+    if t2_path is None:                       # stage 2's outputs alone
+        return errs, None, float(union.mean()), None
     t2_fit = nifti.read(t2_path).data
     inside = union & (support <= 1.0)
     t2_err = float(np.median(np.abs(t2_fit[inside] - t2_true[inside]) / t2_true[inside]))
@@ -2179,7 +2204,10 @@ def phase15_ingest_chain(n: int = SESSION_N, device: str = "cuda", workers: int 
     by dcm2csv (the in-repo converter: dcm2niix is kept off PATH), then
     qmri_reconstruction (SynthSeg fake) and t2mapping (gaussian) on the
     CSV it wrote; gated on the pixels and geometry written and on the
-    simulation's truth."""
+    simulation's truth. The chain runs in this process with the volume
+    cache on, so stage 3 reads stage 2's recons and masks from memory
+    (the gates read the files); phase 16's stage-2 runs, each in a fresh
+    process, are what hold the file round trip."""
     import contextlib
     import glob
     import io
@@ -2286,6 +2314,193 @@ def phase15_ingest_chain(n: int = SESSION_N, device: str = "cuda", workers: int 
             "launches": launches}
 
 
+# ------------------------------------------------ the host I/O layer (phase 16)
+_STAGE2_RUN = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from fetal_t2mapping_tpu_torch.cli import qmri_reconstruction
+from fetal_t2mapping_tpu_torch.core import volcache
+from fetal_t2mapping_tpu_torch.utils import prewarm
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
+handles = []
+start = prewarm.start_recon_prewarm
+def capture(*args, **kwargs):
+    handles.append(start(*args, **kwargs))
+    return handles[-1]
+prewarm.start_recon_prewarm = capture
+import_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+rc = qmri_reconstruction.main(sys.argv[1:])
+main_s = time.perf_counter() - t0
+pending = volcache.n_pending()
+h = handles[0].wait() if handles else None
+print(json.dumps({"rc": rc, "import_s": import_s, "main_s": main_s, "pending": pending,
+                  "stages": profiler.as_dict(), "report": profiler.report(),
+                  "prewarm": None if h is None else {
+                      "steps": h.steps, "seconds": h.seconds, "done": h.done,
+                      "error": None if h.error is None else repr(h.error)}}))
+"""
+
+_ATEXIT_RUN = r"""
+import sys
+import numpy as np, torch
+from fetal_t2mapping_tpu_torch.core import Volume, nifti
+n = int(sys.argv[2])
+x = (torch.arange(n ** 3, device=sys.argv[3], dtype=torch.float32) % 977.0).reshape(n, n, n) * 0.5
+nifti.write_async(sys.argv[1] + "/f32.nii.gz", Volume(x))
+nifti.write_async(sys.argv[1] + "/i16.nii.gz", Volume(x - 200.0), dtype=np.int16)
+print("queued, exiting without a flush", flush=True)
+"""
+
+IO_RUNS = {   # run: (environment, extra CLI flags)
+    "a": ({"FT2_VOLCACHE": "0", "FT2_ASYNC_WRITES": "0", "FT2_DISABLE_NATIVE": "1"}, []),
+    "b": ({}, []),
+    "c": ({}, ["--prewarm"]),
+}
+IO_KNOBS = ("FT2_VOLCACHE", "FT2_VOLCACHE_MB", "FT2_ASYNC_WRITES", "FT2_WRITE_THREADS",
+            "FT2_DISABLE_NATIVE")
+PREWARM_STEPS = ["resample", "fuse", "denoise", "reg_echo", "feta"]
+
+
+def _stage2_process(root: str, env_extra: dict, flags, device: str) -> dict:
+    """qmri_reconstruction.main in a fresh process on ``root``; its JSON
+    line (stage seconds, prewarm, writes pending at return) and the
+    process's wall time."""
+    env = {k: v for k, v in os.environ.items() if k not in IO_KNOBS}
+    env.update(env_extra, FSLDIR=os.path.join(root, "no_fsl"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _STAGE2_RUN, "--path", root, "--csv", "smoke.csv",
+                          "--in_vivo", "--lf", "--synthseg", "fake", "--device", device, *flags],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    gate(out.returncode == 0, f"stage-2 process {env_extra} {flags} failed ({out.returncode}): "
+                              f"{out.stderr[-4000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["wall_s"] = wall
+    return res
+
+
+def _payload_digests(root: str) -> dict:
+    """{path under root: sha256 of the decompressed file} of every NIfTI
+    under root/projects: header and voxels, not the gzip framing."""
+    import hashlib
+
+    from fetal_t2mapping_tpu_torch import native
+
+    paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(os.path.join(root, "projects"))
+                   for f in fs if f.endswith(".nii.gz"))
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        digests = ex.map(lambda p: hashlib.sha256(native.read_file(p)).hexdigest(), paths)
+        return {os.path.relpath(p, root): d for p, d in zip(paths, digests)}
+
+
+def _differing(a: dict, b: dict) -> list:
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
+    """Stage 2 through the host I/O layer, each run a fresh process on its
+    own copy of one int16 BIDS tree at n^3: (a) FT2_VOLCACHE=0
+    FT2_ASYNC_WRITES=0 FT2_DISABLE_NATIVE=1 (synchronous stdlib gzip, the
+    previous behaviour), (b) the defaults (volume cache, writer pool,
+    native gzip), (c) the defaults with --prewarm. Gates: equal trees
+    (decompressed payloads; where (a) is not reproducible against itself,
+    the differing files are held to phase 12's gates instead), no write
+    pending at return, the prewarm's steps, stage 3 on (b)'s tree against
+    the truth, and the exit of a process with queued CUDA writes."""
+    from fetal_t2mapping_tpu_torch.cli import t2mapping
+
+    acqs, fields = invivo_acquisitions(n)
+    acqs = [(o, te, v.with_data(np.clip(np.rint(v.data), 0, 65535).astype(np.int16)))
+            for o, te, v in acqs]                   # the inputs phase 15's ingest writes
+    runs, digests = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_io_") as tmp:
+        src = os.path.join(tmp, "src")
+        _write_invivo_session(src, n, acqs=acqs)
+        rows = set_metadata(os.path.join(src, "dicom/logs/"), ["smoke.csv"], low_field=True)
+        for key, (env_extra, flags) in IO_RUNS.items():
+            root = os.path.join(tmp, key)
+            shutil.copytree(src, root)
+            runs[key] = _stage2_process(root, env_extra, flags, device)
+            gate(runs[key]["rc"] == 0 and runs[key]["pending"] == 0,
+                 f"run {key}: rc {runs[key]['rc']}, {runs[key]['pending']} writes pending")
+            digests[key] = _payload_digests(root)
+        pw = runs["c"]["prewarm"]
+        gate(pw is not None and pw["done"] and pw["error"] is None
+             and pw["steps"] == PREWARM_STEPS, f"run c's prewarm: {pw}")
+        gate(runs["a"]["prewarm"] is None and runs["b"]["prewarm"] is None,
+             "a prewarm ran without --prewarm")
+        gate(len(digests["a"]) == 33, f"{len(digests['a'])} NIfTIs in run a's tree, not 33")
+        differ = {k: _differing(digests["a"], digests[k]) for k in ("b", "c")}
+        repeat = None
+        if differ["b"] or differ["c"]:
+            # registration sums in floating point on the card: first show
+            # whether (a) differs from itself
+            root = os.path.join(tmp, "a2")
+            shutil.copytree(src, root)
+            _stage2_process(root, *IO_RUNS["a"], device)
+            repeat = _differing(digests["a"], _payload_digests(root))
+            gate(bool(repeat), f"run a repeats bitwise, yet b differs on {differ['b']} and c on "
+                               f"{differ['c']}")
+            for key in ("a2", "b", "c"):
+                invivo_gates(os.path.join(tmp, key, "projects/"), rows, fields, n, None)
+
+        profiler.reset()
+        fused_fit.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = t2mapping.main(["--path", os.path.join(tmp, "b"), "--csv", "smoke.csv", "--in_vivo",
+                             "--gaussian", "--lf", "--sim", "io", "--device", device])
+        stage3_s = time.perf_counter() - t0
+        launches = fused_fit.KERNEL_LAUNCHES
+        gate(rc == 0 and volcache.n_pending() == 0,
+             f"t2mapping returned {rc}, {volcache.n_pending()} writes pending")
+        gate((launches > 0) == (torch.device(device).type == "cuda"),
+             f"stage 3 launched gauss_fit {launches} times on {device}")
+        bids_b = os.path.join(tmp, "b", "projects/")
+        t2_dir = os.path.dirname(get_img_path(bids_b, rows[0], C.T2MAP_DIRNAME))
+        t2_path = os.path.join(t2_dir, next(f for f in os.listdir(t2_dir) if "sim-io_t2map" in f))
+        errs, t2_err, mask_frac, _ = invivo_gates(bids_b, rows, fields, n, t2_path)
+        stage3_stages = {k: round(v["seconds"], 3) for k, v in profiler.as_dict().items()
+                         if k.startswith(("t2map.", "io."))}
+
+        out_dir = os.path.join(tmp, "atexit")
+        os.makedirs(out_dir)
+        m = n
+        out = subprocess.run([sys.executable, "-c", _ATEXIT_RUN, out_dir, str(m), device], cwd=REPO,
+                             capture_output=True, text=True, timeout=300,
+                             env={k: v for k, v in os.environ.items() if k not in IO_KNOBS})
+        gate(out.returncode == 0, f"the exiting writer failed: {out.stderr[-3000:]}")
+        x = ((np.arange(m ** 3, dtype=np.float32) % 977.0) * 0.5).reshape(m, m, m)
+        for name, want in (("f32", x), ("i16", nifti._cast_for_disk(x - 200.0, np.int16))):
+            got = nifti.read(os.path.join(out_dir, f"{name}.nii.gz")).data
+            gate(got.dtype == want.dtype and np.array_equal(got, want),
+                 f"atexit: {name}.nii.gz is not the volume queued before the exit")
+
+    card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
+    keep = ("recon.", "io.", "fuse.")
+    for key in IO_RUNS:
+        r = runs[key]
+        stages = {k: round(v["seconds"], 3) for k, v in sorted(r["stages"].items())
+                  if k.startswith(keep)}
+        print(f"phase 16 run {key} {IO_RUNS[key]}: process wall {r['wall_s']:.2f} s (imports "
+              f"{r['import_s']:.2f} s, qmri_reconstruction.main {r['main_s']:.2f} s), writes "
+              f"pending at return {r['pending']}, prewarm {r['prewarm']}; stage seconds {stages}",
+              flush=True)
+    print("phase 16 run b profiler.report():\n" + runs["b"]["report"], flush=True)
+    print(f"phase 16 io layer ({n}^3 in-vivo session, int16 inputs, 3 TEs x ax/cor/sag, stage 2 "
+          f"in fresh processes on {device}): stage 2 (main) a {runs['a']['main_s']:.2f} s, b "
+          f"{runs['b']['main_s']:.2f} s, c {runs['c']['main_s']:.2f} s (b/a "
+          f"{runs['b']['main_s'] / runs['a']['main_s']:.3f}); trees: {len(digests['a'])} "
+          f"NIfTIs, payloads differing from a: b {len(differ['b'])}, c {len(differ['c'])}"
+          f"{'' if repeat is None else f', a against a repeat of a {len(repeat)} ({repeat})'}; "
+          f"prewarm steps {pw['steps']} in {pw['seconds']:.2f} s; stage 3 (t2mapping --gaussian "
+          f"on b's tree) {stage3_s:.2f} s, gauss_fit launches {launches}, stage seconds "
+          f"{stage3_stages}; fused recon median rel err {errs}; mask share {mask_frac:.3f}; "
+          f"median rel T2 err {t2_err:.4f}; atexit: two queued {m}^3 {device} writes complete "
+          f"after the exit; {card}", flush=True)
+    return {k: r["main_s"] for k, r in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -2316,6 +2531,7 @@ def main() -> int:
     timed("phase 13", phase13_serving)
     timed("phase 14", phase14_n4_analysis)
     timed("phase 15", phase15_ingest_chain)
+    timed("phase 16", phase16_io_layer)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

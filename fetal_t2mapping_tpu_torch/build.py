@@ -11,10 +11,12 @@ FMA contraction they missed the parity bands against them. The S2D conv is
 held to its plain version by a tolerance, not bitwise, and keeps nvcc's
 default contraction.
 
-The DICOM ingest's host library (``csrc/dicom_host.cpp``: the Part-10
-probe and the JPEG-lossless decoder) is built here too, with g++, into the
-same directory, and bound by :func:`dicom_probe` and
-:func:`jpegll_decode`. Its build raises on failure as well.
+Two host libraries are built here too, with g++, into the same
+directory: the DICOM ingest's (``csrc/dicom_host.cpp``: the Part-10 probe
+and the JPEG-lossless decoder), bound by :func:`dicom_probe` and
+:func:`jpegll_decode`, and the NIfTI I/O's (``csrc/gzio_host.cpp``: zlib
+file reads and writes, linked with ``-lz``), bound by ``native.py``. Their
+builds raise on failure as well.
 """
 
 from __future__ import annotations
@@ -159,6 +161,8 @@ def stream(dev) -> int:
 # --------------------------------------------- the ingest's host library (g++)
 HOST_SOURCE = os.path.join(CSRC, "dicom_host.cpp")
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
+GZIO_SOURCE = os.path.join(CSRC, "gzio_host.cpp")
+GZIO_LIBS = ("-lz",)
 #: the most pixels an untrusted JPEG-lossless frame header may ask for: 2^26
 #: (128 MiB of uint16) dwarfs any real DICOM frame, and a crafted 65535 x
 #: 65535 x 4 header would otherwise allocate ~34 GB before decoding a pixel
@@ -188,12 +192,24 @@ def build_host_lib() -> str:
     library is missing or older than its source, under a private name and
     renamed into place; return its path. A failed build raises with the
     compiler's output."""
-    lib = host_lib_path()
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(HOST_SOURCE):
+    return _build_host(HOST_SOURCE, host_lib_path())
+
+
+def gzio_lib_path() -> str:
+    return os.path.join(BUILD_DIR, "libgzio_host.so")
+
+
+def build_gzio_lib() -> str:
+    """:func:`build_host_lib` for ``csrc/gzio_host.cpp``, linked with zlib."""
+    return _build_host(GZIO_SOURCE, gzio_lib_path(), GZIO_LIBS)
+
+
+def _build_host(source: str, lib: str, libs: Sequence[str] = ()) -> str:
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(source):
         return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [gxx(), *HOST_FLAGS, "-o", tmp, HOST_SOURCE]
+    cmd = [gxx(), *HOST_FLAGS, "-o", tmp, source, *libs]
     try:
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     except OSError as e:
@@ -212,6 +228,28 @@ def load_host_lib():
     stale), with every C entry's types declared."""
     lib = ctypes.CDLL(build_host_lib())
     for fn, (argtypes, restype) in HOST_SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+_SIZEP = ctypes.POINTER(ctypes.c_uint64)
+GZIO_SIGNATURES = {
+    "ft2_read_file": ([ctypes.c_char_p, ctypes.POINTER(_U8P), _SIZEP], ctypes.c_int),
+    "ft2_read_batch": ([ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.POINTER(_U8P),
+                        _SIZEP, _I32P, ctypes.c_int32], ctypes.c_int),
+    "ft2_write_file": ([ctypes.c_char_p, _U8P, ctypes.c_uint64, ctypes.c_int32], ctypes.c_int),
+    "ft2_gz_free": ([_U8P], None),
+    "ft2_gz_version": ([], ctypes.c_char_p),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load_gzio_lib():
+    """The ctypes handle of the NIfTI I/O's host library (built first if
+    stale), with every C entry's types declared."""
+    lib = ctypes.CDLL(build_gzio_lib())
+    for fn, (argtypes, restype) in GZIO_SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib

@@ -2,9 +2,10 @@
 (reference run_qmri_reconstruction.py:94-141).
 
 The flags of ``fetal_t2mapping_tpu.cli.qmri_reconstruction`` without
-``--prewarm`` and ``--mesh``, with ``--synthseg`` choices ``subprocess``,
-``torch`` and ``fake``, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path).
+``--mesh``, with ``--synthseg`` choices ``subprocess``, ``torch`` and
+``fake``, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+PyTorch path). ``--prewarm`` runs the session's device steps once on
+synthetic data in a background thread while the inputs are read.
 
 Example:
     python -m fetal_t2mapping_tpu_torch.cli.qmri_reconstruction --path /data/qMRI \\
@@ -49,6 +50,11 @@ def parse_arguments(argv=None):
                         help="Restrict registration metrics to an automatic "
                              "fixed-image signal mask (threshold+fill+dilate+erode "
                              "per slice) — the reference's SetMetricFixedMask design")
+    parser.add_argument("--prewarm", action="store_true",
+                        help="In vivo: run the stage's device steps once on synthetic data "
+                             "of the session's shapes in a background thread (header reads "
+                             "only), overlapping one-time start-up costs with the input "
+                             "reads; results are unchanged")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu (the plain "
                              "PyTorch path)")
@@ -71,6 +77,7 @@ def main(argv=None):
         synthseg=SynthSegRunner(mode=args.synthseg, device=args.device),
         seeds_key=args.seeds,
         registration_kwargs=dict(fixed_mask="auto") if args.masked_metric else None,
+        prewarm=args.prewarm,
         device=args.device,
     )
     return 0

@@ -16,7 +16,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from .volume import Volume
+from .volume import Volume, host_array
 
 
 def pad_bucket(n: int, granule: int = 8192) -> int:
@@ -76,10 +76,13 @@ class EchoStack:
                     "different anatomical locations — resample to a common "
                     "grid first")
         order = np.argsort(np.asarray(tes_ms))
-        signal = np.stack([np.asarray(recons[i].data, dtype=np.float32) for i in order], axis=-1)
+        # host_array: a recon or mask served from the volume cache may be a
+        # CUDA tensor (core.nifti.read)
+        signal = np.stack([np.asarray(host_array(recons[i].data), dtype=np.float32)
+                           for i in order], axis=-1)
         union = np.zeros(ref.shape, dtype=bool)
         for i in order:
-            union |= np.asarray(masks[i].data) > 0
+            union |= host_array(masks[i].data) > 0
         tes = np.asarray([float(tes_ms[i]) for i in order], dtype=np.float32)
         return cls(signal=signal, mask=union, tes=tes, geometry=ref)
 

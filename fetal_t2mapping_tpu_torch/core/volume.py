@@ -26,6 +26,23 @@ import numpy as np
 _Vec3 = Tuple[float, float, float]
 
 
+def np_dtype(data) -> np.dtype:
+    """The numpy dtype of ``data``, a numpy array or a torch tensor."""
+    if hasattr(data, "numpy") and not isinstance(data, np.ndarray):
+        return np.dtype(str(data.dtype).replace("torch.", ""))
+    return np.asarray(data).dtype
+
+
+def host_array(data) -> np.ndarray:
+    """``data`` as a host numpy array: a tensor is downloaded (a CUDA one
+    copied to the host once), numpy passes through. For host consumers of
+    a Volume that ``core.nifti.read`` may serve from the volume cache as a
+    CUDA tensor."""
+    if hasattr(data, "numpy") and not isinstance(data, np.ndarray):
+        return data.detach().cpu().numpy()
+    return np.asarray(data)
+
+
 @dataclasses.dataclass(frozen=True)
 class Volume:
     """A 3-D scalar image + its physical-space placement."""
@@ -97,7 +114,7 @@ class Volume:
         return dataclasses.replace(self, data=data)
 
     def astype(self, dtype) -> "Volume":
-        return dataclasses.replace(self, data=np.asarray(self.data).astype(dtype))
+        return dataclasses.replace(self, data=host_array(self.data).astype(dtype))
 
     def same_geometry(self, other: "Volume", tol: float = 1e-5) -> bool:
         return (

@@ -4,10 +4,10 @@
 //
 // A copy of the ingest entries of the JAX package's native/ft2io.cpp
 // (ft2_dicom_probe_batch, ft2_jpegll_info, ft2_jpegll_decode, ft2_free,
-// ft2_version), without its gzip file reads and writes: the port's
-// core/nifti does its own I/O. Host C++, not a GPU kernel: build.py builds
-// it with g++ (-O3 -fPIC -shared -std=c++17 -pthread) into _build/ at
-// first use and binds it with ctypes.
+// ft2_version); its gzip file reads and writes are in gzio_host.cpp, a
+// library of its own that needs zlib. Host C++, not a GPU kernel: build.py
+// builds it with g++ (-O3 -fPIC -shared -std=c++17 -pthread) into _build/
+// at first use and binds it with ctypes.
 //
 // Plain C ABI. Every function returns 0 on success or a negative code.
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.volume import Volume
+from ..core.volume import Volume, host_array
 from ..device import resolve_device
 from ..ops.morphology import binary_closing, binary_dilate, fill_holes
 from ..recon.resample import to_tensor
@@ -21,14 +21,18 @@ from ..recon.resample import to_tensor
 
 def mask_from_labels(labels: Volume) -> Volume:
     """Binary mask = any nonzero label (host numpy, uint8)."""
-    return labels.with_data((np.asarray(labels.data) > 0).astype(np.uint8))
+    return labels.with_data((host_array(labels.data) > 0).astype(np.uint8))
 
 
 def extract_brain(recon: Volume, mask: Volume) -> Volume:
-    """Zero everything outside the mask (BET-style extraction, host numpy)."""
+    """Zero everything outside the mask (BET-style extraction), on the
+    recon's device when it is a tensor (a cache-served recon stays on the
+    card), else in host numpy; the recon's dtype is kept."""
     if recon.shape != mask.shape:
         raise ValueError(f"shape mismatch {recon.shape} vs {mask.shape}")
-    data = np.asarray(recon.data) * (np.asarray(mask.data) > 0)
+    if torch.is_tensor(recon.data):
+        return recon.with_data(recon.data * (to_tensor(mask.data, recon.data.device) > 0))
+    data = np.asarray(recon.data) * (host_array(mask.data) > 0)
     return recon.with_data(data.astype(np.asarray(recon.data).dtype))
 
 

@@ -13,8 +13,10 @@ out, with four backends:
 - 'fake':      deterministic threshold-based labeler for tests/pipelines
   without FreeSurfer (foreground -> WM id 2, bright -> GM id 3)
 
-Writes are synchronous in this package, so no flush precedes a
-subprocess or callback.
+The 'subprocess' and 'callable' modes hand files to code with its own
+I/O, so queued writes (``nifti.write_async``) land first; 'torch' and
+'fake' read through ``nifti.read``, which serves them from the volume
+cache.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..core import nifti
+from ..core.volume import host_array
 
 DEFAULT_CMD = "mri_synthseg --i {input} --o {output} --robust --threads 4 --cpu"
 
@@ -54,6 +57,8 @@ class SynthSegRunner:
 
     def run(self, input_dir: str, output_dir: str) -> None:
         os.makedirs(output_dir, exist_ok=True)
+        if self.mode in ("subprocess", "callable"):
+            nifti.flush_writes(force=True)
         if self.mode == "subprocess":
             # split the TEMPLATE, then substitute paths as whole argv
             # elements — paths with spaces must not be word-split
@@ -82,7 +87,7 @@ class SynthSegRunner:
         params = unet3d.load_params(weights)
         for path in nifti.list_volumes(input_dir):
             vol = nifti.read(path)
-            labels = unet3d.segment_volume(params, np.asarray(vol.data),
+            labels = unet3d.segment_volume(params, host_array(vol.data),
                                            device=self.device)
             nifti.write(os.path.join(output_dir, _out_name(path)),
                         vol.with_data(labels), dtype=np.int16)
@@ -91,7 +96,7 @@ class SynthSegRunner:
     def _fake(input_dir: str, output_dir: str) -> None:
         for path in nifti.list_volumes(input_dir):
             vol = nifti.read(path)
-            data = np.asarray(vol.data, np.float32)
+            data = host_array(vol.data).astype(np.float32, copy=False)
             fg = data > np.percentile(data, 60)
             bright = data > np.percentile(data, 85)
             labels = np.zeros(data.shape, np.int16)

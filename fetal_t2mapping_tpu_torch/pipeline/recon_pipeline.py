@@ -12,15 +12,20 @@ In vivo: resample -> fuse (+ denoise) -> [hf-to-lf registration] ->
 SynthSeg -> masks -> BET -> FeTA -> atlas labels. In vitro: phantom masks
 and sphere labels from seeds.
 
-Writes are synchronous (``core.nifti.write``); the JAX package's async
-writer, volume cache and deferred flushes are left out. Within a session
-the register -> warp -> combine -> denoise chain stays on the device, and
-each written volume is downloaded once, when it is written.
+Writes go through ``core.nifti.write_async``: each volume is cast to its
+on-disk dtype on the device and queued on the writer pool, which
+downloads, encodes and gzips it while the next steps compute, and the
+volume cache serves the next stage's reads of it (a CUDA tensor stays on
+the card). Every public stage flushes its writes on exit; ``process_qmri``
+runs its stages inside ``nifti.deferred_flushes``, so those flushes become
+one at its end. Within a session the register -> warp -> combine ->
+denoise chain stays on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import re
@@ -31,7 +36,7 @@ import torch
 
 from .. import config as C
 from ..core import nifti
-from ..core.volume import Volume
+from ..core.volume import np_dtype
 from ..device import resolve_device
 from ..labels.feta import synthseg_to_feta
 from ..labels.masks import extract_brain, mask_from_labels, phantom_mask
@@ -50,11 +55,20 @@ from .t2map_pipeline import _groups
 log = logging.getLogger("fetal_t2mapping_tpu_torch.recon")
 
 
-def _write(path: str, vol: Volume, dtype) -> None:
-    """Download a device-backed volume (once) and write it."""
-    if torch.is_tensor(vol.data):
-        vol = vol.with_data(vol.data.cpu().numpy())
-    nifti.write(path, vol, dtype=dtype)
+def _flushes_writes(fn):
+    """Each public stage drains the write queue on exit, so the
+    filesystem-is-checkpoint contract holds at every API boundary (a
+    caller may list or read the derivative tree right after the call);
+    under ``nifti.deferred_flushes`` the drain waits for the outermost
+    exit."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            nifti.flush_writes()
+    return wrapper
 
 
 @contextlib.contextmanager
@@ -68,6 +82,7 @@ def _stage(name: str, device):
             torch.cuda.synchronize(dev)
 
 
+@_flushes_writes
 def run_resample_volumes(metadata: List[Dict], bids_path: str, high_res: float = 1.0,
                          overwrite: bool = False, device="cuda") -> None:
     """Step 2: per-acquisition isotropic resample (reference :35-59)."""
@@ -81,11 +96,12 @@ def run_resample_volumes(metadata: List[Dict], bids_path: str, high_res: float =
         # an integer input keeps its pixel type on disk, as the reference's
         # sitk.Resample(..., volume.GetPixelID()) (utils/qmri_utils.py:78-80):
         # rounded half-even and clamped; float inputs stay float32
-        in_dt = np.dtype(vol.data.dtype)
-        _write(out_path, hi, in_dt if in_dt.kind in "iu" else np.float32)
+        in_dt = np_dtype(vol.data)
+        nifti.write_async(out_path, hi, dtype=in_dt if in_dt.kind in "iu" else np.float32)
         log.info("resampled %s -> %s", acq["run"], out_path)
 
 
+@_flushes_writes
 def run_reconstruct_volumes(metadata: List[Dict], bids_path: str, *, denoise: bool = True,
                             fixed_type: str = "ax", overwrite: bool = False,
                             registration_kwargs: Optional[dict] = None,
@@ -122,7 +138,7 @@ def run_reconstruct_volumes(metadata: List[Dict], bids_path: str, *, denoise: bo
                     with _stage("fuse.denoise", device):
                         recon = denoise_volume(recon, device=device)
                 with profiler.stage("fuse.write"):
-                    _write(out_path, recon, np.float32)
+                    nifti.write_async(out_path, recon, dtype=np.float32)
                 log.info("recon saved: %s", out_path)
             else:
                 later_echoes.append((out_path, recon))
@@ -140,10 +156,11 @@ def run_reconstruct_volumes(metadata: List[Dict], bids_path: str, *, denoise: bo
                 with _stage("fuse.denoise", device):
                     recon = denoise_volume(recon, device=device)
             with profiler.stage("fuse.write"):
-                _write(out_path, recon, np.float32)
+                nifti.write_async(out_path, recon, dtype=np.float32)
             log.info("recon saved: %s", out_path)
 
 
+@_flushes_writes
 def run_biasfield_correction(metadata: List[Dict], bids_path: str, *, shared: bool = False,
                              overwrite: bool = False, device="cuda", **n4_kwargs) -> None:
     """Optional N4 bias correction of the resampled volumes (reference
@@ -158,7 +175,7 @@ def run_biasfield_correction(metadata: List[Dict], bids_path: str, *, shared: bo
             vol = nifti.read(get_img_path(bids_path, acq, C.RESAMP_DIRNAME))
             with _stage("recon.n4", device):
                 res = n4_bias_correction(vol, device=device, **n4_kwargs)
-            _write(out_path, res.corrected, np.float32)
+            nifti.write_async(out_path, res.corrected, dtype=np.float32)
             log.info("n4: %s", out_path)
         return
     for _, md in _groups(metadata, "prj", "sub", "ses", "ImageOrientationPatientSTR"):
@@ -169,10 +186,11 @@ def run_biasfield_correction(metadata: List[Dict], bids_path: str, *, shared: bo
         with _stage("recon.n4", device):
             corrected, _ = shared_log_bias(vols, device=device, **n4_kwargs)
         for out_path, vol in zip(out_paths, corrected):
-            _write(out_path, vol, np.float32)
+            nifti.write_async(out_path, vol, dtype=np.float32)
             log.info("n4 (shared): %s", out_path)
 
 
+@_flushes_writes
 def register_high_to_low_field(metadata: List[Dict], bids_path: str,
                                registration_kwargs: Optional[dict] = None,
                                device="cuda") -> None:
@@ -199,7 +217,7 @@ def register_high_to_low_field(metadata: List[Dict], bids_path: str,
             warm[(prj, sub, ses)] = reg.params_device
             out = resample_to_reference(moving, fixed, transform=reg.matrix_device,
                                         on_device=True, device=device)
-            _write(moving_path, out, np.float32)
+            nifti.write_async(moving_path, out, dtype=np.float32)
             log.info("hf->lf registered: %s", moving_path)
 
 
@@ -218,6 +236,7 @@ def _derivative_files(bids_path, prj, sub, ses, dirname):
     return nifti.list_volumes(os.path.join(bids_path, prj, "derivatives", dirname, sub, ses, "anat"))
 
 
+@_flushes_writes
 def run_masks_and_bet(metadata: List[Dict], bids_path: str, overwrite: bool = False) -> None:
     """Steps 5 + 5bis: masks from labels; brain extraction (reference :935-974)."""
     for (prj, sub, ses), _ in _groups(metadata, "prj", "sub", "ses"):
@@ -227,7 +246,7 @@ def run_masks_and_bet(metadata: List[Dict], bids_path: str, overwrite: bool = Fa
             out = os.path.join(mask_dir, os.path.basename(lbl_path).replace("synthseg", "mask"))
             if nifti.exists(out) and not overwrite:
                 continue
-            nifti.write(out, mask_from_labels(nifti.read(lbl_path)), dtype=np.uint8)
+            nifti.write_async(out, mask_from_labels(nifti.read(lbl_path)), dtype=np.uint8)
         # derive each mask path from the recon filename (never pair two
         # independently sorted listings: a count/naming mismatch would BET
         # the wrong mask onto a recon)
@@ -245,9 +264,10 @@ def run_masks_and_bet(metadata: List[Dict], bids_path: str, overwrite: bool = Fa
             if nifti.exists(out) and not overwrite:
                 continue
             bet = extract_brain(nifti.read(recon_path), nifti.read(mask_path))
-            nifti.write(out, bet, dtype=np.float32)
+            nifti.write_async(out, bet, dtype=np.float32)
 
 
+@_flushes_writes
 def run_feta_labels(metadata: List[Dict], bids_path: str, overwrite: bool = False,
                     device="cuda") -> None:
     """Step 6: SynthSeg -> FeTA remap (reference :976-1009)."""
@@ -257,9 +277,11 @@ def run_feta_labels(metadata: List[Dict], bids_path: str, overwrite: bool = Fals
             out = os.path.join(out_dir, os.path.basename(lbl_path).replace("synthseg", "feta"))
             if nifti.exists(out) and not overwrite:
                 continue
-            _write(out, synthseg_to_feta(nifti.read(lbl_path), device=device), np.int16)
+            feta = synthseg_to_feta(nifti.read(lbl_path), device=device)
+            nifti.write_async(out, feta, dtype=np.int16)
 
 
+@_flushes_writes
 def run_atlas_labels(metadata: List[Dict], bids_path: str, *,
                      mni_template: Optional[str] = None, jhu_atlas: Optional[str] = None,
                      ho_atlas: Optional[str] = None, low_field: bool = True,
@@ -294,16 +316,17 @@ def run_atlas_labels(metadata: List[Dict], bids_path: str, *,
         jhu_dir = mk_bids_dir(bids_path, prj, "derivatives", C.JHU_DIRNAME, sub, ses, "anat")
         ho_dir = mk_bids_dir(bids_path, prj, "derivatives", C.HO_DIRNAME, sub, ses, "anat")
         warped = resample_to_reference(mni, bet, transform=reg.matrix, device=device)
-        nifti.write(os.path.join(mni_dir, f"{sub}_{ses}_{C.MNI_DIRNAME}.nii.gz"), warped,
-                    dtype=np.float32)
+        nifti.write_async(os.path.join(mni_dir, f"{sub}_{ses}_{C.MNI_DIRNAME}.nii.gz"), warped,
+                          dtype=np.float32)
         np.savetxt(os.path.join(mni_dir, f"{sub}_{ses}_{C.MNI_DIRNAME}_omat.mat"), reg.matrix)
         for atlas, out_dir, name in ((jhu, jhu_dir, C.JHU_DIRNAME), (ho, ho_dir, C.HO_DIRNAME)):
             labels = resample_to_reference(atlas, bet, transform=reg.matrix, method="nearest",
                                            device=device)
-            nifti.write(os.path.join(out_dir, f"{sub}_{ses}_{name}.nii.gz"), labels,
-                        dtype=np.int16)
+            nifti.write_async(os.path.join(out_dir, f"{sub}_{ses}_{name}.nii.gz"), labels,
+                              dtype=np.int16)
 
 
+@_flushes_writes
 def downsample_labels(metadata: List[Dict], bids_path: str, high_dirname: str,
                       low_dirname: str, device="cuda") -> None:
     """Nearest-neighbour resample of HR label maps back to the acquisition
@@ -315,9 +338,10 @@ def downsample_labels(metadata: List[Dict], bids_path: str, high_dirname: str,
             low = high
         else:
             low = resample_to_reference(high, ref, method="nearest", device=device)
-        nifti.write(get_img_path(bids_path, acq, low_dirname), low, dtype=np.int16)
+        nifti.write_async(get_img_path(bids_path, acq, low_dirname), low, dtype=np.int16)
 
 
+@_flushes_writes
 def downsample_masks(metadata: List[Dict], bids_path: str, high_dirname: str,
                      low_dirname: str, device="cuda") -> None:
     """Mask downsampling with dilate + close + open regularization
@@ -328,9 +352,10 @@ def downsample_masks(metadata: List[Dict], bids_path: str, high_dirname: str,
         low = resample_to_reference(high, ref, method="nearest", on_device=True, device=device)
         m = binary_opening(binary_closing(binary_dilate(low.data > 0, 2), 1), 1)
         out_path = get_img_path(bids_path, acq, low_dirname).replace("masks.nii", "mask.nii")
-        _write(out_path, low.with_data(m.to(torch.uint8)), np.uint8)
+        nifti.write_async(out_path, low.with_data(m.to(torch.uint8)), dtype=np.uint8)
 
 
+@_flushes_writes
 def build_phantom_masks(metadata: List[Dict], bids_path: str, *, threshold: float = 100.0,
                         device="cuda") -> None:
     """In vitro: foreground masks from the recon volumes (reference
@@ -345,10 +370,11 @@ def build_phantom_masks(metadata: List[Dict], bids_path: str, *, threshold: floa
             if nifti.exists(out_path):
                 continue
             mask = phantom_mask(nifti.read(img_path), threshold=threshold, device=device)
-            nifti.write(out_path, mask, dtype=np.uint8)
+            nifti.write_async(out_path, mask, dtype=np.uint8)
             log.info("phantom mask: %s", out_path)
 
 
+@_flushes_writes
 def build_phantom_labels(metadata: List[Dict], bids_path: str,
                          seeds: Sequence[Sequence[int]], radius: int = 6,
                          device="cuda") -> None:
@@ -364,18 +390,70 @@ def build_phantom_labels(metadata: List[Dict], bids_path: str,
                 continue
             labels = phantom_labels_from_seeds(nifti.read(img_path), seeds, radius=radius,
                                                device=device)
-            nifti.write(out_path, labels, dtype=np.uint8)
+            nifti.write_async(out_path, labels, dtype=np.uint8)
             log.info("phantom labels: %s", out_path)
 
 
 def process_qmri(bids_path: str, metadata: List[Dict], *, in_vivo: bool, low_field: bool,
                  synthseg: Optional[SynthSegRunner] = None,
                  seeds_key: str = C.DEFAULT_PHANTOM_SEEDS_KEY,
-                 registration_kwargs: Optional[dict] = None, device="cuda") -> None:
+                 registration_kwargs: Optional[dict] = None, prewarm: bool = False,
+                 device="cuda"):
     """Full stage-2 pipeline (reference run_qmri_reconstruction.py:5-92) on
     ``device``. Each stage's wall time lands in ``utils.profiling.profiler``
-    under ``recon.*`` (and ``fuse.*`` inside the fusion). ``synthseg``
-    carries its own device for ``mode="torch"``."""
+    under ``recon.*`` (and ``fuse.*`` inside the fusion, ``io.*`` in the
+    writer pool). ``synthseg`` carries its own device for ``mode="torch"``.
+
+    The stages run inside ``nifti.deferred_flushes``: the writer pool
+    drains while later stages compute, and every write has landed when
+    this returns (``recon.flush_writes``).
+
+    ``prewarm=True`` (in vivo) first starts a background thread that runs
+    the session's device steps once on synthetic data of its acquisition
+    shapes (header reads only; :mod:`..utils.prewarm`), so one-time costs
+    (CUDA context, library handles, allocator growth) overlap the opening
+    reads. Results are the same with or without it. Returns the
+    :class:`~..utils.prewarm.PrewarmHandle` when a prewarm started, else
+    None."""
+    handle = None
+    if prewarm and in_vivo:
+        handle = _start_prewarm(bids_path, metadata, synthseg, registration_kwargs, device)
+    with nifti.deferred_flushes():
+        try:
+            _process_qmri_stages(bids_path, metadata, in_vivo=in_vivo, low_field=low_field,
+                                 synthseg=synthseg, seeds_key=seeds_key,
+                                 registration_kwargs=registration_kwargs, device=device)
+        finally:
+            # every queued checkpoint lands before the stage returns: the
+            # filesystem-is-checkpoint contract holds at the API boundary
+            with profiler.stage("recon.flush_writes"):
+                nifti.flush_writes(force=True)
+    return handle
+
+
+def _start_prewarm(bids_path, metadata, synthseg, registration_kwargs, device):
+    """Start the prewarm for the first session's geometry, or skip it with a
+    warning: a session without the fusion's ax/cor/sag triple, or a setup
+    that fails, costs only the overlap, never the pipeline."""
+    from ..utils.prewarm import geoms_from_metadata, start_recon_prewarm
+
+    geoms = geoms_from_metadata(metadata, bids_path)
+    # "ax" is the fusion's fixed orientation (run_reconstruct_volumes)
+    if len(geoms) != 3 or "ax" not in geoms:
+        log.warning("prewarm skipped: found orientations %s", sorted(geoms))
+        return None
+    n_echoes = len({r["EchoTime"] for r in metadata if r.get("EchoTime") is not None})
+    try:
+        return start_recon_prewarm(geoms, n_echoes=n_echoes,
+                                   registration_kwargs=registration_kwargs,
+                                   synthseg=synthseg, device=device)
+    except Exception:
+        log.warning("prewarm skipped (setup failed)", exc_info=True)
+        return None
+
+
+def _process_qmri_stages(bids_path, metadata, *, in_vivo, low_field, synthseg, seeds_key,
+                         registration_kwargs, device):
     if in_vivo:
         with profiler.stage("recon.resample"):
             run_resample_volumes(metadata, bids_path, 1.0, device=device)

@@ -5,8 +5,10 @@ The counterpart of ``fetal_t2mapping_tpu.pipeline.t2map_pipeline``
 mask (+ phantom label) volumes for the selected TEs, build an EchoStack,
 run the fit on the device, then write maps, convergence figures and the
 phantom ROI CSV. While the device fits session *i*, a host thread
-prefetches session *i+1*'s echo stack, and figures render on a worker
-thread that overlaps the next session.
+prefetches session *i+1*'s echo stack, figures render on a worker thread
+that overlaps the next session, and the maps are written by the writer
+pool of ``core.volcache``; every map has landed when ``process_t2maps``
+returns.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .. import config as C
 from ..analysis.convergence import save_convergence_plots
 from ..core import nifti
 from ..core.stack import EchoStack
+from ..core.volume import host_array
 from ..models.t2map import fit_stack
 from ..utils.bids import get_img_path, mk_bids_dir
 from ..utils.maps_io import save_nifti_maps, save_phantom_csv
@@ -161,15 +164,26 @@ def process_t2maps(
                 except Exception:
                     log.exception("abandoned prefetch load failed")
             loader.shutdown(wait=True)
-        if plotter:
+        # the queued map writes land before the API returns (the
+        # filesystem-is-checkpoint contract at the boundary); a plot-render
+        # failure must not skip the flush
+        try:
+            if plotter:
+                try:
+                    _drain(plot_futures)
+                finally:
+                    plotter.shutdown(wait=True)
+        except Exception:
+            if not failed:
+                raise
+            log.exception("plot render failed during error unwind")
+        finally:
             try:
-                _drain(plot_futures)
+                nifti.flush_writes()
             except Exception:
                 if not failed:
                     raise
-                log.exception("plot render failed during error unwind")
-            finally:
-                plotter.shutdown(wait=True)
+                log.exception("write flush failed during error unwind")
     return summaries
 
 
@@ -204,7 +218,7 @@ def _fit_one(job: dict, recons, masks, label_vol, bids_path: str,
         # ROI-only fast mode: mask out everything unlabeled
         stack = EchoStack(
             signal=stack.signal,
-            mask=stack.mask & (np.asarray(label_vol.data) > 0),
+            mask=stack.mask & (host_array(label_vol.data) > 0),
             tes=stack.tes,
             geometry=stack.geometry,
         )

@@ -19,12 +19,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.volume import Volume
+from ..core.volume import Volume, np_dtype
 from ..device import resolve_device
 from ..ops.interp import _nearest, _trilinear, sample_nearest, sample_trilinear
 
 # torch has no arithmetic on these unsigned types: they are sampled widened
 _WIDEN = {np.dtype(np.uint16): np.int32, np.dtype(np.uint32): np.int64}
+_WIDEN_T = {torch.uint16: torch.int32, torch.uint32: torch.int64}
 
 
 def _world_to_index_matrix(vol: Volume):
@@ -45,13 +46,9 @@ def to_tensor(data, device: torch.device, dtype: Optional[torch.dtype] = None) -
         elif not arr.flags.writeable:      # a NIfTI payload read from bytes
             arr = arr.copy()
         data = torch.from_numpy(np.ascontiguousarray(arr))
+    elif dtype is None and data.dtype in _WIDEN_T:   # a cache-served volume
+        dtype = _WIDEN_T[data.dtype]
     return data.to(device=device, dtype=dtype)
-
-
-def _np_dtype(data) -> np.dtype:
-    if torch.is_tensor(data):
-        return np.dtype(str(data.dtype).replace("torch.", ""))
-    return np.asarray(data).dtype
 
 
 def sample_volume_at_world(vol: Volume, world_pts, *, method: str = "linear",
@@ -137,7 +134,7 @@ def resample_to_reference(vol: Volume, ref: Volume, *, transform=None,
         c = M_inv @ (T[:3, :3] @ np.asarray(ref.origin) + T[:3, 3] - origin)
         B_T = torch.as_tensor(np.ascontiguousarray(B.T, np.float32), device=dev)
         c = torch.as_tensor(np.asarray(c, np.float32), device=dev)
-    src_dtype = _np_dtype(vol.data)
+    src_dtype = np_dtype(vol.data)
     data = to_tensor(vol.data, dev, torch.float32 if method == "linear" else None)
     vals = _affine_gather(data, B_T, c, cval, tuple(int(s) for s in ref.shape), method)
     if not on_device:

@@ -13,13 +13,12 @@ from __future__ import annotations
 
 import csv
 import math
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 
 from ..core import nifti
-from ..core.volume import Volume
+from ..core.volume import Volume, host_array
 from .bids import get_img_path
 
 ROI_COLUMNS = ("id", "trueT2", "meanT2", "stdT2", "meanK", "stdK", "meanC", "stdC")
@@ -27,10 +26,11 @@ ROI_COLUMNS = ("id", "trueT2", "meanT2", "stdT2", "meanK", "stdK", "meanC", "std
 
 def save_nifti_maps(out, bids_path: str, acq: Mapping, t2map_dirname: str,
                     sim: str, fit: str) -> dict:
-    """Write t2/k/sigma/res maps; returns {param: path}.
+    """Queue the t2/k/sigma/res map writes; returns {param: path}.
 
-    The four writes run on a small thread pool (gzip compression releases
-    the GIL) and have all landed when this returns."""
+    The writes go to the writer pool (``nifti.write_async``): their
+    compressions overlap the caller's next work and each other (zlib
+    releases the GIL). ``process_t2maps`` flushes before it returns."""
     base = get_img_path(bids_path, acq, t2map_dirname)
     if "t2map.nii.gz" not in base:
         # the substring replace below would silently no-op and write all
@@ -42,11 +42,8 @@ def save_nifti_maps(out, bids_path: str, acq: Mapping, t2map_dirname: str,
     for vol, param in zip((out.t2, out.k, out.sigma, out.res), ("t2", "k", "sigma", "res")):
         path = base.replace("t2map.nii.gz", f"sim-{sim}_{param}map_ada-{fit}.nii.gz")
         jobs.append((param, path, vol))
-    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
-        futures = [ex.submit(nifti.write, path, vol, np.float32)
-                   for _, path, vol in jobs]
-        for fut in futures:
-            fut.result()
+    for _, path, vol in jobs:
+        nifti.write_async(path, vol, dtype=np.float32)
     return {param: path for param, path, _ in jobs}
 
 
@@ -87,7 +84,7 @@ def save_phantom_csv(out, label_vol: Volume, ids: Sequence[str], gt: Sequence[fl
                      sim: str, fit: str) -> str:
     rows = phantom_roi_stats(
         np.asarray(out.t2.data), np.asarray(out.k.data), np.asarray(out.sigma.data),
-        np.asarray(label_vol.data), ids, gt,
+        host_array(label_vol.data), ids, gt,
     )
     path = get_img_path(bids_path, acq, t2map_dirname).replace(
         "t2map.nii.gz", f"sim-{sim}_ROI_data_ada-{fit}.csv")

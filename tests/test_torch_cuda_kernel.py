@@ -20,7 +20,10 @@ stop or one either side; morphology equal; a short registration's params
 ``fit_volume`` on the card: each layout launches the model's kernels and
 gives the bits of ``fit_fused`` on the masked voxels alone. N4: two card
 runs bitwise, the card within the CPU tests' tolerances of the CPU. ROI
-tables: the card's equal the CPU's.
+tables: the card's equal the CPU's. The I/O layer: a CUDA volume queued by
+``nifti.write_async`` from a side stream is read back from the cache and,
+after the flush, from the file, equal to what the stream computed; the
+prewarm runs every step on the card.
 """
 
 import numpy as np
@@ -555,3 +558,43 @@ def test_roi_tables_on_cuda_equal_cpu(card):
     assert np.array_equal(a["n"], c["n"])
     ok = c["n"].to_numpy() > 0
     np.testing.assert_allclose(a["mean"][ok], c["mean"][ok], rtol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint16])
+def test_write_async_from_a_side_stream(card, tmp_path, dtype):
+    """The producer computes on a side stream and queues the write at once:
+    the writer thread waits for the event recorded on that stream before its
+    copy, so the file holds the finished values, and the cache serves the
+    cast tensor on the card."""
+    from fetal_t2mapping_tpu_torch.core import Volume, nifti, volcache
+
+    path = str(tmp_path / "side.nii.gz")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        x = torch.rand((96, 128, 128), device=card, generator=torch.Generator(card).manual_seed(1))
+        for _ in range(20):                      # keep the stream busy past the queueing
+            x = torch.sqrt(x * x + 1.0) * 300.0 - 299.0
+        nifti.write_async(path, Volume(x), dtype=dtype)
+        cached = nifti.read(path).data
+    side.synchronize()
+    want = nifti._cast_for_disk(x, dtype).cpu().numpy()
+    assert cached.is_cuda and np.array_equal(cached.cpu().numpy(), want)
+    nifti.flush_writes()
+    volcache.clear()
+    got = nifti.read(path).data
+    assert got.dtype == np.dtype(dtype) and np.array_equal(got, want)
+
+
+def test_prewarm_runs_every_step_on_cuda(card):
+    from fetal_t2mapping_tpu_torch.core import Volume
+    from fetal_t2mapping_tpu_torch.utils.prewarm import start_recon_prewarm
+
+    geoms = {}
+    for otype, axis in (("ax", 2), ("cor", 1), ("sag", 0)):
+        spacing, shape = [1.0, 1.0, 1.0], [48, 48, 48]
+        spacing[axis], shape[2 - axis] = 4.0, 12
+        geoms[otype] = Volume(np.broadcast_to(np.zeros((), np.int16), tuple(shape)),
+                              spacing=tuple(spacing))
+    h = start_recon_prewarm(geoms, n_echoes=3, device=card).wait(timeout=300)
+    assert h.done and h.error is None, h.error
+    assert h.steps == ["resample", "fuse", "denoise", "reg_echo", "feta"]

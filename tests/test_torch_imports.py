@@ -55,7 +55,8 @@ def test_importing_every_module_leaves_jax_out():
                  "models.volume_fit", "models.lut", "recon.biasfield", "analysis.roi",
                  "analysis.noise", "analysis.stats", "analysis.figures",
                  "utils.dicom", "utils.jpegll", "utils.jpegdct", "utils.dcm2nifti",
-                 "utils.ingest", "cli.dcm2csv", "labels.convert_synthseg"):
+                 "utils.ingest", "cli.dcm2csv", "labels.convert_synthseg",
+                 "core.volcache", "native", "utils.prewarm"):
         assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
 
@@ -93,6 +94,50 @@ def test_host_binding_runs_without_the_jax_package():
     assert res["ok"] and res["flags"] == [0] and res["leaked"] == []
     assert res["lib"].startswith(os.path.join(os.path.dirname(build.__file__), "_build"))
     assert os.path.basename(build.HOST_SOURCE) == "dicom_host.cpp"
+
+
+_IO_PROBE = """
+import json, os, sys
+import numpy as np
+import torch
+from fetal_t2mapping_tpu_torch import native
+from fetal_t2mapping_tpu_torch.core import Volume, nifti, volcache
+from fetal_t2mapping_tpu_torch.utils.prewarm import start_recon_prewarm
+path = os.path.join(sys.argv[1], "v.nii.gz")
+nifti.write_async(path, Volume(torch.arange(60.0).reshape(3, 4, 5)), dtype=np.int16)
+nifti.flush_writes()
+volcache.clear()
+ok = bool((nifti.read(path).data == np.arange(60).reshape(3, 4, 5)).all())
+geoms = {o: Volume(np.broadcast_to(np.zeros((), np.int16), (4, 12, 12)), spacing=(1, 1, 3))
+         for o in ("ax", "cor", "sag")}
+h = start_recon_prewarm(geoms, n_echoes=1, denoise=False, device="cpu",
+                        registration_kwargs=dict(levels=(1,), sigmas=(0.0,), iters=(2,)))
+h.wait(timeout=120)
+print(json.dumps({"ok": ok, "native": native.available(), "steps": h.steps,
+                  "error": repr(h.error),
+                  "leaked": sorted(m for m in sys.modules
+                                   if m == "jax" or m.startswith("jax.")
+                                   or m.startswith("jaxlib")
+                                   or m.startswith("fetal_t2mapping_tpu.")
+                                   or m == "fetal_t2mapping_tpu")}))
+"""
+
+
+def test_io_layer_runs_without_the_jax_package(tmp_path):
+    """The volume cache, the async writer through the native gzip library
+    (csrc/gzio_host.cpp) and the prewarm run in a process that never
+    imports jax, the JAX package or its native library."""
+    from fetal_t2mapping_tpu_torch import build
+
+    if shutil.which(build.gxx()) is None:
+        pytest.skip("needs g++ to build csrc/gzio_host.cpp")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "FT2_DISABLE_NATIVE")}
+    out = subprocess.run([sys.executable, "-c", _IO_PROBE, str(tmp_path)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ok"] and res["native"] and res["leaked"] == [], res
+    assert res["steps"] == ["resample", "fuse", "feta"], res
 
 
 _JAX_IMPORT = re.compile(

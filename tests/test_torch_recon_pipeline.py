@@ -19,9 +19,13 @@ other, and their files are compared.
   are held exactly from the same inputs (masks, BET, FeTA, downsampled
   labels and masks), and BET is the recon times the mask, exactly.
 - In vitro (masks and sphere labels): exact.
+- The I/O modes: the volume cache and the async writer on (the
+  defaults), both off with the stdlib gzip, and the defaults with the
+  prewarm write payload-equal trees (decompressed header and voxels).
 """
 
 import csv
+import gzip
 import logging
 import os
 import random
@@ -41,7 +45,7 @@ from fetal_t2mapping_tpu.recon.resample import resample_to_reference as ref_resa
 from fetal_t2mapping_tpu.recon.resample import resample_volume as ref_resample_volume
 from fetal_t2mapping_tpu_torch import config as C
 from fetal_t2mapping_tpu_torch.cli.qmri_reconstruction import main
-from fetal_t2mapping_tpu_torch.core import nifti
+from fetal_t2mapping_tpu_torch.core import nifti, volcache
 from fetal_t2mapping_tpu_torch.labels.synthseg import SynthSegRunner
 from fetal_t2mapping_tpu_torch.pipeline import recon_pipeline as pipe
 from fetal_t2mapping_tpu_torch.recon.resample import resample_to_reference
@@ -126,6 +130,7 @@ def invivo(tmp_path_factory):
     ref_pipe.process_qmri(os.path.join(roots["ref"], "projects/"), pd.DataFrame(rows),
                           in_vivo=True, low_field=True,
                           synthseg=RefSynthSegRunner(mode="fake"), registration_kwargs=REG)
+    volcache.clear()              # the tests read the files, not the cache
     return src, roots, rows
 
 
@@ -142,7 +147,11 @@ def _held(a, b, what):
 
 def test_invivo_files_match_reference(invivo):
     _, roots, _ = invivo
-    fp, fr = _files(roots["port"]), _files(roots["ref"])
+    _held_to_reference(roots["port"], roots["ref"])
+
+
+def _held_to_reference(root_p, root_r):
+    fp, fr = _files(root_p), _files(root_r)
     assert sorted(fp) == sorted(fr)
     seen = set()
     for rel, path_r in sorted(fr.items()):
@@ -483,3 +492,36 @@ def test_in_vitro_cli_matches_reference_exactly(tmp_path):
             kinds.add(kind)
             assert 0 < (a > 0).sum() < a.size
     assert kinds == {C.MASK_DIRNAME, C.PHANTOM_LABELS_DIRNAME}
+
+
+@pytest.mark.parametrize("mode", ["sync_stdlib", "prewarm"])
+def test_io_modes_write_payload_equal_trees(invivo, tmp_path, monkeypatch, mode):
+    """process_qmri with the cache and the async writer off and the stdlib
+    gzip (FT2_VOLCACHE=0 FT2_ASYNC_WRITES=0 FT2_DISABLE_NATIVE=1), or with
+    the defaults and the prewarm, writes the files of the defaults' tree
+    with equal decompressed payloads (gzip headers differ between writers),
+    and stays inside the tolerances against the JAX package. With the cache
+    on, every stage reads what the previous one wrote through it: served
+    host data is read-only and a served tensor is version-checked, so a
+    consumer that edited one in place would fail here."""
+    src, roots, _ = invivo
+    root = str(tmp_path / mode)
+    shutil.copytree(src, root)
+    if mode == "sync_stdlib":
+        monkeypatch.setattr(volcache, "_CACHE_ON", False)
+        monkeypatch.setattr(volcache, "_ASYNC_ON", False)
+        monkeypatch.setenv("FT2_DISABLE_NATIVE", "1")
+    handle = pipe.process_qmri(os.path.join(root, "projects/"), _port_rows(root), in_vivo=True,
+                               low_field=True, synthseg=SynthSegRunner(mode="fake"),
+                               registration_kwargs=REG, prewarm=mode == "prewarm", device="cpu")
+    assert volcache.n_pending() == 0
+    if mode == "prewarm":
+        assert handle.wait(timeout=300).error is None
+        assert handle.steps == ["resample", "fuse", "denoise", "reg_echo", "feta"]
+    volcache.clear()
+    fd, fm = _files(roots["port"]), _files(root)
+    assert sorted(fd) == sorted(fm)
+    for rel in fd:
+        with gzip.open(fd[rel]) as a, gzip.open(fm[rel]) as b:
+            assert a.read() == b.read(), rel
+    _held_to_reference(root, roots["ref"])
