@@ -36,13 +36,25 @@ and taken through the port's three CLIs, ``dcm2csv``,
 ``qmri_reconstruction`` and ``t2mapping``, gated on the pixels and
 geometry written and on the truth. Phase 16, the host I/O layer: phase
 12's session written once as a BIDS tree of int16 inputs and taken through
-stage 2 in three fresh processes (``qmri_reconstruction.main``): (a) with
-the volume cache, the async writer and the native gzip off, (b) with the
-defaults, (c) with the defaults and ``--prewarm``; the three trees hold
-the same decompressed payloads, no write is left pending, the prewarm
-runs every step, stage 3 (``t2mapping --gaussian``, which launches
-gauss_fit.cu) on (b)'s tree meets the truth, and a process that queues
-writes of CUDA volumes and exits without a flush leaves complete files.
+stage 2 in fresh processes (``qmri_reconstruction.main``): (a) with the
+volume cache, the async writer and the native gzip off, (b) with the
+defaults, (c) with the defaults and ``--prewarm``, then (c) and (b) again;
+before them, another fresh process prints what the context, a large
+allocation, the host library and each step of the prewarm cost the first
+time against the second; the trees hold the same decompressed payloads, no
+write is left pending, the prewarm ends without an error, the two runs
+with ``--prewarm`` stay within stage 2's spread of the two without, stage 3 (``t2mapping
+--gaussian``, which launches gauss_fit.cu) on (b)'s tree meets the truth,
+and a process that queues writes of CUDA volumes and exits without a flush
+leaves complete files. Phase 17, the voxel mesh (two cards when two are
+visible, else two streams of one) and ``strategy='twophase'``:
+``fit_fused_sharded`` and ``fit_fused(strategy='twophase')`` at 256^3 x 3
+TEs per model against ``fit_fused``, bitwise but for the voxels twophase
+counts in ``n_overflow`` (equal to a host count from the phase-1 flags),
+``process_t2maps(mesh=)`` on phase 4's session (maps equal),
+``register_rigid(mesh=)`` on phase 11's scene (within 5e-3 rad / 0.3 mm of
+one device, and the recovery gate), ``segment_volume(mesh=)`` at 160^3
+(labels equal) and ``mesh_from_flag`` with one card too many.
 Each phase prints one line with its wall time; any failed gate or
 error exits non-zero. The second-to-last lines are the kernels' JSON
 record and the card's name and power limit; the last line is
@@ -2322,9 +2334,12 @@ from fetal_t2mapping_tpu_torch.cli import qmri_reconstruction
 from fetal_t2mapping_tpu_torch.core import volcache
 from fetal_t2mapping_tpu_torch.utils import prewarm
 from fetal_t2mapping_tpu_torch.utils.profiling import profiler
+import os
 handles = []
 start = prewarm.start_recon_prewarm
 def capture(*args, **kwargs):
+    if os.environ.get("FT2_SMOKE_PREWARM_SIDE"):
+        kwargs["side"] = int(os.environ["FT2_SMOKE_PREWARM_SIDE"])
     handles.append(start(*args, **kwargs))
     return handles[-1]
 prewarm.start_recon_prewarm = capture
@@ -2338,7 +2353,47 @@ print(json.dumps({"rc": rc, "import_s": import_s, "main_s": main_s, "pending": p
                   "stages": profiler.as_dict(), "report": profiler.report(),
                   "prewarm": None if h is None else {
                       "steps": h.steps, "seconds": h.seconds, "done": h.done,
+                      "step_seconds": h.step_seconds,
                       "error": None if h.error is None else repr(h.error)}}))
+"""
+
+# what a fresh process pays the first time it touches each piece that the
+# prewarm touches, against the second time: the context, a large
+# allocation, the host library, the cuBLAS matmul and batched matmul, then
+# the prewarm's steps (the stage's entry points on the session's geometry
+# scaled to argv[3] voxels a side) run twice in a row
+_FIRST_LAUNCH_RUN = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from fetal_t2mapping_tpu_torch import native
+from fetal_t2mapping_tpu_torch.utils.metadata import set_metadata
+from fetal_t2mapping_tpu_torch.utils.prewarm import geoms_from_metadata, start_recon_prewarm
+import_s = time.perf_counter() - t0
+root, dev, side = sys.argv[1], torch.device(sys.argv[2]), int(sys.argv[3])
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+out = {"import_s": import_s}
+def twice(name, fn):
+    out[name] = []
+    for _ in range(2):
+        t = time.perf_counter()
+        fn()
+        sync()
+        out[name].append(time.perf_counter() - t)
+twice("context", lambda: torch.zeros(1, device=dev))
+twice("alloc_1GiB", lambda: torch.empty(1 << 28, device=dev))
+twice("gzio_lib", native.available)
+a = torch.ones((32, 32), device=dev)
+twice("cublas", lambda: (a @ a, torch.bmm(a[None], a[None])))
+rows = set_metadata(root + "/dicom/logs/", ["smoke.csv"], low_field=True)
+geoms = geoms_from_metadata(rows, root + "/projects/")
+for run in ("first", "second"):
+    h = start_recon_prewarm(geoms, n_echoes=3, side=side, device=dev).wait()
+    out["prewarm_" + run] = {"steps": h.step_seconds, "seconds": h.seconds,
+                             "error": None if h.error is None else repr(h.error)}
+print(json.dumps(out))
 """
 
 _ATEXIT_RUN = r"""
@@ -2352,14 +2407,19 @@ nifti.write_async(sys.argv[1] + "/i16.nii.gz", Volume(x - 200.0), dtype=np.int16
 print("queued, exiting without a flush", flush=True)
 """
 
-IO_RUNS = {   # run: (environment, extra CLI flags)
+IO_RUNS = {   # run: (environment, extra CLI flags); b2 and c2 repeat b and c, in turns
     "a": ({"FT2_VOLCACHE": "0", "FT2_ASYNC_WRITES": "0", "FT2_DISABLE_NATIVE": "1"}, []),
     "b": ({}, []),
     "c": ({}, ["--prewarm"]),
+    "c2": ({}, ["--prewarm"]),
+    "b2": ({}, []),
 }
 IO_KNOBS = ("FT2_VOLCACHE", "FT2_VOLCACHE_MB", "FT2_ASYNC_WRITES", "FT2_WRITE_THREADS",
             "FT2_DISABLE_NATIVE")
-PREWARM_STEPS = ["resample", "fuse", "denoise", "reg_echo", "feta"]
+PREWARM_STEPS = []
+# stage 2's spread between two fresh processes of one configuration on one
+# H100: up to x1.157 between runs b and b2 of phase 16 (PERF.md)
+PREWARM_SPREAD = 1.15
 
 
 def _stage2_process(root: str, env_extra: dict, flags, device: str) -> dict:
@@ -2378,6 +2438,50 @@ def _stage2_process(root: str, env_extra: dict, flags, device: str) -> dict:
     res = json.loads(out.stdout.strip().splitlines()[-1])
     res["wall_s"] = wall
     return res
+
+
+def first_launch_costs(root: str, device: str, side: int) -> dict:
+    """_FIRST_LAUNCH_RUN in a fresh process on the session tree at root."""
+    out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH_RUN, root, device, str(side)],
+                         cwd=REPO, capture_output=True, text=True, timeout=600,
+                         env={k: v for k, v in os.environ.items() if k not in IO_KNOBS})
+    gate(out.returncode == 0, f"first-launch process failed: {out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for run in ("prewarm_first", "prewarm_second"):
+        gate(res[run]["error"] is None, f"first-launch {run}: {res[run]['error']}")
+    return res
+
+
+def prewarm_study(n: int = SESSION_N, device: str = "cuda",
+                  order=("b", "c32", "c0", "c0", "c32", "b")):
+    """Stage 2 of phase 16's session in fresh processes, defaults (b)
+    against --prewarm with the replay's grid at 32 voxels a side (c32)
+    and with the default prewarm (c0), in turns, and the first-launch costs
+    of a fresh process: the measurement behind utils/prewarm's design."""
+    acqs, _ = invivo_acquisitions(n)
+    acqs = [(o, te, v.with_data(np.clip(np.rint(v.data), 0, 65535).astype(np.int16)))
+            for o, te, v in acqs]
+    variants = {"b": ({}, []), "c32": ({"FT2_SMOKE_PREWARM_SIDE": "32"}, ["--prewarm"]),
+                "c0": ({"FT2_SMOKE_PREWARM_SIDE": "0"}, ["--prewarm"])}
+    times = {k: [] for k in variants}
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_pw_") as tmp:
+        src = os.path.join(tmp, "src")
+        _write_invivo_session(src, n, acqs=acqs)
+        set_metadata(os.path.join(src, "dicom/logs/"), ["smoke.csv"], low_field=True)
+        costs = first_launch_costs(src, device, 32)
+        print(f"prewarm study first-launch costs (s): {json.dumps(costs)}", flush=True)
+        for i, key in enumerate(order):
+            root = os.path.join(tmp, f"{key}{i}")
+            shutil.copytree(src, root)
+            r = _stage2_process(root, *variants[key], device)
+            times[key].append(round(r["main_s"], 3))
+            print(f"prewarm study run {i} {key}: main {r['main_s']:.3f} s, prewarm "
+                  f"{r['prewarm']}, stages {json.dumps({k: round(v['seconds'], 3) for k, v in sorted(r['stages'].items()) if k.startswith(('recon.', 'fuse.'))})}",
+                  flush=True)
+            shutil.rmtree(root)
+    card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
+    print(f"prewarm study ({n}^3, stage 2 main seconds): {times}; {card}", flush=True)
+    return times, costs
 
 
 def _payload_digests(root: str) -> dict:
@@ -2403,11 +2507,15 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
     own copy of one int16 BIDS tree at n^3: (a) FT2_VOLCACHE=0
     FT2_ASYNC_WRITES=0 FT2_DISABLE_NATIVE=1 (synchronous stdlib gzip, the
     previous behaviour), (b) the defaults (volume cache, writer pool,
-    native gzip), (c) the defaults with --prewarm. Gates: equal trees
-    (decompressed payloads; where (a) is not reproducible against itself,
-    the differing files are held to phase 12's gates instead), no write
-    pending at return, the prewarm's steps, stage 3 on (b)'s tree against
-    the truth, and the exit of a process with queued CUDA writes."""
+    native gzip), (c) the defaults with --prewarm, then (c) and (b) again.
+    First, in another fresh process, what each piece that the prewarm
+    touches costs the first time against the second (first_launch_costs).
+    Gates: equal trees (decompressed payloads; where (a) is not
+    reproducible against itself, the differing files are held to phase
+    12's gates instead), no write pending at return, the prewarm's steps,
+    (c) + (c2) <= PREWARM_SPREAD x ((b) + (b2)), stage 3 on (b)'s tree
+    against the truth, and
+    the exit of a process with queued CUDA writes."""
     from fetal_t2mapping_tpu_torch.cli import t2mapping
 
     acqs, fields = invivo_acquisitions(n)
@@ -2418,6 +2526,7 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
         src = os.path.join(tmp, "src")
         _write_invivo_session(src, n, acqs=acqs)
         rows = set_metadata(os.path.join(src, "dicom/logs/"), ["smoke.csv"], low_field=True)
+        costs = first_launch_costs(src, device, 32)
         for key, (env_extra, flags) in IO_RUNS.items():
             root = os.path.join(tmp, key)
             shutil.copytree(src, root)
@@ -2425,24 +2534,26 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
             gate(runs[key]["rc"] == 0 and runs[key]["pending"] == 0,
                  f"run {key}: rc {runs[key]['rc']}, {runs[key]['pending']} writes pending")
             digests[key] = _payload_digests(root)
-        pw = runs["c"]["prewarm"]
-        gate(pw is not None and pw["done"] and pw["error"] is None
-             and pw["steps"] == PREWARM_STEPS, f"run c's prewarm: {pw}")
-        gate(runs["a"]["prewarm"] is None and runs["b"]["prewarm"] is None,
+        for key in ("c", "c2"):
+            pw = runs[key]["prewarm"]
+            gate(pw is not None and pw["done"] and pw["error"] is None
+                 and pw["steps"] == PREWARM_STEPS, f"run {key}'s prewarm: {pw}")
+        gate(all(runs[k]["prewarm"] is None for k in ("a", "b", "b2")),
              "a prewarm ran without --prewarm")
+        b_s = runs["b"]["main_s"] + runs["b2"]["main_s"]
+        c_s = runs["c"]["main_s"] + runs["c2"]["main_s"]
         gate(len(digests["a"]) == 33, f"{len(digests['a'])} NIfTIs in run a's tree, not 33")
-        differ = {k: _differing(digests["a"], digests[k]) for k in ("b", "c")}
+        differ = {k: _differing(digests["a"], digests[k]) for k in IO_RUNS if k != "a"}
         repeat = None
-        if differ["b"] or differ["c"]:
+        if any(differ.values()):
             # registration sums in floating point on the card: first show
             # whether (a) differs from itself
             root = os.path.join(tmp, "a2")
             shutil.copytree(src, root)
             _stage2_process(root, *IO_RUNS["a"], device)
             repeat = _differing(digests["a"], _payload_digests(root))
-            gate(bool(repeat), f"run a repeats bitwise, yet b differs on {differ['b']} and c on "
-                               f"{differ['c']}")
-            for key in ("a2", "b", "c"):
+            gate(bool(repeat), f"run a repeats bitwise, yet the defaults differ on {differ}")
+            for key in ("a2",) + tuple(differ):
                 invivo_gates(os.path.join(tmp, key, "projects/"), rows, fields, n, None)
 
         profiler.reset()
@@ -2487,18 +2598,245 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
               f"pending at return {r['pending']}, prewarm {r['prewarm']}; stage seconds {stages}",
               flush=True)
     print("phase 16 run b profiler.report():\n" + runs["b"]["report"], flush=True)
+    print(f"phase 16 first-launch costs (s, first and second time in a fresh process; the "
+          f"prewarm's replay at 32 voxels a side twice): {json.dumps(costs)}", flush=True)
     print(f"phase 16 io layer ({n}^3 in-vivo session, int16 inputs, 3 TEs x ax/cor/sag, stage 2 "
           f"in fresh processes on {device}): stage 2 (main) a {runs['a']['main_s']:.2f} s, b "
-          f"{runs['b']['main_s']:.2f} s, c {runs['c']['main_s']:.2f} s (b/a "
-          f"{runs['b']['main_s'] / runs['a']['main_s']:.3f}); trees: {len(digests['a'])} "
-          f"NIfTIs, payloads differing from a: b {len(differ['b'])}, c {len(differ['c'])}"
+          f"{runs['b']['main_s']:.2f} s, c {runs['c']['main_s']:.2f} s, c2 "
+          f"{runs['c2']['main_s']:.2f} s, b2 {runs['b2']['main_s']:.2f} s (b/a "
+          f"{runs['b']['main_s'] / runs['a']['main_s']:.3f}; c + c2 {c_s:.2f} s, b + b2 "
+          f"{b_s:.2f} s); trees: {len(digests['a'])} NIfTIs, payloads differing from a: "
+          f"{ {k: len(v) for k, v in differ.items()} }"
           f"{'' if repeat is None else f', a against a repeat of a {len(repeat)} ({repeat})'}; "
           f"prewarm steps {pw['steps']} in {pw['seconds']:.2f} s; stage 3 (t2mapping --gaussian "
           f"on b's tree) {stage3_s:.2f} s, gauss_fit launches {launches}, stage seconds "
           f"{stage3_stages}; fused recon median rel err {errs}; mask share {mask_frac:.3f}; "
           f"median rel T2 err {t2_err:.4f}; atexit: two queued {m}^3 {device} writes complete "
           f"after the exit; {card}", flush=True)
+    # on the card, --prewarm must not make stage 2 slower beyond the spread
+    # of stage 2 between fresh processes (PREWARM_SPREAD): the prewarm does
+    # the minimum, whose effect lies inside that spread (PERF.md); a
+    # full-size replay cost +42%. On the CPU, a rehearsal, the times are
+    # noise.
+    gate(c_s <= PREWARM_SPREAD * b_s or torch.device(device).type != "cuda",
+         f"--prewarm made stage 2 slower: c + c2 {c_s:.2f} s > {PREWARM_SPREAD} x (b + b2) "
+         f"{b_s:.2f} s")
     return {k: r["main_s"] for k, r in runs.items()}
+
+
+# ------------------------------------------------ the voxel mesh and 'twophase' (phase 17)
+def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int = 240,
+                 n_reg: int = 192, n_seg: int = 160):
+    """The port's mesh and 'twophase' paths. The mesh is two cards when two
+    are visible, else cuda:0 twice (two shards on two streams of one card).
+    (a) fit_fused_sharded at n_fit x 3 TEs per model against fit_fused:
+    bitwise; (b) fit_fused(strategy='twophase') (and its sharded form) per
+    model: bitwise equal to 'single' on every voxel but the overflow, at the
+    default tail_frac and at a starved one, n_overflow equal to the count
+    recomputed on the host from the phase-1 flags, > 0 when starved;
+    (c) process_t2maps(mesh=) on phase 4's session: maps equal to the
+    single-device run's; (d) register_rigid(mesh=) on phase 11's scene:
+    within 5e-3 rad / 0.3 mm of single at a fixed budget, the recovery
+    gate at the defaults, ms and launches; (e) segment_volume(mesh=) at
+    n_seg^3 with phase 9's weights (fp32, TF32 off): labels equal to the
+    unsharded forward's; (f) mesh_from_flag(device_count() + 1) raises.
+    Returns (per-model ms and launches of (a)/(b), registration ms)."""
+    from math import gcd
+
+    from fetal_t2mapping_tpu_torch.parallel import (fit_fused_sharded, mesh_from_flag,
+                                                   voxel_mesh)
+    from fetal_t2mapping_tpu_torch.recon import registration
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and torch.cuda.device_count() >= 2:
+        mesh, mesh_kind = voxel_mesh(2), "two cards"
+    else:
+        mesh, mesh_kind = voxel_mesh(devices=[dev, dev]), f"{dev} twice (two streams)"
+
+    def same(a, b, keep=None):
+        fields = [(a.x, b.x), (a.fun, b.fun), (a.converged, b.converged), (a.n_iter, b.n_iter)]
+        if keep is None:
+            return all(torch.equal(u, v) for u, v in fields)
+        return all(torch.equal(u[keep], v[keep]) for u, v in fields)
+
+    def host_overflow(conv1: np.ndarray, bc: int, frac: float, rounds: int):
+        """The voxels 'twophase' leaves unrefit, from its phase-1 flags:
+        unconverged voxels of the blocks past the first rounds * cap_b
+        blocks that hold one, in block order."""
+        n = conv1.size
+        nbk = -(-n // bc)
+        c = np.ones(nbk * bc, bool)
+        c[:n] = conv1
+        quantum = 128 // gcd(bc, 128)
+        cap_b = max(quantum, -(-int(nbk * frac) // quantum) * quantum)
+        left = np.zeros(nbk, bool)
+        left[np.flatnonzero(~c.reshape(nbk, bc).all(1))[rounds * cap_b:]] = True
+        return np.repeat(left, bc)[:n] & ~conv1
+
+    fits = {"gaussian": (TES3, LO, HI, None, {}),
+            "gaussian_rician": (TES3, LO3, HI3, GUESS3, TOL3),
+            "rician": (TES3, LO3, HI3, GUESS3, TOL3)}
+    starved_frac = 1e-4
+    rows, fit_line = {}, []
+    for model, (tes, lo, hi, guess, tol) in fits.items():
+        if model == "gaussian":
+            sig = make_data(n_fit, tes, seed=0)[0]
+        else:
+            sig = make_data3(n_fit, tes, seed=0)[0]
+        s = torch.from_numpy(sig).to(dev)
+        kw = dict(model=model, guess=guess, max_iters=60, **tol)
+        for c in COUNTERS:
+            setattr(fused_fit, c, 0)
+        single = fused_fit.fit_fused(s, tes, lo, hi, device=dev, **kw)
+        launches_single = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+        for c in COUNTERS:
+            setattr(fused_fit, c, 0)
+        sharded = fit_fused_sharded(s, tes, lo, hi, mesh, **kw)
+        launches_sharded = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+        gate(bool(launches_single) and bool(launches_sharded) or not cuda,
+             f"{model}: no fit kernel launched ({launches_single}, {launches_sharded})")
+        gate(same(single, sharded), f"(a) {model}: fit_fused_sharded differs from fit_fused")
+        gate(sharded.n_overflow == 0, f"(a) {model}: sharded 'single' n_overflow {sharded.n_overflow}")
+        tail_block = fused_fit.resolve_tail_block(None, model)
+        conv1 = fused_fit.fit_fused(s, tes, lo, hi, device=dev, **dict(kw, max_iters=10)) \
+            .converged.cpu().numpy()
+        tp_rows = {}
+        for label, frac in (("default", None), ("starved", starved_frac)):
+            for c in COUNTERS:
+                setattr(fused_fit, c, 0)
+            tp = fused_fit.fit_fused(s, tes, lo, hi, device=dev, strategy="twophase",
+                                     tail_frac=frac, **kw)
+            launches_tp = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+            gate(bool(launches_tp) or not cuda, f"(b) {model} {label}: no fit kernel launched")
+            over = host_overflow(conv1, tail_block,
+                                 fused_fit.resolve_tail_frac(frac, tail_block), 2)
+            keep = torch.from_numpy(~over).to(dev)
+            gate(int(tp.n_overflow) == int(over.sum()),
+                 f"(b) {model} {label}: n_overflow {int(tp.n_overflow)}, host {int(over.sum())}")
+            gate(same(single, tp, keep), f"(b) {model} {label}: twophase differs from 'single' "
+                                         "on a handled voxel")
+            tps = fit_fused_sharded(s, tes, lo, hi, mesh, strategy="twophase", tail_frac=frac, **kw)
+            m = n_fit // mesh.size
+            over_s = np.concatenate([host_overflow(conv1[i * m:(i + 1) * m], tail_block,
+                                                   fused_fit.resolve_tail_frac(frac, tail_block), 2)
+                                     for i in range(mesh.size)])
+            gate(int(tps.n_overflow) == int(over_s.sum()),
+                 f"(b) {model} {label} sharded: n_overflow {int(tps.n_overflow)}, host "
+                 f"{int(over_s.sum())}")
+            gate(same(single, tps, torch.from_numpy(~over_s).to(dev)),
+                 f"(b) {model} {label}: sharded twophase differs from 'single' on a handled voxel")
+            tp_rows[label] = (int(tp.n_overflow), launches_tp)
+        gate(tp_rows["starved"][0] > 0, f"(b) {model}: a starved tail_frac left n_overflow 0")
+        if cuda:
+            t_single = cuda_ms(lambda: fused_fit.fit_fused(s, tes, lo, hi, device=dev, sync=False,
+                                                           **kw), 3)
+            t_sharded = cuda_ms(lambda: fit_fused_sharded(s, tes, lo, hi, mesh, sync=False,
+                                                          **kw), 3)
+            t_tp = cuda_ms(lambda: fused_fit.fit_fused(s, tes, lo, hi, device=dev, sync=False,
+                                                       strategy="twophase", **kw), 3)
+        else:
+            t_single = t_sharded = t_tp = float("nan")
+        rows[model] = dict(single_ms=t_single, sharded_ms=t_sharded, twophase_ms=t_tp,
+                           launches_single=launches_single, launches_sharded=launches_sharded,
+                           launches_twophase=tp_rows["default"][1],
+                           n_overflow=tp_rows["default"][0], n_overflow_starved=tp_rows["starved"][0])
+        fit_line.append(f"{model}: single {t_single:.3f} ms {launches_single}, sharded "
+                        f"{t_sharded:.3f} ms {launches_sharded}, twophase {t_tp:.3f} ms "
+                        f"{tp_rows['default'][1]} n_overflow {tp_rows['default'][0]} (tail_frac "
+                        f"{starved_frac:g}: {tp_rows['starved'][0]})")
+        del s, single, sharded
+
+    # (c) process_t2maps over phase 4's session, single and on the mesh
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_mesh_") as root:
+        bids, logs, mask, _, _, _ = _write_session(root, n_session, seed=11)
+        rows_md = set_metadata(logs, ["smoke.csv"], low_field=True)
+        cfg = C.fit_config("gaussian", low_field=True)
+        maps = {}
+        for sim, m_ in (("single", None), ("mesh", mesh)):
+            fused_fit.KERNEL_LAUNCHES = 0
+            t0 = time.perf_counter()
+            summ = process_t2maps(rows_md, bids, list(TES_SESSION), cfg, sim=sim,
+                                  make_plots=False, mesh=m_, device=dev)
+            maps[sim] = ({k: np.asarray(nifti.read(p).data) for k, p in summ[0]["maps"].items()},
+                         time.perf_counter() - t0, fused_fit.KERNEL_LAUNCHES)
+        for k, v in maps["single"][0].items():
+            gate(np.array_equal(v, maps["mesh"][0][k], equal_nan=True),
+                 f"(c) process_t2maps(mesh=) map {k} differs from the single-device map")
+        gate(maps["mesh"][2] == mesh.size or not cuda,
+             f"(c) the mesh session launched gauss_fit {maps['mesh'][2]} times")
+
+    # (d) the rigid registration of phase 11's scene
+    center = np.full(3, (n_reg - 1) / 2.0)
+    T1 = rigid_matrix(0.05, -0.04, 0.04, [4.0, -3.0, 3.0], center)
+    fixed = Volume(blob_scene(n_reg, np.eye(4), dev))
+    moving = Volume(blob_scene(n_reg, T1, dev))
+    fixed_budget = dict(metric="ncc", stop_tol=None)
+    r1 = registration.register_rigid(fixed, moving, device=dev, **fixed_budget)
+    r2 = registration.register_rigid(fixed, moving, mesh=mesh, **fixed_budget)
+    d_rot = float(np.abs(r2.matrix[:3, :3] - r1.matrix[:3, :3]).max())
+    d_tr = float(np.abs(r2.matrix[:3, 3] - r1.matrix[:3, 3]).max())
+    gate(d_rot <= 5e-3 and d_tr <= 0.3, f"(d) sharded vs single rigid: {d_rot:.2e} / {d_tr:.3f} mm "
+                                        "(5e-3, 0.3 mm)")
+    reg_ms, res = timed_solves(lambda: registration.register_rigid(fixed, moving, metric="ncc",
+                                                                   mesh=mesh))
+    single_ms, _ = timed_solves(lambda: registration.register_rigid(fixed, moving, metric="ncc",
+                                                                    device=dev))
+    rot, tr = pose_error(T1, res.matrix, center)
+    gate(rot < 0.01 and tr < 0.5, f"(d) mesh rigid recovery {rot:.4f} rad / {tr:.3f} mm")
+    launches = "not measured"
+    if cuda:
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            _sync()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                registration.register_rigid(fixed, moving, metric="ncc",
+                                            mesh=mesh).params_device.sum().item()
+            launches = sum(e.count for e in prof.key_averages()
+                           if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        except Exception as exc:   # the profiler is untried on this machine: report, do not fail
+            launches = f"profiler unavailable ({type(exc).__name__})"
+    del fixed, moving
+
+    # (e) the U-Net at n_seg^3, fp32 (TF32 off), phase 9's weights and head
+    full_fp32()
+    params = unet3d.random_params(unet3d.UNetConfig(batch_norm=True), seed=0)
+    vol = brain_volume(n_seg, seed=21)
+    seg = {}
+    for name, m_ in (("single", None), ("mesh", mesh)):
+        conv_s2d.CONV_S2D_LAUNCHES = 0
+        for _ in range(2):          # the second call is timed: weights on the card
+            _sync()
+            t0 = time.perf_counter()
+            seg[name] = unet3d.segment_volume(params, vol, use_s2d=False,
+                                              compute_dtype=torch.float32, mesh=m_, device=dev)
+            seg[name + "_s"] = time.perf_counter() - t0
+    gate(np.array_equal(seg["single"], seg["mesh"]),
+         f"(e) segment_volume(mesh=) labels differ from unsharded on "
+         f"{int((seg['single'] != seg['mesh']).sum())} voxels")
+    gate(conv_s2d.CONV_S2D_LAUNCHES == 0, "(e) the mesh forward launched conv_s2d")
+
+    # (f) more devices than are visible
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    try:
+        mesh_from_flag(max(2, visible + 1))
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    gate(f"only {visible} CUDA device(s)" in raised, f"(f) mesh_from_flag: {raised!r}")
+
+    card = card_name_and_power_limit() if cuda else device
+    print(f"phase 17 mesh ({mesh_kind}: {mesh}; 'twophase' phase1_iters 10, tail_rounds 2): (a)+(b) "
+          f"at {n_fit} voxels x 3 TEs, bitwise to 'single' but the overflow, n_overflow = host "
+          f"count: {'; '.join(fit_line)}; (c) process_t2maps {n_session}^3 single "
+          f"{maps['single'][1]:.3f} s, mesh {maps['mesh'][1]:.3f} s (gauss_fit launches "
+          f"{maps['mesh'][2]}), maps equal; (d) register_rigid {n_reg}^3 ncc mesh median "
+          f"{reg_ms:.1f} ms (single {single_ms:.1f} ms), launches per mesh solve {launches}, "
+          f"recovery {rot:.5f} rad / {tr:.4f} mm, fixed budget mesh vs single {d_rot:.2e} / "
+          f"{d_tr:.4f} mm; (e) segment_volume {n_seg}^3 fp32 single {seg['single_s']:.3f} s, "
+          f"mesh {seg['mesh_s']:.3f} s, labels equal; (f) {raised!r}; {card}", flush=True)
+    return rows, reg_ms
 
 
 def main() -> int:
@@ -2532,6 +2870,7 @@ def main() -> int:
     timed("phase 14", phase14_n4_analysis)
     timed("phase 15", phase15_ingest_chain)
     timed("phase 16", phase16_io_layer)
+    mesh_rows, _ = timed("phase 17", phase17_mesh)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

@@ -1,11 +1,12 @@
 """CLI: qMRI reconstruction / derivative generation on a GPU
 (reference run_qmri_reconstruction.py:94-141).
 
-The flags of ``fetal_t2mapping_tpu.cli.qmri_reconstruction`` without
-``--mesh``, with ``--synthseg`` choices ``subprocess``, ``torch`` and
-``fake``, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path). ``--prewarm`` runs the session's device steps once on
-synthetic data in a background thread while the inputs are read.
+The flags of ``fetal_t2mapping_tpu.cli.qmri_reconstruction``, with
+``--synthseg`` choices ``subprocess``, ``torch`` and ``fake``, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+``--prewarm`` warms the session's device libraries in a background thread
+while the inputs are read; ``--mesh N`` spreads the registrations and the
+torch-mode U-Net over the first N CUDA devices.
 
 Example:
     python -m fetal_t2mapping_tpu_torch.cli.qmri_reconstruction --path /data/qMRI \\
@@ -58,6 +59,10 @@ def parse_arguments(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu (the plain "
                              "PyTorch path)")
+    parser.add_argument("--mesh", type=int, default=None, metavar="N",
+                        help="Shard device work over the first N CUDA devices: "
+                             "registration metric samples and torch-mode SynthSeg "
+                             "inference")
     return parser.parse_args(argv)
 
 
@@ -69,6 +74,13 @@ def main(argv=None):
         return 1
     bids_path = os.path.join(args.path, "projects/")
     csv_path = os.path.join(args.path, "dicom/logs/")
+    from ..parallel.mesh import mesh_from_flag
+
+    try:
+        mesh = mesh_from_flag(args.mesh)
+    except ValueError as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 1
     metadata = set_metadata(csv_path, args.csv, args.lf)
     process_qmri(
         bids_path, metadata,
@@ -77,6 +89,7 @@ def main(argv=None):
         synthseg=SynthSegRunner(mode=args.synthseg, device=args.device),
         seeds_key=args.seeds,
         registration_kwargs=dict(fixed_mask="auto") if args.masked_metric else None,
+        mesh=mesh,
         prewarm=args.prewarm,
         device=args.device,
     )

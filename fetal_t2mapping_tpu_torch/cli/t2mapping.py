@@ -1,7 +1,8 @@
 """CLI: voxel-wise T2 mapping on a GPU (reference run_t2mapping.py:483-576).
 
-The flags of ``fetal_t2mapping_tpu.cli.t2mapping`` without ``--mesh``,
-plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch fit).
+The flags of ``fetal_t2mapping_tpu.cli.t2mapping``, plus ``--device``
+(default ``cuda``; ``cpu`` runs the plain PyTorch fit). ``--mesh N`` shards
+each session's voxel fit over the first N CUDA devices.
 The convergence figures are drawn where matplotlib imports; where it does
 not (the GPU machine may lack it), the CLI says so on stderr and writes
 the maps and tables without them.
@@ -59,6 +60,9 @@ def parse_arguments(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device for the fit: cuda (the CUDA kernel, "
                              "default) or cpu (the plain PyTorch version)")
+    parser.add_argument("--mesh", type=int, default=None, metavar="N",
+                        help="Shard every session's voxel fit over the first N CUDA "
+                             "devices (the reference's Pool(20) fan-out)")
     return parser.parse_args(argv)
 
 
@@ -83,6 +87,13 @@ def main(argv=None):
     if not make_plots:
         print("Warning: matplotlib is not importable: no convergence figures",
               file=sys.stderr)
+    from ..parallel.mesh import mesh_from_flag
+
+    try:
+        mesh = mesh_from_flag(args.mesh)
+    except ValueError as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 1
     metadata = set_metadata(csv_path, args.csv, low_field)
     process_t2maps(
         metadata, bids_path, tes, cfg,
@@ -91,6 +102,7 @@ def main(argv=None):
         fast=args.in_vitro_fast,
         sim=args.sim,
         make_plots=make_plots,
+        mesh=mesh,
         device=args.device,
     )
     return 0

@@ -58,9 +58,10 @@ _NP_TO_DT = {v: k for k, v in _DT_TO_NP.items()}
 
 _FLIP_LPS = np.diag([-1.0, -1.0, 1.0])  # RAS <-> LPS
 
-# gzip level for written volumes: ~2x faster to compress than zlib's
-# default 6 at a few-percent size cost (the JAX package's default too).
-_GZIP_LEVEL = 4
+# gzip level for written volumes, on the native and the stdlib route: 4 is
+# ~2x faster to compress than zlib's default 6 at a few-percent size cost.
+# Override with FT2_GZIP_LEVEL (0-9), read at import as the JAX package does.
+_GZIP_LEVEL = int(os.environ.get("FT2_GZIP_LEVEL", "4"))
 _GZ_MAGIC = b"\x1f\x8b"
 
 _NP_TO_TORCH = {np.dtype(n): getattr(torch, n) for n in (

@@ -7,7 +7,8 @@ out, with four backends:
 - 'subprocess': invoke a user-provided command template per directory pair
   (default ``mri_synthseg --i {input} --o {output} --robust --threads 4 --cpu``)
 - 'torch':     the 3-D U-Net of :mod:`.unet3d` on ``device`` (default
-  "cuda"; raises without a GPU); weights from ``weights`` or
+  "cuda"; raises without a GPU), or with its z axis sharded over ``mesh``
+  (a ``parallel.VoxelMesh``); weights from ``weights`` or
   $FT2_SYNTHSEG_WEIGHTS (.npz manifest). FT2_UNET_S2D selects the program.
 - 'callable':  any Python function f(input_dir, output_dir)
 - 'fake':      deterministic threshold-based labeler for tests/pipelines
@@ -47,6 +48,7 @@ class SynthSegRunner:
     fn: Optional[Callable[[str, str], None]] = None
     weights: Optional[str] = None  # .npz for mode='torch' ($FT2_SYNTHSEG_WEIGHTS)
     device: str = "cuda"           # mode='torch' runs the U-Net here
+    mesh: Optional[object] = None  # parallel.VoxelMesh: mode='torch' shards z over it
 
     def available(self) -> bool:
         if self.mode == "subprocess":
@@ -88,7 +90,7 @@ class SynthSegRunner:
         for path in nifti.list_volumes(input_dir):
             vol = nifti.read(path)
             labels = unet3d.segment_volume(params, host_array(vol.data),
-                                           device=self.device)
+                                           mesh=self.mesh, device=self.device)
             nifti.write(os.path.join(output_dir, _out_name(path)),
                         vol.with_data(labels), dtype=np.int16)
 

@@ -33,6 +33,7 @@ epilogue, as the reference's Pallas kernel does.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -364,6 +365,76 @@ def unet_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return _conv(x, params["head_w"], params["head_b"], compute_dtype)
 
 
+def _slab_bounds(z: int, divisor: int, n_shards: int) -> List[int]:
+    """z-slab boundaries for ``n_shards`` shards, each slab a whole number
+    of ``divisor``-slice blocks (so every pooling level splits at a cell
+    boundary); a shard gets no slab when there are fewer blocks than
+    shards."""
+    n_blk = z // divisor
+    return [divisor * (k * n_blk // n_shards) for k in range(n_shards + 1)]
+
+
+def _conv_halo(xs: List[torch.Tensor], ws: List[torch.Tensor], bs, compute_dtype):
+    """:func:`_conv` of a volume held as z slabs, one per shard: each slab
+    takes the kernel's half-width of slices from its neighbours' edges (a
+    zero slab at the volume's faces, as SAME padding), then convolves
+    VALID in z and SAME in y and x on its own device."""
+    h = ws[0].shape[2] // 2
+    out = []
+    for i, x in enumerate(xs):
+        dev = x.device
+        if h:
+            edge = (x.shape[0], h) + tuple(x.shape[2:])
+            lo = xs[i - 1][:, -h:].to(dev) if i else x.new_zeros(edge)
+            hi = xs[i + 1][:, :h].to(dev) if i + 1 < len(xs) else x.new_zeros(edge)
+            x = torch.cat([lo, x, hi], dim=1)
+        w = ws[i]
+        xc = x.to(compute_dtype).permute(0, 4, 1, 2, 3)
+        y = F.conv3d(xc, w.to(compute_dtype), padding=(0, w.shape[3] // 2, w.shape[4] // 2))
+        y = y.permute(0, 2, 3, 4, 1).float()
+        if bs[i] is not None:
+            y = y + bs[i]
+        out.append(y.contiguous())
+    return out
+
+
+def unet_apply_sharded(params: List[Dict[str, torch.Tensor]], xs: List[torch.Tensor],
+                       cfg: UNetConfig = UNetConfig(),
+                       compute_dtype=torch.float32) -> List[torch.Tensor]:
+    """:func:`unet_apply` with the volume split into z slabs, one per
+    shard, each on its device with its copy of the weights (``params[i]``
+    on ``xs[i]``'s device): every 3^3 conv first exchanges one slice of
+    halo with the neighbouring slabs; pooling, upsampling, the skips and
+    the elementwise steps stay inside a slab (each slab is a whole number
+    of ``cfg.divisor`` slices). Returns each slab's fp32 logits."""
+    def each(fn, *lists):
+        return [fn(*args) for args in zip(*lists)]
+
+    def conv_elu(xs, key):
+        ys = _conv_halo(xs, [p[key + "_w"] for p in params], [p[key + "_b"] for p in params],
+                        compute_dtype)
+        return [_elu(y, compute_dtype) for y in ys]
+
+    def bn(xs, name):
+        return each(lambda x, p: _bn(x, p, name, cfg, compute_dtype), xs, params)
+
+    skips = []
+    for lv in range(cfg.n_levels):
+        for i in range(cfg.n_conv_per_level):
+            xs = conv_elu(xs, f"enc{lv}_{i}")
+        xs = bn(xs, f"bn_down{lv}")
+        if lv < cfg.n_levels - 1:
+            skips.append(xs)
+            xs = [_maxpool2(x) for x in xs]
+    for lv in range(cfg.n_levels - 2, -1, -1):
+        xs = each(lambda s, x: torch.cat([s, _upsample2(x)], dim=-1), skips[lv], xs)
+        for i in range(cfg.n_conv_per_level):
+            xs = conv_elu(xs, f"dec{lv}_{i}")
+        xs = bn(xs, f"bn_up{lv}")
+    return _conv_halo(xs, [p["head_w"] for p in params], [p["head_b"] for p in params],
+                      compute_dtype)
+
+
 def _s2d_in(x: torch.Tensor) -> torch.Tensor:
     """Dense (N, D, H, W, C) -> in-form (N, D/2+1, H/2+1, W/2+1, 8C).
 
@@ -517,7 +588,7 @@ def _params_cached(params: Dict, cfg: UNetConfig, device: torch.device,
     value = (to_torch_params(params, device, dtype),
              to_torch_s2d_params(s2d_level0_params(params, cfg), device, dtype)
              if s2d else None)
-    if len(_PARAMS_CACHE) >= 2:
+    if len(_PARAMS_CACHE) >= 4:
         _PARAMS_CACHE.pop(next(iter(_PARAMS_CACHE)))
     _PARAMS_CACHE[key] = (params, cfg, value)
     return value
@@ -541,7 +612,7 @@ def segment_volume(params: Dict, data: np.ndarray,
                    cfg: Optional[UNetConfig] = None,
                    labels: Optional[Sequence[int]] = None,
                    compute_dtype: Optional[torch.dtype] = None,
-                   use_s2d=None, device="cuda") -> np.ndarray:
+                   use_s2d=None, mesh=None, device="cuda") -> np.ndarray:
     """Segment one (z, y, x) intensity volume -> int16 SynthSeg label map.
 
     Intensities are robust-max normalized on the host (SynthSeg's
@@ -552,11 +623,23 @@ def segment_volume(params: Dict, data: np.ndarray,
     (``F.conv3d`` S2D convs) or ``"kernel"`` (the 192-channel S2D convs
     through ``conv_s2d``'s hand-written CUDA kernel on a GPU); None reads
     FT2_UNET_S2D (see _resolve_use_s2d). ``device`` defaults to "cuda" and
-    raises without a GPU."""
-    dev = resolve_device(device)
+    raises without a GPU.
+
+    ``mesh`` (a ``parallel.VoxelMesh``) replaces ``device``: the padded
+    volume's z axis is split into one slab per mesh device, with the
+    weights on each, and the convs exchange halos
+    (:func:`unet_apply_sharded`); the labels are the unsharded forward's.
+    z is zero-padded up to a multiple of lcm(divisor, mesh size), as the
+    reference does: where that exceeds the single-device padding, labels
+    near the far z face see more zero context. The S2D program is not laid
+    out for slabs: ``use_s2d`` with a mesh raises."""
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     if compute_dtype is None:
         compute_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     use_s2d = _resolve_use_s2d(use_s2d)
+    if mesh is not None and use_s2d:
+        raise ValueError("use_s2d and mesh are mutually exclusive (the S2D "
+                         "rearranges are not laid out for spatial sharding)")
     if cfg is None:
         cfg = config_from_params(params)
     if use_s2d and (cfg.kernel != 3 or cfg.n_levels < 2):
@@ -570,7 +653,14 @@ def segment_volume(params: Dict, data: np.ndarray,
     scale = np.percentile(data[data > 0], 99.5) if (data > 0).any() else 1.0
     norm = np.clip(data / max(scale, 1e-6), 0.0, 1.0)
     padded, crop = pad_to_divisor(norm, cfg.divisor)
+    if mesh is not None:
+        # z must also split evenly over the mesh; the crop strips the extra
+        divisor = math.lcm(cfg.divisor, mesh.size)
+        padded = np.pad(padded, ((0, -padded.shape[0] % divisor), (0, 0), (0, 0)))
     x = torch.from_numpy(np.ascontiguousarray(padded, np.float32))[None, ..., None].to(dev)
+    if mesh is not None:
+        return _segment_sharded(params, x, cfg, compute_dtype, mesh, np.asarray(labels, np.int16),
+                                crop)
     tp, ts2d = _params_cached(params, cfg, dev, compute_dtype, bool(use_s2d))
     with torch.inference_mode():
         if use_s2d:
@@ -580,4 +670,21 @@ def segment_volume(params: Dict, data: np.ndarray,
             cls = torch.argmax(unet_apply(tp, x, cfg, compute_dtype), dim=-1)
         cls = cls[0].cpu().numpy()
     lut = np.asarray(labels, np.int16)
+    return lut[cls[crop]]
+
+
+def _segment_sharded(params: Dict, x: torch.Tensor, cfg: UNetConfig, compute_dtype, mesh,
+                     lut: np.ndarray, crop) -> np.ndarray:
+    """segment_volume's forward over a mesh: one z slab of the padded
+    volume ``x`` (on the mesh's first device) per shard that gets one, the
+    class argmax per slab, gathered on the first device."""
+    bounds = _slab_bounds(x.shape[1], cfg.divisor, mesh.size)
+    devs = [d for d, a, b in zip(mesh.devices, bounds, bounds[1:]) if b > a]
+    spans = [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+    with torch.inference_mode():
+        xs = [x[:, a:b].to(d) for (a, b), d in zip(spans, devs)]
+        tps = [_params_cached(params, cfg, d, compute_dtype, False)[0] for d in devs]
+        logits = unet_apply_sharded(tps, xs, cfg, compute_dtype)
+        cls = torch.cat([torch.argmax(lg, dim=-1).to(x.device) for lg in logits], dim=1)
+        cls = cls[0].cpu().numpy()
     return lut[cls[crop]]

@@ -24,6 +24,12 @@ in float64 on the host and rounded once), NaN-propagating clips, IEEE
 division — so they agree with the reference to float32 rounding, and
 converged voxels freeze, so results do not depend on how voxels are
 grouped.
+
+``fit_fused(strategy='twophase')`` is the reference's two-phase driver over
+the same kernels (:class:`_TwoPhase`): a short pass over every voxel, then
+refits from scratch of the blocks that still hold an unconverged voxel.
+Because voxels freeze, each voxel it handles carries the bits of the
+default single pass; ``parallel.mesh`` shards either over several devices.
 """
 
 from __future__ import annotations
@@ -116,7 +122,7 @@ def resolve_varpro3(varpro3, model: str) -> bool:
 
 
 def resolve_strategy(strategy: str) -> str:
-    """'auto' -> 'single', for every model.
+    """'auto' -> 'single', for every model; 'single' and 'twophase' as given.
 
     'single' runs one pass over every voxel. The reference's 'auto' picks
     the same for gaussian, for rician with prefix pruning and for the
@@ -130,15 +136,30 @@ def resolve_strategy(strategy: str) -> str:
     instead: the gaussian and gaussian_rician VARPRO fits and the rician
     continuation push the voxels still running after their head into a
     worklist that a persistent tail kernel drains, resuming the exact
-    carried state. So 'auto' gives 'single'; 'twophase' is not ported and
-    raises."""
-    if strategy == "twophase":
-        raise NotImplementedError(
-            "strategy 'twophase' (refit of the straggler tail) is not ported: "
-            "the kernels compact their stragglers themselves, see ROADMAP Queue 1 item 3")
-    if strategy not in ("single", "auto"):
+    carried state. So 'auto' gives 'single'; 'twophase' is there for the
+    reference's API (see :func:`_fit_twophase`)."""
+    if strategy not in ("single", "auto", "twophase"):
         raise ValueError(f"unknown strategy {strategy!r}")
-    return "single"
+    return "twophase" if strategy == "twophase" else "single"
+
+
+def resolve_tail_block(tail_block, model: str = "gaussian") -> int:
+    """None -> the per-model straggler-compaction granularity of
+    'twophase' (the JAX package's ``resolve_tail_block``): 8 consecutive
+    voxels for gaussian, 1 (voxel-granular) for the 3-parameter models."""
+    if tail_block is None:
+        return 8 if model == "gaussian" else 1
+    return int(tail_block)
+
+
+def resolve_tail_frac(tail_frac, tail_block: int) -> float:
+    """None -> the per-granularity straggler-buffer capacity of 'twophase'
+    as a fraction of the batch's blocks (the JAX package's
+    ``resolve_tail_frac``): p% scattered stragglers touch up to
+    ~p * tail_block % of blocks, so blocks budget more than voxels."""
+    if tail_frac is None:
+        return 0.0625 if tail_block == 1 else 0.25
+    return float(tail_frac)
 
 
 # ------------------------------------------------------------ host tables
@@ -1055,11 +1076,172 @@ def _fit3_pruned(signal: torch.Tensor, model, te, lo, hi, guess, *,
                       max_iters=max_iters - prefix_iters, **kw)
 
 
+def _fit_pass(signal: torch.Tensor, model: str, te_t, lo_t, hi_t, guess_t, *,
+              max_iters: int, ftol: float, gtol: float, no_prior: bool,
+              full_budget: bool, prefix3: int, varpro3: bool):
+    """One pass of the model's fit over every row of ``signal``, on its
+    device: (x (N, P), fun, converged (bool), n_iter (int32))."""
+    kw = dict(max_iters=int(max_iters), ftol=float(ftol), gtol=float(gtol))
+    if model == "gaussian":
+        k, t2, f, conv, nit = _gauss_fit(
+            signal, te_t, lo_t, hi_t, no_prior=bool(no_prior),
+            full_budget=bool(full_budget), stall_iters=_STALL_ITERS,
+            stall_tol=max(float(ftol), 1e-3), **kw)
+        return torch.stack([k, t2], dim=1), f, conv, nit
+    if varpro3:
+        params, stats = _gr_varpro_fit(
+            signal, te_t, lo_t, hi_t, guess_t, full_budget=bool(full_budget),
+            stall_iters=_STALL_ITERS, stall_tol=max(float(ftol), 1e-3), **kw)
+    else:
+        kw["stall_tol"] = max(float(ftol), 1e-6)
+        if prefix3:
+            params, stats = _fit3_pruned(signal, model, te_t, lo_t, hi_t, guess_t,
+                                         prefix_iters=prefix3, **kw)
+        else:
+            params, stats = _fit3(signal, model, te_t, lo_t, hi_t, guess_t, **kw)
+    return params.t(), stats[0], stats[1] > 0.5, stats[2].to(torch.int32)
+
+
+class _TwoPhase:
+    """The reference's 'twophase' driver (pallas_fit._fit_fused_impl) over
+    this module's kernels, one step at a time so that a sharded caller can
+    issue every shard's launches before it waits on any of them.
+
+    :meth:`phase1` runs every voxel for ``phase1_iters`` iterations (the
+    multistart prefix clamped to that budget, as the reference clamps it).
+    Each :meth:`round` then reads from the device how many blocks of
+    ``tail_block`` consecutive voxels still hold an unconverged voxel (the
+    call's only host read: 4 bytes), and if any, gathers a buffer of
+    ``cap_b`` of them in a stable order, refits it from scratch with the
+    full budget in one pass, scatters the results back and marks those
+    blocks handled. A refit block restarts from the same start as the
+    single pass and every voxel freezes once it converges, so each handled
+    voxel ends bitwise equal to strategy 'single'. :meth:`result` counts
+    in ``n_overflow`` the unconverged voxels of blocks that no round
+    covered; they keep their phase-1 result."""
+
+    def __init__(self, signal: torch.Tensor, fit_pass, *, phase1_iters: int,
+                 max_iters: int, prefix3: int, tail_frac: float, tail_rounds: int,
+                 tail_block: int):
+        self.fit_pass = fit_pass
+        self.phase1_iters, self.max_iters, self.prefix3 = phase1_iters, max_iters, prefix3
+        self.rounds_left, self.bc = int(tail_rounds), int(tail_block)
+        n, t = signal.shape
+        self.n = n
+        self.n_blk_pad = -(-n // self.bc) * self.bc
+        self.nbk = self.n_blk_pad // self.bc
+        quantum = 128 // math.gcd(self.bc, 128)
+        self.cap_b = max(quantum, -(-int(self.nbk * tail_frac) // quantum) * quantum)
+        sig = signal
+        if self.n_blk_pad != n:
+            sig = torch.nn.functional.pad(sig, (0, 0, 0, self.n_blk_pad - n), value=1.0)
+        self.sig_blk = sig.reshape(self.nbk, self.bc * t)
+
+    def phase1(self) -> None:
+        p1 = self.prefix3 if self.prefix3 < self.phase1_iters else 0
+        x, f, conv, nit = self.fit_pass(self.sig_blk.reshape(self.n_blk_pad, -1),
+                                        max_iters=self.phase1_iters, prefix3=p1)
+        self.p_dim = x.shape[1]
+        # per voxel [x_0..x_{P-1}, fun, converged, n_iter] as float32 columns
+        self.state = torch.cat([x, f[:, None], conv[:, None].to(torch.float32),
+                                nit[:, None].to(torch.float32)], dim=1)
+        # pad voxels (>= n) carry filler fits: handled, so the last partial
+        # block cannot take capacity
+        pad = torch.arange(self.n_blk_pad, device=x.device) >= self.n
+        self.handled = (conv | pad).reshape(self.nbk, self.bc).all(dim=1)
+
+    def round(self) -> bool:
+        """One compaction + refit round; False (and nothing launched) once
+        the rounds are spent or every block is handled."""
+        if self.rounds_left <= 0:
+            return False
+        self.rounds_left -= 1
+        n_left = int((~self.handled).sum())
+        if n_left == 0:
+            self.rounds_left = 0
+            return False
+        from .solver import _tail_partition
+
+        bidx, n_tail = _tail_partition(self.handled, self.cap_b)
+        m = self.cap_b * self.bc
+        x, f, conv, nit = self.fit_pass(self.sig_blk[bidx].reshape(m, -1),
+                                        max_iters=self.max_iters, prefix3=self.prefix3)
+        upd = torch.cat([x, f[:, None], conv[:, None].to(torch.float32),
+                         nit[:, None].to(torch.float32)], dim=1)
+        # slots at or past n_tail go to a spare row nbk, dropped after
+        valid = torch.arange(self.cap_b, device=bidx.device) < n_tail
+        safe = torch.where(valid, bidx, torch.full_like(bidx, self.nbk))
+        width = self.bc * upd.shape[1]
+        state = torch.cat([self.state.reshape(self.nbk, width), self.state.new_zeros(1, width)])
+        state.index_copy_(0, safe, upd.reshape(self.cap_b, width))
+        self.state = state[:self.nbk].reshape(self.n_blk_pad, -1)
+        handled = torch.cat([self.handled, self.handled.new_ones(1)])
+        handled[safe] = True   # a refit block got the full budget: never again
+        self.handled = handled[:self.nbk]
+        return True
+
+    def result(self) -> FitResult:
+        p = self.p_dim
+        conv = self.state[:, p + 1] > 0.5
+        left = (~self.handled)[:, None].expand(self.nbk, self.bc).reshape(self.n_blk_pad)
+        in_range = torch.arange(self.n_blk_pad, device=conv.device) < self.n
+        n_overflow = (left & ~conv & in_range).sum(dtype=torch.int32)
+        n = self.n
+        return FitResult(x=self.state[:n, :p], fun=self.state[:n, p], converged=conv[:n],
+                         n_iter=self.state[:n, p + 2].to(torch.int32), n_overflow=n_overflow)
+
+
+def _fit_twophase(signal, fit_pass, **kw) -> FitResult:
+    tp = _TwoPhase(signal, fit_pass, **kw)
+    tp.phase1()
+    while tp.round():
+        pass
+    return tp.result()
+
+
+def resolve_fused(te, lo, hi, *, model: str, guess, max_iters: int, ftol: float,
+                  gtol: float, no_prior: bool, strategy: str, full_budget: bool, prefix3,
+                  varpro3, phase1_iters: int, tail_frac, tail_rounds: int, tail_block):
+    """Validate and resolve :func:`fit_fused`'s arguments: (a function that
+    fits one batch on its device, the resolved strategy, the 'twophase'
+    keywords). Shared with ``parallel.mesh.fit_fused_sharded``, so both
+    reject bad input identically."""
+    te_t, lo_t, hi_t, guess_t = validate_fused_args(model, te, lo, hi, guess, no_prior)
+    tail_block = resolve_tail_block(tail_block, model)
+    tail_frac = resolve_tail_frac(tail_frac, tail_block)
+    if tail_block < 1 or 128 % tail_block:   # 'twophase' gathers whole blocks
+        raise ValueError(f"tail_block must divide 128; got {tail_block}")
+    prefix3 = resolve_prefix3(prefix3, max_iters)
+    varpro3 = resolve_varpro3(varpro3, model)
+    strategy = resolve_strategy(strategy)
+
+    def fit_pass(batch, *, max_iters, prefix3):
+        return _fit_pass(batch, model, te_t, lo_t, hi_t, guess_t, max_iters=max_iters,
+                         ftol=ftol, gtol=gtol, no_prior=no_prior, full_budget=full_budget,
+                         prefix3=prefix3, varpro3=varpro3)
+
+    two = dict(phase1_iters=int(phase1_iters), max_iters=int(max_iters), prefix3=prefix3,
+               tail_frac=tail_frac, tail_rounds=int(tail_rounds), tail_block=tail_block)
+    return fit_pass, strategy, two
+
+
+def fit_resolved(signal: torch.Tensor, te, fit_pass, strategy: str, two: dict) -> FitResult:
+    """One batch through a :func:`resolve_fused` configuration, on the
+    batch's device and current stream, without waiting for the device
+    (but for the 'twophase' rounds' reads)."""
+    _check_signal(signal, te)
+    if strategy == "twophase":
+        return _fit_twophase(signal, fit_pass, **two)
+    x, f, conv, nit = fit_pass(signal, max_iters=two["max_iters"], prefix3=two["prefix3"])
+    return FitResult(x=x, fun=f, converged=conv, n_iter=nit, n_overflow=0)
+
+
 def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
               max_iters: int = 60, ftol: float = 1e-9, gtol: float = 0.0,
               no_prior: bool = False, strategy: str = "auto",
               full_budget: bool = False, prefix3=None, varpro3=None,
-              sync: bool = True, device="cuda") -> FitResult:
+              phase1_iters: int = 10, tail_frac=None, tail_rounds: int = 2,
+              tail_block=None, sync: bool = True, device="cuda") -> FitResult:
     """Fused fit of every voxel in the batch.
 
     Args:
@@ -1081,9 +1263,11 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
         no_prior: gaussian only — per-voxel k lower bound = the voxel's
             signal at the shortest TE (reference run_t2mapping.py:243-245);
             pass the scalar no-prior box in lo/hi (k upper 10000, T2 10..2000).
-        strategy: 'single' or 'auto' (see resolve_strategy: always one
-            call; the kernels compact their own stragglers); 'twophase'
-            raises.
+        strategy: 'single' (one pass; the kernels compact their own
+            stragglers), 'twophase' (a ``phase1_iters`` pass over every
+            voxel, then up to ``tail_rounds`` refits of the blocks that
+            still hold an unconverged voxel; see :class:`_TwoPhase`) or
+            'auto' = 'single' (see resolve_strategy).
         full_budget: gaussian and VARPRO only — run every voxel to
             ``max_iters`` instead of stopping it once converged (a
             measurement instrument; results are identical).
@@ -1092,42 +1276,30 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
             None = FT2_FIT3_PREFIX or 4; 0 = every start runs the full budget.
         varpro3: gaussian_rician only — the VARPRO kernel (see
             resolve_varpro3). None = FT2_FIT3_VARPRO or on.
+        phase1_iters, tail_frac, tail_rounds, tail_block: 'twophase' only,
+            the reference's knobs and defaults: the first pass's budget;
+            the refit buffer's capacity as a fraction of the batch's blocks
+            (None: resolve_tail_frac); the most refit rounds; the block of
+            consecutive voxels that is refit together (must divide 128;
+            None: resolve_tail_block).
         sync: wait for the device before returning.
         device: 'cuda' (default) runs the CUDA kernels, 'cpu' the plain
             versions.
 
     Returns:
         FitResult with x (N, P), fun, converged (bool), n_iter (int32) and
-        n_overflow = 0.
+        n_overflow: 0 for 'single'; for 'twophase' a () int32 tensor
+        counting the unconverged voxels that no refit round covered.
+        'single' reads nothing from the device; 'twophase' reads 4 bytes
+        before each round it may run (at most ``tail_rounds`` reads).
     """
-    te_t, lo_t, hi_t, guess_t = validate_fused_args(model, te, lo, hi, guess,
-                                                    no_prior)
-    prefix3 = resolve_prefix3(prefix3, max_iters)
-    varpro3 = resolve_varpro3(varpro3, model)
-    resolve_strategy(strategy)
-    dev = resolve_device(device)
-    signal = torch.as_tensor(signal, dtype=torch.float32, device=dev)
-    kw = dict(max_iters=int(max_iters), ftol=float(ftol), gtol=float(gtol))
-    if model == "gaussian":
-        k, t2, f, conv, nit = _gauss_fit(
-            signal, te_t, lo_t, hi_t, no_prior=bool(no_prior),
-            full_budget=bool(full_budget), stall_iters=_STALL_ITERS,
-            stall_tol=max(float(ftol), 1e-3), **kw)
-        x, stats = torch.stack([k, t2], dim=1), None
-    elif varpro3:
-        params, stats = _gr_varpro_fit(
-            signal, te_t, lo_t, hi_t, guess_t, full_budget=bool(full_budget),
-            stall_iters=_STALL_ITERS, stall_tol=max(float(ftol), 1e-3), **kw)
-    else:
-        kw["stall_tol"] = max(float(ftol), 1e-6)
-        if prefix3:
-            params, stats = _fit3_pruned(signal, model, te_t, lo_t, hi_t, guess_t,
-                                         prefix_iters=prefix3, **kw)
-        else:
-            params, stats = _fit3(signal, model, te_t, lo_t, hi_t, guess_t, **kw)
-    if stats is not None:
-        x, f = params.t(), stats[0]
-        conv, nit = stats[1] > 0.5, stats[2].to(torch.int32)
-    if sync and dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()
-    return FitResult(x=x, fun=f, converged=conv, n_iter=nit, n_overflow=0)
+    fit_pass, strategy, two = resolve_fused(
+        te, lo, hi, model=model, guess=guess, max_iters=max_iters, ftol=ftol, gtol=gtol,
+        no_prior=no_prior, strategy=strategy, full_budget=full_budget, prefix3=prefix3,
+        varpro3=varpro3, phase1_iters=phase1_iters, tail_frac=tail_frac,
+        tail_rounds=tail_rounds, tail_block=tail_block)
+    signal = torch.as_tensor(signal, dtype=torch.float32, device=resolve_device(device))
+    result = fit_resolved(signal, te, fit_pass, strategy, two)
+    if sync and signal.device.type == "cuda":
+        torch.cuda.current_stream(signal.device).synchronize()
+    return result

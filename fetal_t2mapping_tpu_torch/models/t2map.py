@@ -107,6 +107,41 @@ def _pack_outputs(x, res, converged, n_iter, fun) -> torch.Tensor:
     return torch.stack(cols, dim=0)
 
 
+def _fit_batch_mesh(cfg: FitConfig, batch_dev: torch.Tensor, te_dev: torch.Tensor, mesh):
+    """The fit of the gathered batch (on the mesh's first device) with its
+    voxel axis sharded over ``mesh`` (the reference's ``_fit_batch_mesh``):
+    the fused-fit configurations through ``parallel.fit_fused_sharded``,
+    the others (no-prior 3-parameter, ``loglinear_init=False``) through the
+    sharded multistart from the log-linear or guess start (plus the grid
+    basin and the guess for the 3-parameter models). The batch's rows are
+    topped up to a multiple of 128 per device by repeating the last row;
+    the result keeps every row, the caller reads the first n."""
+    from ..parallel.mesh import fit_batch_multistart_sharded, fit_fused_sharded
+
+    q = mesh.size * 128
+    n_rows = batch_dev.shape[0]
+    n_pad = -(-n_rows // q) * q
+    if n_pad != n_rows:
+        batch_dev = torch.cat([batch_dev, batch_dev[-1:].expand(n_pad - n_rows, -1)])
+    if cfg.loglinear_init and (cfg.prior or cfg.model == "gaussian"):
+        lo_f, hi_f, np_flag = _fused_bounds(cfg)
+        result = fit_fused_sharded(batch_dev, te_dev.tolist(), lo_f, hi_f, mesh,
+                                   model=cfg.model, guess=cfg.initial_guess,
+                                   max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol,
+                                   no_prior=np_flag, sync=False)
+        return result, batch_dev
+    batch_np = batch_dev.cpu().numpy()
+    lo, hi = (torch.from_numpy(b).to(batch_dev.device) for b in _bounds_for(cfg, batch_np))
+    x0 = _init_for(cfg, batch_dev, te_dev, lo, hi)
+    starts = [x0]
+    if cfg.n_params == 3:
+        starts += [grid_init(batch_dev, te_dev, lo, hi), _guess_start(cfg, lo, hi)]
+    result = fit_batch_multistart_sharded(batch_dev, te_dev, torch.stack(starts), lo, hi, mesh,
+                                          model=cfg.model, max_iters=cfg.max_iters,
+                                          ftol=cfg.ftol, gtol=cfg.gtol)
+    return result, batch_dev
+
+
 def fit_stack(
     stack: EchoStack,
     cfg: FitConfig,
@@ -114,6 +149,7 @@ def fit_stack(
     trace_samples: int = 50,
     seed: int = 0,
     granule: int = 8192,
+    mesh=None,
     device="cuda",
 ) -> T2FitOutput:
     """Fit every masked voxel of the stack on ``device`` and assemble maps.
@@ -126,9 +162,17 @@ def fit_stack(
     bound inside the fused fit. With ``loglinear_init=False`` every model
     runs the two-phase solver from the protocol guess clipped into each
     voxel's box (reference t2map.py:221-225), and the traces start there
-    too; ``n_overflow`` counts the gathered rows its refit had no room for."""
+    too; ``n_overflow`` counts the gathered rows its refit had no room for.
+
+    ``mesh`` (a ``parallel.VoxelMesh``) shards the voxel axis of the fit
+    over the mesh's devices (the reference's ``Pool(processes=20)``
+    fan-out, run_t2mapping.py:442-443) and replaces ``device``: the batch,
+    the residual and the traces live on the mesh's first device. The
+    fused-fit configurations give maps bitwise equal to the single-device
+    path; as in the reference, the no-prior 3-parameter and
+    ``loglinear_init=False`` configurations run the sharded multistart."""
     check_model(cfg.model)
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     batch, flat_idx, n = stack.gather(granule=granule)
     te = np.asarray(stack.tes, np.float32)
 
@@ -142,7 +186,9 @@ def fit_stack(
     batch_dev = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(dev)
     te_dev = torch.from_numpy(te).to(dev)
     solver_kw = dict(model=cfg.model, max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol)
-    if not cfg.loglinear_init or (cfg.n_params == 3 and not cfg.prior):
+    if mesh is not None:
+        result, batch_dev = _fit_batch_mesh(cfg, batch_dev, te_dev, mesh)
+    elif not cfg.loglinear_init or (cfg.n_params == 3 and not cfg.prior):
         # the batched solvers, on (N, P) per-voxel boxes
         lo, hi = (torch.from_numpy(b).to(dev) for b in _bounds_for(cfg, batch))
         if not cfg.loglinear_init:

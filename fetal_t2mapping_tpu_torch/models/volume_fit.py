@@ -26,7 +26,8 @@ the mask fraction (``resolve_compact``), at crossovers measured on an H100
 (``chip_smoke.py`` phase 13; ``PERF.md``). Masked blocks beyond the
 capacity are left unfitted (map 0, converged False) and their masked
 voxels counted in ``n_overflow``. Nothing here reads the device from the
-host, except the optional capacity check (one 4-byte read).
+host, except the optional capacity check (one 4-byte read) and, with
+``strategy='twophase'``, the fit's rounds (one 4-byte read each).
 """
 
 from __future__ import annotations
@@ -138,10 +139,11 @@ def _filler(te, lo, hi, guess, dev: torch.device) -> torch.Tensor:
 
 def _fit(batch: torch.Tensor, fit_kw: dict):
     """fit_fused on a device batch, without waiting for the device:
-    (t2, k, sigma, fun, converged, n_iter), each (N,)."""
+    (t2, k, sigma, fun, converged, n_iter), each (N,), and the fit's own
+    n_overflow (0 for 'single'; a () int32 tensor for 'twophase')."""
     res = fit_fused(batch, sync=False, device=batch.device, **fit_kw)
     sigma = res.x[:, 2] if res.x.shape[1] == 3 else torch.zeros_like(res.x[:, 0])
-    return res.x[:, 1], res.x[:, 0], sigma, res.fun, res.converged, res.n_iter
+    return (res.x[:, 1], res.x[:, 0], sigma, res.fun, res.converged, res.n_iter), res.n_overflow
 
 
 def _fit_dense(signal, sel, filler, fit_kw) -> VolumeFitResult:
@@ -150,7 +152,7 @@ def _fit_dense(signal, sel, filler, fit_kw) -> VolumeFitResult:
     zyx = signal.shape[:3]
     flat = signal.reshape(-1, signal.shape[3])
     batch = torch.where(sel[:, None], flat, filler)
-    t2, k, sigma, fun, conv, nit = _fit(batch, fit_kw)
+    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, fit_kw)
     selz = sel.reshape(zyx)
 
     def chan(v):
@@ -160,7 +162,9 @@ def _fit_dense(signal, sel, filler, fit_kw) -> VolumeFitResult:
         t2=chan(t2), k=chan(k), sigma=chan(sigma), fun=chan(fun),
         converged=conv.reshape(zyx) & selz, n_iter=chan(nit),
         n_masked=sel.sum(dtype=torch.int32),
-        n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device))
+        # no capacity to overflow; the filler converges at once, so what
+        # a 'twophase' fit could not refit is masked voxels
+        n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device) + inner_overflow)
 
 
 def _fit_compact(signal, sel, filler, fit_kw, *, mask_frac: float,
@@ -184,7 +188,7 @@ def _fit_compact(signal, sel, filler, fit_kw, *, mask_frac: float,
     batch = flat.reshape(nb, block * t_axis)[bidx].reshape(blk_cap, block, t_axis)
     mb = sel.reshape(nb, block)[bidx]                             # (blk_cap, block)
     batch = torch.where(mb[..., None], batch, filler).reshape(blk_cap * block, t_axis)
-    t2, k, sigma, fun, conv, nit = _fit(batch, fit_kw)
+    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, fit_kw)
 
     valid_blk = torch.arange(blk_cap, device=signal.device) < nb_sel
     keep = mb & valid_blk[:, None]
@@ -202,7 +206,9 @@ def _fit_compact(signal, sel, filler, fit_kw, *, mask_frac: float,
     return VolumeFitResult(
         t2=chan(0), k=chan(1), sigma=chan(2), fun=chan(3),
         converged=chan(4) > 0.5, n_iter=chan(5).to(torch.int32),
-        n_masked=n_masked, n_overflow=n_masked - keep.sum(dtype=torch.int32))
+        # masked voxels beyond the buffer, plus those the fit's own
+        # 'twophase' rounds could not refit
+        n_masked=n_masked, n_overflow=n_masked - keep.sum(dtype=torch.int32) + inner_overflow)
 
 
 def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
@@ -210,7 +216,8 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
                ftol: float = 1e-9, gtol: float = 0.0, no_prior: bool = False,
                mask_frac: float = 0.25, block: int = 32, compact="auto",
                check_capacity: bool = True, prefix3=None, varpro3=None,
-               strategy: str = "auto", device="cuda") -> VolumeFitResult:
+               strategy: str = "auto", phase1_iters: int = 10, tail_frac=None,
+               device="cuda") -> VolumeFitResult:
     """Fit every masked voxel of a (Z, Y, X, T) echo volume on the device.
 
     Args:
@@ -218,8 +225,10 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             ``device`` if it is not there.
         mask: (Z, Y, X) boolean / {0, 1} mask.
         te / lo / hi / model / guess / max_iters / ftol / gtol / no_prior /
-            prefix3 / varpro3 / strategy: as in ``fused_fit.fit_fused``
-            ('twophase' raises there).
+            prefix3 / varpro3 / strategy / phase1_iters / tail_frac: as in
+            ``fused_fit.fit_fused`` (the 'twophase' rounds at their default
+            count and block; their host reads are the only ones the call
+            makes besides ``check_capacity``'s).
         mask_frac: static capacity of the compacted buffer as a fraction of
             the volume. Partially masked blocks take whole-block capacity,
             so budget above the exact masked fraction (the capacity warning
@@ -265,7 +274,8 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
                 f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=2)
     fit_kw = dict(te=te_t, lo=lo_t, hi=hi_t, model=model, guess=guess_t,
                   max_iters=max_iters, ftol=ftol, gtol=gtol, no_prior=no_prior,
-                  strategy=strategy, prefix3=prefix3, varpro3=varpro3)
+                  strategy=strategy, prefix3=prefix3, varpro3=varpro3,
+                  phase1_iters=phase1_iters, tail_frac=tail_frac)
     sel = mask.reshape(n) > 0
     filler = _filler(te_t, lo_t, hi_t, guess_t, dev)
     if not compact:

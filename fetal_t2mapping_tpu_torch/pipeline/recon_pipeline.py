@@ -25,6 +25,7 @@ denoise chain stays on the device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import logging
 import os
@@ -397,8 +398,8 @@ def build_phantom_labels(metadata: List[Dict], bids_path: str,
 def process_qmri(bids_path: str, metadata: List[Dict], *, in_vivo: bool, low_field: bool,
                  synthseg: Optional[SynthSegRunner] = None,
                  seeds_key: str = C.DEFAULT_PHANTOM_SEEDS_KEY,
-                 registration_kwargs: Optional[dict] = None, prewarm: bool = False,
-                 device="cuda"):
+                 registration_kwargs: Optional[dict] = None, mesh=None,
+                 prewarm: bool = False, device="cuda"):
     """Full stage-2 pipeline (reference run_qmri_reconstruction.py:5-92) on
     ``device``. Each stage's wall time lands in ``utils.profiling.profiler``
     under ``recon.*`` (and ``fuse.*`` inside the fusion, ``io.*`` in the
@@ -414,7 +415,18 @@ def process_qmri(bids_path: str, metadata: List[Dict], *, in_vivo: bool, low_fie
     (CUDA context, library handles, allocator growth) overlap the opening
     reads. Results are the same with or without it. Returns the
     :class:`~..utils.prewarm.PrewarmHandle` when a prewarm started, else
-    None."""
+    None.
+
+    ``mesh`` (a ``parallel.VoxelMesh`` whose first device is ``device``)
+    spreads the registrations and the torch-mode U-Net over its devices:
+    every rigid/affine solve splits its metric samples
+    (``recon.registration``), and ``SynthSegRunner(mode="torch")`` splits
+    the U-Net's z axis (``labels.unet3d``)."""
+    if mesh is not None:
+        registration_kwargs = dict(registration_kwargs or {})
+        registration_kwargs.setdefault("mesh", mesh)
+        if synthseg is not None and getattr(synthseg, "mesh", None) is None:
+            synthseg = dataclasses.replace(synthseg, mesh=mesh)
     handle = None
     if prewarm and in_vivo:
         handle = _start_prewarm(bids_path, metadata, synthseg, registration_kwargs, device)

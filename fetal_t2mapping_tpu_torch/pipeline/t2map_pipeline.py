@@ -108,10 +108,12 @@ def process_t2maps(
     sim: str = "0",
     make_plots: bool = True,
     prefetch: bool = True,
+    mesh=None,
     device="cuda",
 ) -> list:
     """Fit every (prj, sub, ses) in the metadata rows on ``device``; returns
-    per-session summaries.
+    per-session summaries. ``mesh`` (a ``parallel.VoxelMesh``) shards each
+    session's voxel fit over its devices instead (see ``fit_stack``).
 
     Args mirror the reference CLI semantics: ``phantom`` loads sphere labels
     and writes the ROI CSV; ``fast`` restricts the fit to labeled voxels
@@ -148,7 +150,8 @@ def process_t2maps(
             summaries.append(_fit_one(job, recons, masks, label_vol, bids_path,
                                       cfg, phantom=phantom, low_field=low_field,
                                       fast=fast, sim=sim, plotter=plotter,
-                                      plot_futures=plot_futures, device=device))
+                                      plot_futures=plot_futures, mesh=mesh,
+                                      device=device))
     except BaseException:
         # the fit loop's exception is the PRIMARY failure: cleanup errors
         # below are logged, not raised, so they never replace it
@@ -210,7 +213,7 @@ def _drain(futures: List[Future]) -> None:
 def _fit_one(job: dict, recons, masks, label_vol, bids_path: str,
              cfg: C.FitConfig, *, phantom: bool, low_field: bool, fast: bool,
              sim: str, plotter: Optional[ThreadPoolExecutor],
-             plot_futures: List[Future], device) -> dict:
+             plot_futures: List[Future], mesh, device) -> dict:
     prj, sub, ses, acq = job["prj"], job["sub"], job["ses"], job["acq"]
     te_found = job["te_found"]
     stack = EchoStack.from_volumes(recons, masks, te_found)
@@ -227,7 +230,7 @@ def _fit_one(job: dict, recons, masks, label_vol, bids_path: str,
              prj, sub, ses, stack.grid_shape, int(stack.mask.sum()),
              te_found, cfg.model)
     with profiler.stage("t2map.fit", items=int(stack.mask.sum())):
-        out = fit_stack(stack, cfg, device=device)
+        out = fit_stack(stack, cfg, mesh=mesh, device=device)
     log.info("fit done in %.3f s (%.0f voxels/s)", out.fit_seconds,
              out.n_voxels / max(out.fit_seconds, 1e-9))
 

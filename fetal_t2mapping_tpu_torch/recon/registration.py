@@ -257,71 +257,126 @@ def _moving_level_operands(movings: Sequence[Volume], pyramids, level: int):
 
 
 # ------------------------------------------------------------------ metric
-def _make_metric_fn(kind: str, transform_fn, fixed_pts, fixed_vals, mov):
-    """metric(params (P, dof)) -> (P,) for P movings against one fixed image."""
+def _shard_samples(fixed_pts, fixed_vals, mesh):
+    """A level's fixed samples for a ``mesh`` of d devices: a count that d
+    does not divide is evenly resampled down to the largest multiple of d
+    (the reference's ``_shard_level_ops``; it drops < d samples of
+    thousands)."""
+    n, ndev = int(fixed_pts.shape[0]), mesh.size
+    if n < ndev:
+        raise ValueError(f"level has {n} metric samples for a {ndev}-device mesh")
+    if n % ndev:
+        keep = np.round(np.linspace(0, n - 1, num=n - n % ndev)).astype(np.int64)
+        keep = torch.as_tensor(keep, device=fixed_pts.device)
+        fixed_pts, fixed_vals = fixed_pts[keep], fixed_vals[keep]
+    return fixed_pts, fixed_vals
+
+
+def _make_metric_fn(kind: str, transform_fn, fixed_pts, fixed_vals, mov, mesh=None):
+    """metric(params (P, dof)) -> (P,) for P movings against one fixed image.
+
+    With ``mesh`` (a ``parallel.VoxelMesh``) the fixed-image sample axis is
+    split into one contiguous chunk per mesh device, and the moving
+    operands are replicated: each shard samples the movings at its points
+    and computes its partial sums on its own device (the NCC/MSE moments,
+    CR's binned moments, MI's joint histogram); the partial sums are added
+    on the first device, where the metric is formed, and autograd carries
+    the gradient back across the devices. Without a mesh the whole sample
+    set is one shard, so the single-device metric is the same code."""
     if kind not in ("ncc", "mse", "mi", "cr"):
         raise ValueError(kind)
-    dims = mov["dims"]
-    nz, ny, nx = dims[:, 0:1], dims[:, 1:2], dims[:, 2:3]
+    dev0 = fixed_pts.device
     n_all = float(fixed_pts.shape[0])
+    wf = None
     if kind in ("mi", "cr"):
         # the FIXED image's soft bin weights are constant across iterations:
         # 32 bins, Parzen window a Gaussian one bin wide (smooth, so the
         # metric is differentiable through the moving values)
         f_lo = fixed_vals.min()
         f_rng = torch.clamp(fixed_vals.max() - f_lo, min=1e-6)
-        centers = torch.arange(_N_BINS, dtype=torch.float32, device=fixed_vals.device)
+        centers = torch.arange(_N_BINS, dtype=torch.float32, device=dev0)
         zf = (fixed_vals - f_lo) / f_rng * (_N_BINS - 1)
         wf = torch.exp(-0.5 * torch.square(zf[:, None] - centers[None, :]))
         wf = wf / (wf.sum(1, keepdim=True) + 1e-12)                  # (N, B)
         nb = wf.sum(0)                                                # (B,)
-        m_lo, m_rng = mov["lo"][:, None], mov["rng"][:, None]
+    devices = (dev0,) if mesh is None else mesh.devices
+    m = int(fixed_pts.shape[0]) // len(devices)
+    shards = []
+    for i, dev in enumerate(devices):
+        sl = slice(i * m, (i + 1) * m)
+        sh = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in mov.items()}
+        sh.update(pts=fixed_pts[sl].to(dev), vals=fixed_vals[sl].to(dev),
+                  wf=None if wf is None else wf[sl].to(dev),
+                  centers=torch.arange(_N_BINS, dtype=torch.float32, device=dev))
+        dims = sh["dims"]
+        sh["nz"], sh["ny"], sh["nx"] = dims[:, 0:1], dims[:, 1:2], dims[:, 2:3]
+        shards.append(sh)
+
+    def total(parts):
+        """Partial sums added on the first device (one part: itself)."""
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p.to(dev0)
+        return out
+
+    def sample(sh, R, offset):
+        """(moving values (P, n), in-bounds (P, n)) at the shard's points."""
+        dev = sh["pts"].device
+        w = sh["pts"] @ R.to(dev).transpose(1, 2) + offset.to(dev)[:, None, :]   # (P, n, 3)
+        idx_xyz = (w - sh["origin"][:, None, :]) @ sh["inv"]
+        x, y, z = idx_xyz[..., 0], idx_xyz[..., 1], idx_xyz[..., 2]
+        vals = _trilinear(sh["flat"], sh["block"], z, y, x, base=sh["base"])
+        inb = ((z >= 0) & (z <= sh["nz"] - 1) & (y >= 0) & (y <= sh["ny"] - 1)
+               & (x >= 0) & (x <= sh["nx"] - 1)).to(torch.float32)
+        return vals, inb
 
     def metric(params):
         R, offset = transform_fn(params)
-        w = fixed_pts @ R.transpose(1, 2) + offset[:, None, :]        # (P, N, 3)
-        idx_xyz = (w - mov["origin"][:, None, :]) @ mov["inv"]
-        x, y, z = idx_xyz[..., 0], idx_xyz[..., 1], idx_xyz[..., 2]
-        vals = _trilinear(mov["flat"], mov["block"], z, y, x, base=mov["base"])
-        inb = ((z >= 0) & (z <= nz - 1) & (y >= 0) & (y <= ny - 1)
-               & (x >= 0) & (x <= nx - 1)).to(torch.float32)
-        n = torch.clamp(inb.sum(-1), min=1.0)
+        sampled = [sample(sh, R, offset) for sh in shards]
         if kind in ("mi", "cr"):
             # EVERY fixed sample contributes; out-of-bounds moving samples
             # read as background (0) rather than being dropped, so the
             # optimizer cannot game the metric by shrinking the overlap
-            vals_bg = vals * inb
+            vals_bg = [vals * inb for vals, inb in sampled]
             if kind == "cr":
                 # FLIRT's default cost (correlation ratio, Roche 1998):
                 # 1 - E_b[Var(moving | fixed-bin b)] / Var(moving)
-                s1 = vals_bg @ wf                                     # (P, B)
-                s2 = (vals_bg * vals_bg) @ wf
+                s1 = total([v @ sh["wf"] for v, sh in zip(vals_bg, shards)])        # (P, B)
+                s2 = total([(v * v) @ sh["wf"] for v, sh in zip(vals_bg, shards)])
                 mm_all = s1.sum(-1) / n_all
                 var_all = torch.clamp(s2.sum(-1) / n_all - mm_all ** 2, min=1e-12)
                 mean_b = s1 / torch.clamp(nb, min=1e-6)
                 var_b = torch.clamp(s2 / torch.clamp(nb, min=1e-6) - mean_b ** 2, min=0.0)
                 return (nb * var_b).sum(-1) / (n_all * var_all) - 1.0
-            # Parzen joint histogram (Mattes/Viola): one (B, N) x (N, B)
-            # matmul per pair
-            zm = (vals_bg - m_lo) / m_rng * (_N_BINS - 1)
-            wm = torch.exp(-0.5 * torch.square(zm[..., None] - centers))
-            wm = wm / (wm.sum(-1, keepdim=True) + 1e-12)              # (P, N, B)
-            joint = wf.T @ wm                                         # (P, B, B)
+            # Parzen joint histogram (Mattes/Viola): one (B, n) x (n, B)
+            # matmul per pair and shard
+            joints = []
+            for v, sh in zip(vals_bg, shards):
+                zm = (v - sh["lo"][:, None]) / sh["rng"][:, None] * (_N_BINS - 1)
+                wm = torch.exp(-0.5 * torch.square(zm[..., None] - sh["centers"]))
+                wm = wm / (wm.sum(-1, keepdim=True) + 1e-12)              # (P, n, B)
+                joints.append(sh["wf"].T @ wm)                            # (P, B, B)
+            joint = total(joints)
             joint = joint / torch.clamp(joint.sum((-2, -1)), min=1e-12)[:, None, None]
             pf = joint.sum(-1)
             pm = joint.sum(-2)
             mi = (joint * (torch.log(joint + 1e-12)
                            - torch.log(pf[:, :, None] * pm[:, None, :] + 1e-12))).sum((-2, -1))
             return -mi
-        mf = (fixed_vals * inb).sum(-1) / n
-        mm = (vals * inb).sum(-1) / n
-        df = (fixed_vals - mf[:, None]) * inb
-        dm = (vals - mm[:, None]) * inb
+        n = torch.clamp(total([inb.sum(-1) for _, inb in sampled]), min=1.0)
+        mf = total([(sh["vals"] * inb).sum(-1) for (_, inb), sh in zip(sampled, shards)]) / n
+        mm = total([(vals * inb).sum(-1) for vals, inb in sampled]) / n
+        diffs = []
+        for (vals, inb), sh in zip(sampled, shards):
+            dev = vals.device
+            diffs.append(((sh["vals"] - mf.to(dev)[:, None]) * inb,
+                          (vals - mm.to(dev)[:, None]) * inb))
         if kind == "ncc":
-            cov = (df * dm).sum(-1)
-            denom = torch.sqrt((df * df).sum(-1) * (dm * dm).sum(-1)) + 1e-8
+            cov = total([(df * dm).sum(-1) for df, dm in diffs])
+            denom = torch.sqrt(total([(df * df).sum(-1) for df, _ in diffs])
+                               * total([(dm * dm).sum(-1) for _, dm in diffs])) + 1e-8
             return -cov / denom
-        return torch.square(df - dm).sum(-1) / n
+        return total([torch.square(df - dm).sum(-1) for df, dm in diffs]) / n
 
     return metric
 
@@ -499,12 +554,9 @@ class RegistrationResult:
 def _register(fixed: Volume, movings: Sequence[Volume], *, mode: str, levels, sigmas,
               iters, samples, lr, metric, init_params, fixed_mask, stop_tol,
               stop_window, mesh, device):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded registration) is not ported; ROADMAP Queue 1 item 10")
     if len(movings) == 0:
         return []
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     f32 = dict(dtype=torch.float32, device=dev)
     center_np = np.asarray(fixed.center_world(), np.float32)
     if mode == "rigid":
@@ -537,8 +589,10 @@ def _register(fixed: Volume, movings: Sequence[Volume], *, mode: str, levels, si
     hist, n_exec, final_f, syncs = [], ([] if stop_tol is not None else None), None, 0
     for li, ((f_dat, f_sp), n_smp, mlvl) in enumerate(zip(f_pyr, samples, mask_pyr)):
         fixed_pts, fixed_vals = _fixed_level_operands(fixed, f_dat, f_sp, int(n_smp), mlvl)
+        if mesh is not None:
+            fixed_pts, fixed_vals = _shard_samples(fixed_pts, fixed_vals, mesh)
         mov = _moving_level_operands(movings, m_pyrs, li)
-        met = _make_metric_fn(metric, tf, fixed_pts, fixed_vals, mov)
+        met = _make_metric_fn(metric, tf, fixed_pts, fixed_vals, mov, mesh)
         f_g = lambda p, met=met: _value_and_grad(met, p)
         if stop_tol is None:
             params, h = _level_scan(f_g, params, lr_t, int(iters[li]))
@@ -579,8 +633,10 @@ def register_rigid(fixed: Volume, moving: Volume, *,
     restricts the metric to mask voxels (the reference's
     ``SetMetricFixedMask``, utils/qmri_utils.py:194-197). ``stop_tol``
     enables the per-level plateau early exit (None: the exact fixed-budget
-    optimizer); ``iters`` is the per-level budget either way. ``mesh`` is
-    not ported and raises."""
+    optimizer); ``iters`` is the per-level budget either way. ``mesh`` (a
+    ``parallel.VoxelMesh``) splits the metric's fixed-image samples over
+    its devices (see ``_make_metric_fn``) and replaces ``device``: the
+    solve and its result live on the mesh's first device."""
     return _register(fixed, [moving], mode="rigid", levels=levels, sigmas=sigmas,
                      iters=iters, samples=samples, lr=lr, metric=metric,
                      init_params=_one_pair(init_params), fixed_mask=fixed_mask, stop_tol=stop_tol,

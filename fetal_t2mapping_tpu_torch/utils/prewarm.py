@@ -1,23 +1,34 @@
 """Cold-start prewarm: run the stage-2 device steps once on a background
-thread, on synthetic data of the session's shapes, while the pipeline's
-opening host work (input reads) runs.
+thread, on small synthetic data of the session's geometry, while the
+pipeline's opening host work (input reads) runs.
 
 The counterpart of ``fetal_t2mapping_tpu.utils.prewarm``. There the cost
 is a remote load per compiled TPU program; with eager PyTorch on one GPU
-it is what a process pays the first time it touches each piece: the CUDA
-context, lazily loaded kernel modules, library handles, the caching
-allocator's first segments and the ctypes loads. The prewarm replays the
-pipeline's entry points with the session's geometry (from header reads
-only, :func:`..core.nifti.read_header`) and kwargs: resample with the
-integer disk-cast replay, fusion, TV denoise, the echo registration and
-its warp, the FeTA remap, and the U-Net forward when the session
-segments with ``SynthSegRunner(mode="torch")``.
+it is what a process pays the first time it touches each piece. Measured
+on an H100 in fresh processes (``chip_smoke.py``'s ``first_launch_costs``
+and ``prewarm_study``, PERF.md): the CUDA context 0.25-0.31 s, the first
+cuBLAS matmul 0.12-0.47 s, the first call of each stage-2 entry point
+0.1-0.6 s more than the second (lazily loaded kernel modules). But stage
+2's first device op (a matmul in the first resample) comes one input read
+after the start, so there is little to overlap, and every warm-up made
+stage 2 slower: a replay at the session's size (+42%) or at 32 voxels a
+side, the context and a cuBLAS handle (PyTorch keeps one per thread), and
+the context alone (+12% in eight interleaved fresh processes). So by
+default (``side=0``) the prewarm runs no step. With ``side > 0`` it
+replays the pipeline's entry points on the session's geometry (from
+header reads only, :func:`..core.nifti.read_header`) scaled down to a grid
+of at most ``side`` voxels a side, with ``PREWARM_ITERS`` Adam steps per
+registration level: resample with the integer disk-cast replay, fusion,
+TV denoise, the echo registration and its warp, the FeTA remap, and the
+U-Net forward when the session segments with
+``SynthSegRunner(mode="torch")``; ``chip_smoke.py`` uses it to measure
+each step's first-launch cost.
 
-It runs on a CUDA stream of its own, so its kernels can overlap the
-session's instead of queueing behind them, and it draws its synthetic
-data from its own seeded numpy and torch generators: it never touches
-the global RNG state, and the session's results are the same with or
-without it.
+The replay runs on a CUDA stream of its own, so its kernels can overlap
+the session's instead of queueing behind them, and it draws its synthetic
+data from its own seeded numpy and torch generators: it never touches the
+global RNG state, and the session's results are the same with or without
+it.
 
 Usage::
 
@@ -25,7 +36,7 @@ Usage::
 
 or explicitly, to overlap an earlier phase::
 
-    h = start_recon_prewarm(acq_geoms, registration_kwargs=...)
+    h = start_recon_prewarm(acq_geoms, side=32, registration_kwargs=...)
     ...                                     # ingest / host work
     h.wait()                                # optional; the thread is a daemon
 """
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import os
 import threading
 import time
@@ -48,18 +60,26 @@ from .profiling import profiler
 
 log = logging.getLogger("fetal_t2mapping_tpu_torch.prewarm")
 
+#: the largest side, in voxels, of the grid the prewarm replays the stage on;
+#: 0 (the default): no step
+PREWARM_SIDE = 0
+#: Adam steps per pyramid level of the prewarm's registrations (a solve
+#: launches the same kernels whatever its budget)
+PREWARM_ITERS = 2
+
 
 class PrewarmHandle:
     """Join handle of a background prewarm.
 
     ``wait()`` blocks until the run ends and never raises: a prewarm
     failure costs only the overlap, so it is logged and kept on ``error``.
-    ``steps`` lists the steps that completed, ``seconds`` the run's wall
-    time."""
+    ``steps`` lists the steps that completed, ``step_seconds`` the wall
+    time of each, ``seconds`` the run's."""
 
     def __init__(self, thread: threading.Thread):
         self._thread = thread
         self.steps: List[str] = []
+        self.step_seconds: Dict[str, float] = {}
         self.error: Optional[BaseException] = None
         self.seconds: float = 0.0
 
@@ -81,9 +101,18 @@ def _smooth_noise(shape, rng: np.random.Generator) -> np.ndarray:
     return (base + rng.normal(0.0, 5.0, shape)).astype(np.float32)
 
 
+def _scaled(geom: Volume, factor: float) -> Volume:
+    """``geom``'s field of view on a grid ``factor`` times as fine (< 1:
+    coarser): same origin, direction and physical extent."""
+    shape = tuple(max(2, int(math.ceil(s * factor))) for s in geom.shape)
+    spacing = tuple(sp * sz / nz for sp, sz, nz in zip(geom.spacing, geom.size, shape[::-1]))
+    return Volume(np.broadcast_to(np.zeros((), np_dtype(geom.data)), shape), spacing=spacing,
+                  origin=geom.origin, direction=geom.direction)
+
+
 def _run(acq_geoms: Dict[str, Volume], handle: PrewarmHandle, *, fixed_type: str,
          n_echoes: int, denoise: bool, high_res: float, registration_kwargs: Optional[dict],
-         labels: bool, synthseg, device) -> None:
+         labels: bool, synthseg, side: int, device) -> None:
     from ..core import nifti
     from ..labels.feta import synthseg_to_feta
     from ..recon.denoise import denoise_volume
@@ -91,16 +120,31 @@ def _run(acq_geoms: Dict[str, Volume], handle: PrewarmHandle, *, fixed_type: str
     from ..recon.registration import register_rigid_multi
     from ..recon.resample import resample_to_reference, resample_volume
 
+    if not side:
+        # the default: no step; every warm-up measured on the H100 made stage
+        # 2 slower, creating the CUDA context on this thread included (PERF.md)
+        return
     dev = resolve_device(device)
-    reg_kw = registration_kwargs or {}
+    reg_kw = dict(registration_kwargs or {})
+    reg_kw["iters"] = (PREWARM_ITERS,) * len(reg_kw.get("levels", (4, 2, 1)))
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    unet = getattr(synthseg, "mode", "") == "torch" and synthseg.available()
+    # the session's high-resolution grid, scaled so its largest side is `side`
+    hr_side = max(max(sz * sp / high_res for sz, sp in zip(g.size, g.spacing))
+                  for g in acq_geoms.values())
+    factor = min(1.0, side / hr_side)
+
+    last = [time.perf_counter()]
 
     def done(step: str) -> None:
         if stream is not None:
             stream.synchronize()
         handle.steps.append(step)
+        now = time.perf_counter()
+        handle.step_seconds[step] = now - last[0]
+        last[0] = now
 
     def steps():
         # 1) acquisition -> HR isotropic resample, per orientation, with the
@@ -109,10 +153,11 @@ def _run(acq_geoms: Dict[str, Volume], handle: PrewarmHandle, *, fixed_type: str
         #    cast volumes, so replay that cast
         his = {}
         for otype, geom in acq_geoms.items():
+            geom = _scaled(geom, factor)
             dt = np_dtype(geom.data)
             noise = _smooth_noise(geom.shape, rng)
             vol = geom.with_data(np.abs(noise).astype(dt) if dt.kind == "u" else noise.astype(dt))
-            hi = resample_volume(vol, [high_res] * 3, on_device=True, device=dev)
+            hi = resample_volume(vol, [high_res / factor] * 3, on_device=True, device=dev)
             if dt.kind in "iu":
                 hi = hi.with_data(nifti._cast_for_disk(hi.data, dt))
             his[otype] = hi
@@ -133,20 +178,20 @@ def _run(acq_geoms: Dict[str, Volume], handle: PrewarmHandle, *, fixed_type: str
                                   on_device=True, device=dev)
             done("reg_echo")
 
-        # 4) the FeTA remap at the HR shape, on labels made on the device
+        # 4) the FeTA remap, on labels made on the device
         if labels:
             lab = (torch.rand(fused.shape, generator=gen, device=dev) > 0.5).to(torch.int16) * 2
             synthseg_to_feta(fused.with_data(lab), device=dev)
             done("feta")
 
-        # 5) the U-Net forward at the HR shape, when the session segments in
-        #    this process with the port's U-Net
-        if getattr(synthseg, "mode", "") == "torch" and synthseg.available():
+        # 5) the U-Net forward, when the session segments in this process
+        #    with the port's U-Net
+        if unet:
             from ..labels.unet3d import load_params, segment_volume
 
             weights = synthseg.weights or os.environ.get("FT2_SYNTHSEG_WEIGHTS")
             segment_volume(load_params(weights), rng.random(fused.shape).astype(np.float32),
-                           device=synthseg.device)
+                           mesh=getattr(synthseg, "mesh", None), device=synthseg.device)
             done("unet")
 
     t0 = time.perf_counter()
@@ -167,7 +212,8 @@ def _run(acq_geoms: Dict[str, Volume], handle: PrewarmHandle, *, fixed_type: str
 def start_recon_prewarm(acq_geoms: Dict[str, Volume], *, fixed_type: str = "ax",
                         n_echoes: int = 3, denoise: bool = True, high_res: float = 1.0,
                         registration_kwargs: Optional[dict] = None, labels: bool = True,
-                        synthseg=None, device="cuda") -> PrewarmHandle:
+                        synthseg=None, side: int = PREWARM_SIDE,
+                        device="cuda") -> PrewarmHandle:
     """Start the background prewarm for one session's geometry on ``device``.
 
     ``acq_geoms`` maps orientation ('ax'/'cor'/'sag') to a geometry Volume
@@ -175,7 +221,8 @@ def start_recon_prewarm(acq_geoms: Dict[str, Volume], *, fixed_type: str = "ax",
     never read). ``registration_kwargs`` should be what the session passes.
     ``synthseg`` (a :class:`..labels.synthseg.SynthSegRunner`) adds the
     U-Net forward when its mode is ``"torch"`` (the other modes run outside
-    this process's device code). Returns at once; the daemon thread runs
+    this process's device code). ``side`` bounds the replay's grid (0,
+    the default: no step). Returns at once; the daemon thread runs
     each step once."""
     geoms = dict(acq_geoms)
     if fixed_type not in geoms:
@@ -186,7 +233,7 @@ def start_recon_prewarm(acq_geoms: Dict[str, Volume], *, fixed_type: str = "ax",
         target=lambda: _run(geoms, handle, fixed_type=fixed_type, n_echoes=n_echoes,
                             denoise=denoise, high_res=high_res,
                             registration_kwargs=registration_kwargs, labels=labels,
-                            synthseg=synthseg, device=dev),
+                            synthseg=synthseg, side=int(side), device=dev),
         name="ft2-prewarm", daemon=True)
     handle = PrewarmHandle(thread)
     with profiler.stage("recon.prewarm_start"):

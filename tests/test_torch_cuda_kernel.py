@@ -23,7 +23,12 @@ runs bitwise, the card within the CPU tests' tolerances of the CPU. ROI
 tables: the card's equal the CPU's. The I/O layer: a CUDA volume queued by
 ``nifti.write_async`` from a side stream is read back from the cache and,
 after the flush, from the file, equal to what the stream computed; the
-prewarm runs every step on the card.
+prewarm runs every step on the card. The voxel mesh on one card
+(``voxel_mesh(devices=[cuda, cuda])``, two shards on two streams): each
+shard allocates its worklist on its own stream, so repeated sharded fits
+(the plain fit, 'twophase', and one read on the caller's stream without a
+sync) give the bits of the single-device fit; the sharded U-Net and
+registration run there too.
 """
 
 import numpy as np
@@ -595,6 +600,87 @@ def test_prewarm_runs_every_step_on_cuda(card):
         spacing[axis], shape[2 - axis] = 4.0, 12
         geoms[otype] = Volume(np.broadcast_to(np.zeros((), np.int16), tuple(shape)),
                               spacing=tuple(spacing))
-    h = start_recon_prewarm(geoms, n_echoes=3, device=card).wait(timeout=300)
+    h = start_recon_prewarm(geoms, n_echoes=3, side=32, device=card).wait(timeout=300)
     assert h.done and h.error is None, h.error
     assert h.steps == ["resample", "fuse", "denoise", "reg_echo", "feta"]
+
+
+_MESH_FITS = [("gaussian", LO, HI, None),
+              ("gaussian_rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3), (650.0, 110.0, 40.0)),
+              ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3), (650.0, 110.0, 40.0))]
+
+
+def _same_fit(a, b, keep=None):
+    pairs = [(a.x, b.x), (a.fun, b.fun), (a.converged, b.converged), (a.n_iter, b.n_iter)]
+    keep = slice(None) if keep is None else keep
+    return all(torch.equal(u[keep], v[keep]) for u, v in pairs)
+
+
+@pytest.mark.parametrize("model,lo,hi,guess", _MESH_FITS)
+def test_two_stream_shards_are_the_single_fit(card, model, lo, hi, guess):
+    """Two shards on two streams of one card, five times over: the shards'
+    worklists and outputs are allocated on their own streams, so no shard
+    reuses memory another shard's kernel still uses, and every call gives
+    the single-device bits."""
+    from fetal_t2mapping_tpu_torch.parallel import fit_fused_sharded, voxel_mesh
+
+    sig, _ = _make_data(1 << 20, TES3, seed=11)
+    s = torch.from_numpy(sig).to(card)
+    kw = dict(model=model, guess=guess, ftol=1e-2, gtol=1e-2) if guess else dict(model=model)
+    mesh = voxel_mesh(devices=[card, card])
+    single = fused_fit.fit_fused(s, TES3, lo, hi, device=card, **kw)
+    outs = [fit_fused_sharded(s, TES3, lo, hi, mesh, sync=False, **kw) for _ in range(5)]
+    for out in outs:
+        assert _same_fit(single, out) and out.n_overflow == 0
+
+
+@pytest.mark.parametrize("model,lo,hi,guess", _MESH_FITS)
+def test_twophase_on_two_streams_is_single_on_handled_voxels(card, model, lo, hi, guess):
+    """'twophase' with room for every straggler block equals 'single'
+    bitwise on the card, on one device and sharded over two streams."""
+    from fetal_t2mapping_tpu_torch.parallel import fit_fused_sharded, voxel_mesh
+
+    sig, _ = _make_data(1 << 18, TES3, seed=12)
+    s = torch.from_numpy(sig).to(card)
+    kw = dict(model=model, guess=guess, ftol=1e-2, gtol=1e-2) if guess else dict(model=model)
+    single = fused_fit.fit_fused(s, TES3, lo, hi, device=card, **kw)
+    roomy = dict(strategy="twophase", tail_frac=1.0)
+    tp = fused_fit.fit_fused(s, TES3, lo, hi, device=card, **roomy, **kw)
+    assert _same_fit(single, tp) and int(tp.n_overflow) == 0
+    tps = fit_fused_sharded(s, TES3, lo, hi, voxel_mesh(devices=[card, card]), **roomy, **kw)
+    assert _same_fit(single, tps) and int(tps.n_overflow) == 0
+
+
+def test_mesh_unet_and_registration_on_one_card(card):
+    """segment_volume(mesh=) (fp32, TF32 off) gives the unsharded labels,
+    and register_rigid(mesh=) stays within the reference's 5e-3 / 0.3 mm
+    of the single-device solve, on a two-entry mesh of one card."""
+    from fetal_t2mapping_tpu_torch.core import Volume
+    from fetal_t2mapping_tpu_torch.labels.unet3d import UNetConfig, random_params, segment_volume
+    from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
+    from fetal_t2mapping_tpu_torch.recon.registration import register_rigid
+
+    mesh = voxel_mesh(devices=[card, card])
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = UNetConfig(n_levels=3, base_features=8, n_labels=7)
+        params = random_params(cfg, seed=6)
+        data = np.abs(np.random.default_rng(6).normal(500, 120, (48, 40, 36))).astype(np.float32)
+        kw = dict(compute_dtype=torch.float32, use_s2d=False)
+        single = segment_volume(params, data, cfg, device=card, **kw)
+        assert np.array_equal(segment_volume(params, data, cfg, mesh=mesh, **kw), single)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    rng = np.random.default_rng(3)
+    z, y, x = np.meshgrid(*[np.arange(40.0)] * 3, indexing="ij")
+    img = sum(float(rng.uniform(50, 150)) * np.exp(-((z - c[0]) ** 2 + (y - c[1]) ** 2
+                                                   + (x - c[2]) ** 2) / 30.0)
+              for c in rng.uniform(8, 32, (12, 3)))
+    fixed = Volume(img.astype(np.float32))
+    moving = Volume(np.roll(img, (1, -2, 1), axis=(0, 1, 2)).astype(np.float32))
+    kw = dict(levels=(2, 1), sigmas=(1.0, 0.0), iters=(80, 40), lr=0.8, stop_tol=None)
+    a = register_rigid(fixed, moving, device=card, **kw).matrix
+    b = register_rigid(fixed, moving, mesh=mesh, **kw).matrix
+    assert np.abs(a[:3, :3] - b[:3, :3]).max() <= 5e-3
+    assert np.abs(a[:3, 3] - b[:3, 3]).max() <= 0.3

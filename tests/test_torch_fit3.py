@@ -247,8 +247,7 @@ def test_resolve_knobs_match_reference(monkeypatch):
     # reference's 'auto' picks straggler compaction
     assert ref.resolve_strategy("auto", 10, 60, "gaussian_rician", 0, False) == "twophase"
     assert port.resolve_strategy("auto") == port.resolve_strategy("single") == "single"
-    with pytest.raises(NotImplementedError, match="twophase"):
-        port.resolve_strategy("twophase")
+    assert port.resolve_strategy("twophase") == "twophase"
     with pytest.raises(ValueError, match="unknown strategy"):
         port.resolve_strategy("fastest")
 

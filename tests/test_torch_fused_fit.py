@@ -109,11 +109,12 @@ def test_validate_fused_args_normalizes_like_reference(args):
 
 
 def test_unported_strategies_and_models_raise():
-    """Straggler compaction ('twophase') is not ported and raises; the
+    """An unknown strategy raises ('twophase', which raised here before it
+    was ported, runs: tests/test_torch_fused_twophase.py); the
     3-parameter models, which raised here before they were ported, run."""
     sig, _ = _make_data(64, TES3)
-    with pytest.raises(NotImplementedError, match="twophase"):
-        port.fit_fused(sig, TES3, LO, HI, strategy="twophase", device="cpu")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        port.fit_fused(sig, TES3, LO, HI, strategy="fastest", device="cpu")
     r = port.fit_fused(sig, TES3, (1.0, 10.0, 1.0), (1e6, 2000.0, 1e3),
                        model="gaussian_rician", device="cpu")
     assert r.x.shape == (64, 3) and bool(torch.isfinite(r.x).all())

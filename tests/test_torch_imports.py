@@ -56,7 +56,9 @@ def test_importing_every_module_leaves_jax_out():
                  "analysis.noise", "analysis.stats", "analysis.figures",
                  "utils.dicom", "utils.jpegll", "utils.jpegdct", "utils.dcm2nifti",
                  "utils.ingest", "cli.dcm2csv", "labels.convert_synthseg",
-                 "core.volcache", "native", "utils.prewarm"):
+                 "core.volcache", "native", "utils.prewarm", "parallel", "parallel.mesh",
+                 "core.nifti", "models.t2map", "pipeline.t2map_pipeline", "cli.t2mapping",
+                 "labels.synthseg"):
         assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
 
@@ -110,7 +112,7 @@ volcache.clear()
 ok = bool((nifti.read(path).data == np.arange(60).reshape(3, 4, 5)).all())
 geoms = {o: Volume(np.broadcast_to(np.zeros((), np.int16), (4, 12, 12)), spacing=(1, 1, 3))
          for o in ("ax", "cor", "sag")}
-h = start_recon_prewarm(geoms, n_echoes=1, denoise=False, device="cpu",
+h = start_recon_prewarm(geoms, n_echoes=1, denoise=False, side=12, device="cpu",
                         registration_kwargs=dict(levels=(1,), sigmas=(0.0,), iters=(2,)))
 h.wait(timeout=120)
 print(json.dumps({"ok": ok, "native": native.available(), "steps": h.steps,

@@ -191,3 +191,45 @@ def test_files_cross_the_two_packages(tmp_path, monkeypatch, route, dtype):
         assert (g.spacing, g.origin, g.direction) == (want.spacing, want.origin, want.direction)
     with gzip.open(a, "rb") as fa, gzip.open(b, "rb") as fb:
         assert fa.read() == fb.read()        # decompressed header and voxels equal
+
+
+_LEVEL_WRITER = r"""
+import os, sys
+import numpy as np
+from fetal_t2mapping_tpu_torch.core import nifti
+from fetal_t2mapping_tpu_torch.core.volume import Volume
+if sys.argv[2] == "stdlib":
+    os.environ["FT2_DISABLE_NATIVE"] = "1"
+data = (np.arange(24 * 20 * 16, dtype=np.float32) % 251.0).reshape(24, 20, 16)
+nifti.write(sys.argv[1], Volume(data), dtype=np.int16)
+print(nifti._GZIP_LEVEL)
+"""
+
+
+@pytest.mark.parametrize("route", ["native", "stdlib"])
+def test_gzip_level_env_on_both_routes(tmp_path, route):
+    """FT2_GZIP_LEVEL (read at import, as the JAX package reads it) sets
+    the level of both write routes: files written at levels 1 and 9 hold
+    the same decompressed payload in different compressed bytes, and both
+    packages read them back to the same voxels."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k not in ("FT2_DISABLE_NATIVE", "FT2_GZIP_LEVEL")}
+    paths = {}
+    for level in ("1", "9"):
+        paths[level] = str(tmp_path / f"level{level}.nii.gz")
+        out = subprocess.run([sys.executable, "-c", _LEVEL_WRITER, paths[level], route],
+                             cwd=repo, env=dict(env, FT2_GZIP_LEVEL=level),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.split()[-1] == level
+    raw = {lv: open(p, "rb").read() for lv, p in paths.items()}
+    assert raw["1"] != raw["9"]
+    with gzip.open(paths["1"], "rb") as f1, gzip.open(paths["9"], "rb") as f9:
+        assert f1.read() == f9.read()
+    want = (np.arange(24 * 20 * 16, dtype=np.float32) % 251.0).reshape(24, 20, 16)
+    for p in paths.values():
+        np.testing.assert_array_equal(nifti.read(p).data, want.astype(np.int16))
+        np.testing.assert_array_equal(np.asarray(ref_nifti.read(p).data), want.astype(np.int16))

@@ -28,6 +28,7 @@ from fetal_t2mapping_tpu.core.volume import Volume as RefVolume
 from fetal_t2mapping_tpu.recon import registration as ref_reg
 from fetal_t2mapping_tpu.recon.resample import resample_to_reference as ref_resample_to_reference
 from fetal_t2mapping_tpu_torch.core.volume import Volume
+from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
 from fetal_t2mapping_tpu_torch.recon import registration as reg
 from fetal_t2mapping_tpu_torch.recon.resample import resample_to_reference
 
@@ -293,6 +294,9 @@ def test_argument_errors(scene):
     with pytest.raises(ValueError, match="empty"):
         reg.register_rigid(fixed, moving, fixed_mask=np.zeros(fixed.shape, bool),
                            device="cpu", **REG_FAST)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        reg.register_rigid(fixed, moving, mesh=object(), device="cpu", **REG_FAST)
+    # a mesh with more devices than a level has samples (the sharded
+    # registration itself: tests/test_torch_mesh.py)
+    with pytest.raises(ValueError, match="metric samples"):
+        reg.register_rigid(fixed, moving, mesh=voxel_mesh(devices=["cpu"] * 5),
+                           **dict(REG_FAST, samples=(1, 1)))
     assert reg.register_rigid_multi(fixed, [], device="cpu") == []

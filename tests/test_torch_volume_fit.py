@@ -179,8 +179,8 @@ def test_fit_volume_validates_shapes():
         fit_volume(sig, mask[2:], TES, LO, HI, device="cpu")
     with pytest.raises(ValueError, match="block"):
         fit_volume(sig, mask, TES, LO, HI, block=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="twophase"):
-        fit_volume(sig, mask, TES, LO, HI, strategy="twophase", device="cpu")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        fit_volume(sig, mask, TES, LO, HI, strategy="fastest", device="cpu")
 
 
 def test_fit_volume_dense_matches_compact():
