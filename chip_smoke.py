@@ -38,13 +38,13 @@ geometry written and on the truth. Phase 16, the host I/O layer: phase
 12's session written once as a BIDS tree of int16 inputs and taken through
 stage 2 in fresh processes (``qmri_reconstruction.main``): (a) with the
 volume cache, the async writer and the native gzip off, (b) with the
-defaults, (c) with the defaults and ``--prewarm``, then (c) and (b) again;
-before them, another fresh process prints what the context, a large
-allocation, the host library and each step of the prewarm cost the first
-time against the second; the trees hold the same decompressed payloads, no
-write is left pending, the prewarm ends without an error, the two runs
-with ``--prewarm`` stay within stage 2's spread of the two without, stage 3 (``t2mapping
---gaussian``, which launches gauss_fit.cu) on (b)'s tree meets the truth,
+defaults, (c) with the defaults and ``--prewarm``; before them, another
+fresh process prints what the context, a large allocation, the host
+library, cuBLAS and each stage-2 entry point at 32^3 cost the first time
+against the second; the trees hold the same decompressed payloads, no
+write is left pending, the prewarm finishes with no step and no error,
+stage 3 (``t2mapping --gaussian``, which launches gauss_fit.cu) on (b)'s
+tree meets the truth,
 and a process that queues writes of CUDA volumes and exits without a flush
 leaves complete files. Phase 17, the voxel mesh (two cards when two are
 visible, else two streams of one) and ``strategy='twophase'``:
@@ -2327,50 +2327,102 @@ def phase15_ingest_chain(n: int = SESSION_N, device: str = "cuda", workers: int 
 
 
 # ------------------------------------------------ the host I/O layer (phase 16)
+# the stage-2 entry points on a small synthetic session (ax/cor/sag of an
+# n^3 mm field of view, 3 mm slices; two Adam steps per registration level):
+# what a warm-up before stage 2 could run
+_STAGE2_STEPS = r"""
+import numpy as np
+import torch
+from fetal_t2mapping_tpu_torch.core import Volume
+from fetal_t2mapping_tpu_torch.labels.feta import synthseg_to_feta
+from fetal_t2mapping_tpu_torch.recon.denoise import denoise_volume
+from fetal_t2mapping_tpu_torch.recon.fuse import fuse_orientations
+from fetal_t2mapping_tpu_torch.recon.registration import register_rigid_multi
+from fetal_t2mapping_tpu_torch.recon.resample import resample_to_reference, resample_volume
+def stage2_steps(dev, n):
+    rng = np.random.default_rng(0)
+    acqs = {}
+    for otype, axis in (("ax", 2), ("cor", 1), ("sag", 0)):
+        spacing, shape = [1.0, 1.0, 1.0], [n, n, n]
+        spacing[axis], shape[2 - axis] = 3.0, n // 3
+        acqs[otype] = Volume(rng.integers(0, 1000, shape).astype(np.int16),
+                             spacing=tuple(spacing))
+    reg = dict(iters=(2, 2, 2))
+    st = {}
+    def resample():
+        st["his"] = {o: resample_volume(v, [1.0] * 3, on_device=True, device=dev)
+                     for o, v in acqs.items()}
+    def fuse():
+        st["fused"] = fuse_orientations(st["his"], "ax", registration_kwargs=reg, device=dev)
+    def denoise():
+        denoise_volume(st["fused"], device=dev)
+    def reg_echo():
+        f = st["fused"]
+        r = register_rigid_multi(f, [f, f], device=dev, **reg)
+        resample_to_reference(f, f, transform=r[0].matrix_device, on_device=True, device=dev)
+    def feta():
+        lab = (rng.random(st["fused"].shape) > 0.5).astype(np.int16) * 2
+        synthseg_to_feta(st["fused"].with_data(torch.from_numpy(lab).to(dev)), device=dev)
+    return [("resample", resample), ("fuse", fuse), ("denoise", denoise),
+            ("reg_echo", reg_echo), ("feta", feta)]
+"""
+
+# qmri_reconstruction.main in a fresh process; FT2_SMOKE_WARMUP (for
+# prewarm_study only) first starts a warm-up on a thread of its own:
+# "context" (the CUDA context), "cublas" (the context and a cuBLAS matmul)
+# or "steps32" (_STAGE2_STEPS at 32^3 on a stream of its own)
 _STAGE2_RUN = r"""
-import json, sys, time
+import json, os, sys, threading, time
 t0 = time.perf_counter()
+""" + _STAGE2_STEPS + r"""
 from fetal_t2mapping_tpu_torch.cli import qmri_reconstruction
 from fetal_t2mapping_tpu_torch.core import volcache
-from fetal_t2mapping_tpu_torch.utils import prewarm
+from fetal_t2mapping_tpu_torch.pipeline import recon_pipeline
 from fetal_t2mapping_tpu_torch.utils.profiling import profiler
-import os
 handles = []
-start = prewarm.start_recon_prewarm
+start = recon_pipeline._start_prewarm
 def capture(*args, **kwargs):
-    if os.environ.get("FT2_SMOKE_PREWARM_SIDE"):
-        kwargs["side"] = int(os.environ["FT2_SMOKE_PREWARM_SIDE"])
     handles.append(start(*args, **kwargs))
     return handles[-1]
-prewarm.start_recon_prewarm = capture
+recon_pipeline._start_prewarm = capture
 import_s = time.perf_counter() - t0
+def warm(kind, dev):
+    if kind in ("context", "cublas"):
+        a = torch.ones((32, 32), device=dev)
+        if kind == "cublas":
+            (a @ a).sum().item()
+        return
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        for _, fn in stage2_steps(dev, 32):
+            fn()
+    torch.cuda.synchronize(dev)
+warmup = os.environ.get("FT2_SMOKE_WARMUP")
 t0 = time.perf_counter()
+if warmup:
+    dev = torch.device(sys.argv[sys.argv.index("--device") + 1])
+    threading.Thread(target=warm, args=(warmup, dev), daemon=True).start()
 rc = qmri_reconstruction.main(sys.argv[1:])
 main_s = time.perf_counter() - t0
 pending = volcache.n_pending()
-h = handles[0].wait() if handles else None
+h = handles[0] if handles else None
 print(json.dumps({"rc": rc, "import_s": import_s, "main_s": main_s, "pending": pending,
                   "stages": profiler.as_dict(), "report": profiler.report(),
                   "prewarm": None if h is None else {
                       "steps": h.steps, "seconds": h.seconds, "done": h.done,
-                      "step_seconds": h.step_seconds,
                       "error": None if h.error is None else repr(h.error)}}))
 """
 
-# what a fresh process pays the first time it touches each piece that the
-# prewarm touches, against the second time: the context, a large
-# allocation, the host library, the cuBLAS matmul and batched matmul, then
-# the prewarm's steps (the stage's entry points on the session's geometry
-# scaled to argv[3] voxels a side) run twice in a row
+# what a fresh process pays the first time it touches each piece, against
+# the second time: the context, a large allocation, the host library, the
+# cuBLAS matmul and batched matmul, then each of _STAGE2_STEPS at argv[2]
+# voxels a side
 _FIRST_LAUNCH_RUN = r"""
 import json, sys, time
 t0 = time.perf_counter()
-import torch
+""" + _STAGE2_STEPS + r"""
 from fetal_t2mapping_tpu_torch import native
-from fetal_t2mapping_tpu_torch.utils.metadata import set_metadata
-from fetal_t2mapping_tpu_torch.utils.prewarm import geoms_from_metadata, start_recon_prewarm
 import_s = time.perf_counter() - t0
-root, dev, side = sys.argv[1], torch.device(sys.argv[2]), int(sys.argv[3])
+dev, n = torch.device(sys.argv[1]), int(sys.argv[2])
 def sync():
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2387,12 +2439,8 @@ twice("alloc_1GiB", lambda: torch.empty(1 << 28, device=dev))
 twice("gzio_lib", native.available)
 a = torch.ones((32, 32), device=dev)
 twice("cublas", lambda: (a @ a, torch.bmm(a[None], a[None])))
-rows = set_metadata(root + "/dicom/logs/", ["smoke.csv"], low_field=True)
-geoms = geoms_from_metadata(rows, root + "/projects/")
-for run in ("first", "second"):
-    h = start_recon_prewarm(geoms, n_echoes=3, side=side, device=dev).wait()
-    out["prewarm_" + run] = {"steps": h.step_seconds, "seconds": h.seconds,
-                             "error": None if h.error is None else repr(h.error)}
+for name, fn in stage2_steps(dev, n):
+    twice(name, fn)
 print(json.dumps(out))
 """
 
@@ -2407,19 +2455,13 @@ nifti.write_async(sys.argv[1] + "/i16.nii.gz", Volume(x - 200.0), dtype=np.int16
 print("queued, exiting without a flush", flush=True)
 """
 
-IO_RUNS = {   # run: (environment, extra CLI flags); b2 and c2 repeat b and c, in turns
+IO_RUNS = {   # run: (environment, extra CLI flags)
     "a": ({"FT2_VOLCACHE": "0", "FT2_ASYNC_WRITES": "0", "FT2_DISABLE_NATIVE": "1"}, []),
     "b": ({}, []),
     "c": ({}, ["--prewarm"]),
-    "c2": ({}, ["--prewarm"]),
-    "b2": ({}, []),
 }
 IO_KNOBS = ("FT2_VOLCACHE", "FT2_VOLCACHE_MB", "FT2_ASYNC_WRITES", "FT2_WRITE_THREADS",
-            "FT2_DISABLE_NATIVE")
-PREWARM_STEPS = []
-# stage 2's spread between two fresh processes of one configuration on one
-# H100: up to x1.157 between runs b and b2 of phase 16 (PERF.md)
-PREWARM_SPREAD = 1.15
+            "FT2_DISABLE_NATIVE", "FT2_SMOKE_WARMUP")
 
 
 def _stage2_process(root: str, env_extra: dict, flags, device: str) -> dict:
@@ -2440,43 +2482,42 @@ def _stage2_process(root: str, env_extra: dict, flags, device: str) -> dict:
     return res
 
 
-def first_launch_costs(root: str, device: str, side: int) -> dict:
-    """_FIRST_LAUNCH_RUN in a fresh process on the session tree at root."""
-    out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH_RUN, root, device, str(side)],
+def first_launch_costs(device: str, n: int = 32) -> dict:
+    """_FIRST_LAUNCH_RUN in a fresh process: each piece's first and second
+    time, the stage-2 entry points at n^3."""
+    out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH_RUN, device, str(n)],
                          cwd=REPO, capture_output=True, text=True, timeout=600,
                          env={k: v for k, v in os.environ.items() if k not in IO_KNOBS})
     gate(out.returncode == 0, f"first-launch process failed: {out.stderr[-3000:]}")
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    for run in ("prewarm_first", "prewarm_second"):
-        gate(res[run]["error"] is None, f"first-launch {run}: {res[run]['error']}")
-    return res
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def prewarm_study(n: int = SESSION_N, device: str = "cuda",
-                  order=("b", "c32", "c0", "c0", "c32", "b")):
-    """Stage 2 of phase 16's session in fresh processes, defaults (b)
-    against --prewarm with the replay's grid at 32 voxels a side (c32)
-    and with the default prewarm (c0), in turns, and the first-launch costs
-    of a fresh process: the measurement behind utils/prewarm's design."""
+                  order=("b", "context", "context", "b", "b", "context", "context", "b")):
+    """Stage 2 of phase 16's session in fresh processes, in turns: the
+    defaults (b) against a warm-up started on a thread of its own just
+    before the stage (FT2_SMOKE_WARMUP in _STAGE2_RUN: "context", "cublas"
+    or "steps32"), and the first-launch costs of a fresh process: the
+    measurement behind utils/prewarm, which runs no step. Not part of
+    main(): run it as ``python3 -c "import chip_smoke; chip_smoke.prewarm_study()"``."""
     acqs, _ = invivo_acquisitions(n)
     acqs = [(o, te, v.with_data(np.clip(np.rint(v.data), 0, 65535).astype(np.int16)))
             for o, te, v in acqs]
-    variants = {"b": ({}, []), "c32": ({"FT2_SMOKE_PREWARM_SIDE": "32"}, ["--prewarm"]),
-                "c0": ({"FT2_SMOKE_PREWARM_SIDE": "0"}, ["--prewarm"])}
-    times = {k: [] for k in variants}
+    times = {k: [] for k in order}
+    costs = first_launch_costs(device)
+    print(f"prewarm study first-launch costs (s): {json.dumps(costs)}", flush=True)
     with tempfile.TemporaryDirectory(prefix="ft2_smoke_pw_") as tmp:
         src = os.path.join(tmp, "src")
         _write_invivo_session(src, n, acqs=acqs)
         set_metadata(os.path.join(src, "dicom/logs/"), ["smoke.csv"], low_field=True)
-        costs = first_launch_costs(src, device, 32)
-        print(f"prewarm study first-launch costs (s): {json.dumps(costs)}", flush=True)
         for i, key in enumerate(order):
             root = os.path.join(tmp, f"{key}{i}")
             shutil.copytree(src, root)
-            r = _stage2_process(root, *variants[key], device)
+            r = _stage2_process(root, {} if key == "b" else {"FT2_SMOKE_WARMUP": key}, [],
+                                device)
             times[key].append(round(r["main_s"], 3))
-            print(f"prewarm study run {i} {key}: main {r['main_s']:.3f} s, prewarm "
-                  f"{r['prewarm']}, stages {json.dumps({k: round(v['seconds'], 3) for k, v in sorted(r['stages'].items()) if k.startswith(('recon.', 'fuse.'))})}",
+            print(f"prewarm study run {i} {key}: main {r['main_s']:.3f} s, stages "
+                  f"{json.dumps({k: round(v['seconds'], 3) for k, v in sorted(r['stages'].items()) if k.startswith(('recon.', 'fuse.'))})}",
                   flush=True)
             shutil.rmtree(root)
     card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
@@ -2507,15 +2548,16 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
     own copy of one int16 BIDS tree at n^3: (a) FT2_VOLCACHE=0
     FT2_ASYNC_WRITES=0 FT2_DISABLE_NATIVE=1 (synchronous stdlib gzip, the
     previous behaviour), (b) the defaults (volume cache, writer pool,
-    native gzip), (c) the defaults with --prewarm, then (c) and (b) again.
-    First, in another fresh process, what each piece that the prewarm
-    touches costs the first time against the second (first_launch_costs).
+    native gzip), (c) the defaults with --prewarm. First, in another fresh
+    process, what the context, the cuBLAS handle and each stage-2 entry
+    point cost the first time against the second (first_launch_costs).
     Gates: equal trees (decompressed payloads; where (a) is not
     reproducible against itself, the differing files are held to phase
-    12's gates instead), no write pending at return, the prewarm's steps,
-    (c) + (c2) <= PREWARM_SPREAD x ((b) + (b2)), stage 3 on (b)'s tree
-    against the truth, and
-    the exit of a process with queued CUDA writes."""
+    12's gates instead), no write pending at return, (c)'s prewarm
+    finished with no step and no error (utils/prewarm runs none), stage 3
+    on (b)'s tree against the truth, and the exit of a process with
+    queued CUDA writes. (b) and (c) run the same device code, so their
+    times are printed, not compared (prewarm_study measures warm-ups)."""
     from fetal_t2mapping_tpu_torch.cli import t2mapping
 
     acqs, fields = invivo_acquisitions(n)
@@ -2526,7 +2568,7 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
         src = os.path.join(tmp, "src")
         _write_invivo_session(src, n, acqs=acqs)
         rows = set_metadata(os.path.join(src, "dicom/logs/"), ["smoke.csv"], low_field=True)
-        costs = first_launch_costs(src, device, 32)
+        costs = first_launch_costs(device)
         for key, (env_extra, flags) in IO_RUNS.items():
             root = os.path.join(tmp, key)
             shutil.copytree(src, root)
@@ -2534,14 +2576,11 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
             gate(runs[key]["rc"] == 0 and runs[key]["pending"] == 0,
                  f"run {key}: rc {runs[key]['rc']}, {runs[key]['pending']} writes pending")
             digests[key] = _payload_digests(root)
-        for key in ("c", "c2"):
-            pw = runs[key]["prewarm"]
-            gate(pw is not None and pw["done"] and pw["error"] is None
-                 and pw["steps"] == PREWARM_STEPS, f"run {key}'s prewarm: {pw}")
-        gate(all(runs[k]["prewarm"] is None for k in ("a", "b", "b2")),
+        pw = runs["c"]["prewarm"]
+        gate(pw is not None and pw["done"] and pw["error"] is None and pw["steps"] == [],
+             f"run c's prewarm: {pw}")
+        gate(runs["a"]["prewarm"] is None and runs["b"]["prewarm"] is None,
              "a prewarm ran without --prewarm")
-        b_s = runs["b"]["main_s"] + runs["b2"]["main_s"]
-        c_s = runs["c"]["main_s"] + runs["c2"]["main_s"]
         gate(len(digests["a"]) == 33, f"{len(digests['a'])} NIfTIs in run a's tree, not 33")
         differ = {k: _differing(digests["a"], digests[k]) for k in IO_RUNS if k != "a"}
         repeat = None
@@ -2599,13 +2638,12 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
               flush=True)
     print("phase 16 run b profiler.report():\n" + runs["b"]["report"], flush=True)
     print(f"phase 16 first-launch costs (s, first and second time in a fresh process; the "
-          f"prewarm's replay at 32 voxels a side twice): {json.dumps(costs)}", flush=True)
+          f"stage-2 entry points at 32^3): {json.dumps(costs)}", flush=True)
     print(f"phase 16 io layer ({n}^3 in-vivo session, int16 inputs, 3 TEs x ax/cor/sag, stage 2 "
           f"in fresh processes on {device}): stage 2 (main) a {runs['a']['main_s']:.2f} s, b "
-          f"{runs['b']['main_s']:.2f} s, c {runs['c']['main_s']:.2f} s, c2 "
-          f"{runs['c2']['main_s']:.2f} s, b2 {runs['b2']['main_s']:.2f} s (b/a "
-          f"{runs['b']['main_s'] / runs['a']['main_s']:.3f}; c + c2 {c_s:.2f} s, b + b2 "
-          f"{b_s:.2f} s); trees: {len(digests['a'])} NIfTIs, payloads differing from a: "
+          f"{runs['b']['main_s']:.2f} s, c {runs['c']['main_s']:.2f} s (b/a "
+          f"{runs['b']['main_s'] / runs['a']['main_s']:.3f}, c/b "
+          f"{runs['c']['main_s'] / runs['b']['main_s']:.3f}); trees: {len(digests['a'])} NIfTIs, payloads differing from a: "
           f"{ {k: len(v) for k, v in differ.items()} }"
           f"{'' if repeat is None else f', a against a repeat of a {len(repeat)} ({repeat})'}; "
           f"prewarm steps {pw['steps']} in {pw['seconds']:.2f} s; stage 3 (t2mapping --gaussian "
@@ -2613,14 +2651,6 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
           f"{stage3_stages}; fused recon median rel err {errs}; mask share {mask_frac:.3f}; "
           f"median rel T2 err {t2_err:.4f}; atexit: two queued {m}^3 {device} writes complete "
           f"after the exit; {card}", flush=True)
-    # on the card, --prewarm must not make stage 2 slower beyond the spread
-    # of stage 2 between fresh processes (PREWARM_SPREAD): the prewarm does
-    # the minimum, whose effect lies inside that spread (PERF.md); a
-    # full-size replay cost +42%. On the CPU, a rehearsal, the times are
-    # noise.
-    gate(c_s <= PREWARM_SPREAD * b_s or torch.device(device).type != "cuda",
-         f"--prewarm made stage 2 slower: c + c2 {c_s:.2f} s > {PREWARM_SPREAD} x (b + b2) "
-         f"{b_s:.2f} s")
     return {k: r["main_s"] for k, r in runs.items()}
 
 

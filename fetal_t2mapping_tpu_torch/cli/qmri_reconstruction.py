@@ -4,8 +4,8 @@
 The flags of ``fetal_t2mapping_tpu.cli.qmri_reconstruction``, with
 ``--synthseg`` choices ``subprocess``, ``torch`` and ``fake``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
-``--prewarm`` warms the session's device libraries in a background thread
-while the inputs are read; ``--mesh N`` spreads the registrations and the
+``--prewarm`` is accepted for the reference's interface and runs no step
+(``utils.prewarm``); ``--mesh N`` spreads the registrations and the
 torch-mode U-Net over the first N CUDA devices.
 
 Example:
@@ -52,10 +52,8 @@ def parse_arguments(argv=None):
                              "fixed-image signal mask (threshold+fill+dilate+erode "
                              "per slice) — the reference's SetMetricFixedMask design")
     parser.add_argument("--prewarm", action="store_true",
-                        help="In vivo: run the stage's device steps once on synthetic data "
-                             "of the session's shapes in a background thread (header reads "
-                             "only), overlapping one-time start-up costs with the input "
-                             "reads; results are unchanged")
+                        help="Accepted for the reference's interface; runs no step (no "
+                             "warm-up made stage 2 faster on the GPU; utils/prewarm)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu (the plain "
                              "PyTorch path)")

@@ -26,7 +26,7 @@ converged voxels freeze, so results do not depend on how voxels are
 grouped.
 
 ``fit_fused(strategy='twophase')`` is the reference's two-phase driver over
-the same kernels (:class:`_TwoPhase`): a short pass over every voxel, then
+the same kernels (:func:`_fit_twophase`): a short pass over every voxel, then
 refits from scratch of the blocks that still hold an unconverged voxel.
 Because voxels freeze, each voxel it handles carries the bits of the
 default single pass; ``parallel.mesh`` shards either over several devices.
@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -73,6 +74,14 @@ KERNEL_LAUNCHES = 0          # gauss_fit
 GR_VARPRO_LAUNCHES = 0       # gr_varpro_fit
 FIT3_LAUNCHES = 0            # fit3 multistart
 FIT3_CONT_LAUNCHES = 0       # fit3 continuation
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counter: str) -> None:
+    """Add one launch to the module counter ``counter``, under a lock:
+    the shards of ``parallel.mesh`` launch from threads of their own."""
+    with _COUNT_LOCK:
+        globals()[counter] += 1
 
 
 def validate_fused_args(model, te, lo, hi, guess, no_prior):
@@ -924,7 +933,6 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
     """Launch csrc/gauss_fit.cu (its head and tail kernels; one pass with
     full_budget) on ``signal``'s device and stream; same outputs as
     ``_gauss_fit_plain``."""
-    global KERNEL_LAUNCHES
     lib = build.load_lib("gauss_fit")
     n, T = signal.shape
     params = _kernel_params(te, lo, hi, ftol, gtol, stall_tol)
@@ -943,7 +951,7 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
             conv.data_ptr(), nit.data_ptr(), rows.data_ptr(), counters.data_ptr(),
             build.stream(dev))
     build.check_launch(err, "gauss_fit")
-    KERNEL_LAUNCHES += 1
+    _count("KERNEL_LAUNCHES")
     return out[0], out[1], out[2], conv.view(torch.bool), nit
 
 
@@ -952,7 +960,6 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
                         full_budget: bool, stall_iters: int, stall_tol: float):
     """Launch csrc/gr_varpro_fit.cu (its head and tail kernels; one pass
     with full_budget); same outputs as the plain version."""
-    global GR_VARPRO_LAUNCHES
     lib = build.load_lib("gr_varpro_fit")
     n, T = signal.shape
     params = _gr_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
@@ -967,14 +974,13 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
             int(stall_iters), int(full_budget), out[0].data_ptr(),
             out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
     build.check_launch(err, "gr_varpro_fit")
-    GR_VARPRO_LAUNCHES += 1
+    _count("GR_VARPRO_LAUNCHES")
     return out[0], out[1]
 
 
 def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
                max_iters: int, ftol: float, gtol: float, stall_tol: float):
     """Launch ft2_fit3_multistart (csrc/fit3.cu)."""
-    global FIT3_LAUNCHES
     lib = build.load_lib("fit3")
     n, T = signal.shape
     params = _fit3_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
@@ -986,7 +992,7 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
             int(max_iters), out[0].data_ptr(), out[1].data_ptr(), build.stream(dev))
     build.check_launch(err, "fit3")
-    FIT3_LAUNCHES += 1
+    _count("FIT3_LAUNCHES")
     return out[0], out[1]
 
 
@@ -994,7 +1000,6 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
                     x0: torch.Tensor, st0: torch.Tensor, *, max_iters: int,
                     ftol: float, gtol: float, stall_tol: float):
     """Launch ft2_fit3_cont (csrc/fit3.cu: its sweep and tail kernels)."""
-    global FIT3_CONT_LAUNCHES
     lib = build.load_lib("fit3")
     n, T = signal.shape
     for name, t in (("x0", x0), ("st0", st0)):
@@ -1012,7 +1017,7 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
             int(max_iters), x0.data_ptr(), st0.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
     build.check_launch(err, "fit3_cont")
-    FIT3_CONT_LAUNCHES += 1
+    _count("FIT3_CONT_LAUNCHES")
     return out[0], out[1]
 
 
@@ -1102,101 +1107,70 @@ def _fit_pass(signal: torch.Tensor, model: str, te_t, lo_t, hi_t, guess_t, *,
     return params.t(), stats[0], stats[1] > 0.5, stats[2].to(torch.int32)
 
 
-class _TwoPhase:
+def _fit_twophase(signal: torch.Tensor, fit_pass, *, phase1_iters: int, max_iters: int,
+                  prefix3: int, tail_frac: float, tail_rounds: int,
+                  tail_block: int) -> FitResult:
     """The reference's 'twophase' driver (pallas_fit._fit_fused_impl) over
-    this module's kernels, one step at a time so that a sharded caller can
-    issue every shard's launches before it waits on any of them.
+    this module's kernels.
 
-    :meth:`phase1` runs every voxel for ``phase1_iters`` iterations (the
+    Phase 1 runs every voxel for ``phase1_iters`` iterations (the
     multistart prefix clamped to that budget, as the reference clamps it).
-    Each :meth:`round` then reads from the device how many blocks of
-    ``tail_block`` consecutive voxels still hold an unconverged voxel (the
-    call's only host read: 4 bytes), and if any, gathers a buffer of
-    ``cap_b`` of them in a stable order, refits it from scratch with the
-    full budget in one pass, scatters the results back and marks those
-    blocks handled. A refit block restarts from the same start as the
-    single pass and every voxel freezes once it converges, so each handled
-    voxel ends bitwise equal to strategy 'single'. :meth:`result` counts
-    in ``n_overflow`` the unconverged voxels of blocks that no round
-    covered; they keep their phase-1 result."""
+    Each of up to ``tail_rounds`` rounds then reads from the device how
+    many blocks of ``tail_block`` consecutive voxels still hold an
+    unconverged voxel (the call's only host read: 4 bytes), and if any,
+    gathers a buffer of ``cap_b`` of them in a stable order, refits it from
+    scratch with the full budget in one pass, scatters the results back and
+    marks those blocks handled. A refit block restarts from the same start
+    as the single pass and every voxel freezes once it converges, so each
+    handled voxel ends bitwise equal to strategy 'single'. ``n_overflow``
+    counts the unconverged voxels of blocks that no round covered; they
+    keep their phase-1 result."""
+    from .solver import _tail_partition
 
-    def __init__(self, signal: torch.Tensor, fit_pass, *, phase1_iters: int,
-                 max_iters: int, prefix3: int, tail_frac: float, tail_rounds: int,
-                 tail_block: int):
-        self.fit_pass = fit_pass
-        self.phase1_iters, self.max_iters, self.prefix3 = phase1_iters, max_iters, prefix3
-        self.rounds_left, self.bc = int(tail_rounds), int(tail_block)
-        n, t = signal.shape
-        self.n = n
-        self.n_blk_pad = -(-n // self.bc) * self.bc
-        self.nbk = self.n_blk_pad // self.bc
-        quantum = 128 // math.gcd(self.bc, 128)
-        self.cap_b = max(quantum, -(-int(self.nbk * tail_frac) // quantum) * quantum)
-        sig = signal
-        if self.n_blk_pad != n:
-            sig = torch.nn.functional.pad(sig, (0, 0, 0, self.n_blk_pad - n), value=1.0)
-        self.sig_blk = sig.reshape(self.nbk, self.bc * t)
+    bc = int(tail_block)
+    n, t = signal.shape
+    n_blk_pad = -(-n // bc) * bc
+    nbk = n_blk_pad // bc
+    quantum = 128 // math.gcd(bc, 128)
+    cap_b = max(quantum, -(-int(nbk * tail_frac) // quantum) * quantum)
+    sig = signal
+    if n_blk_pad != n:
+        sig = torch.nn.functional.pad(sig, (0, 0, 0, n_blk_pad - n), value=1.0)
+    sig_blk = sig.reshape(nbk, bc * t)
 
-    def phase1(self) -> None:
-        p1 = self.prefix3 if self.prefix3 < self.phase1_iters else 0
-        x, f, conv, nit = self.fit_pass(self.sig_blk.reshape(self.n_blk_pad, -1),
-                                        max_iters=self.phase1_iters, prefix3=p1)
-        self.p_dim = x.shape[1]
+    def packed(x, f, conv, nit):
         # per voxel [x_0..x_{P-1}, fun, converged, n_iter] as float32 columns
-        self.state = torch.cat([x, f[:, None], conv[:, None].to(torch.float32),
-                                nit[:, None].to(torch.float32)], dim=1)
-        # pad voxels (>= n) carry filler fits: handled, so the last partial
-        # block cannot take capacity
-        pad = torch.arange(self.n_blk_pad, device=x.device) >= self.n
-        self.handled = (conv | pad).reshape(self.nbk, self.bc).all(dim=1)
+        return torch.cat([x, f[:, None], conv[:, None].to(torch.float32),
+                          nit[:, None].to(torch.float32)], dim=1)
 
-    def round(self) -> bool:
-        """One compaction + refit round; False (and nothing launched) once
-        the rounds are spent or every block is handled."""
-        if self.rounds_left <= 0:
-            return False
-        self.rounds_left -= 1
-        n_left = int((~self.handled).sum())
-        if n_left == 0:
-            self.rounds_left = 0
-            return False
-        from .solver import _tail_partition
-
-        bidx, n_tail = _tail_partition(self.handled, self.cap_b)
-        m = self.cap_b * self.bc
-        x, f, conv, nit = self.fit_pass(self.sig_blk[bidx].reshape(m, -1),
-                                        max_iters=self.max_iters, prefix3=self.prefix3)
-        upd = torch.cat([x, f[:, None], conv[:, None].to(torch.float32),
-                         nit[:, None].to(torch.float32)], dim=1)
-        # slots at or past n_tail go to a spare row nbk, dropped after
-        valid = torch.arange(self.cap_b, device=bidx.device) < n_tail
-        safe = torch.where(valid, bidx, torch.full_like(bidx, self.nbk))
-        width = self.bc * upd.shape[1]
-        state = torch.cat([self.state.reshape(self.nbk, width), self.state.new_zeros(1, width)])
-        state.index_copy_(0, safe, upd.reshape(self.cap_b, width))
-        self.state = state[:self.nbk].reshape(self.n_blk_pad, -1)
-        handled = torch.cat([self.handled, self.handled.new_ones(1)])
+    x, f, conv, nit = fit_pass(sig, max_iters=phase1_iters,
+                               prefix3=prefix3 if prefix3 < phase1_iters else 0)
+    p = x.shape[1]
+    width = bc * (p + 3)
+    # one spare block row (nbk) takes the writes of unused refit slots
+    state = torch.cat([packed(x, f, conv, nit).reshape(nbk, width), x.new_zeros(1, width)])
+    # pad voxels (>= n) carry filler fits: handled, so the last partial
+    # block cannot take capacity
+    in_range = torch.arange(n_blk_pad, device=x.device) < n
+    handled = torch.cat([(conv | ~in_range).reshape(nbk, bc).all(dim=1),
+                         conv.new_ones(1)])
+    for _ in range(int(tail_rounds)):
+        if not bool((~handled[:nbk]).any()):
+            break
+        bidx, n_tail = _tail_partition(handled[:nbk], cap_b)
+        upd = packed(*fit_pass(sig_blk[bidx].reshape(cap_b * bc, -1),
+                               max_iters=max_iters, prefix3=prefix3))
+        # slots at or past n_tail go to the spare row, dropped after
+        safe = torch.where(torch.arange(cap_b, device=bidx.device) < n_tail, bidx,
+                           torch.full_like(bidx, nbk))
+        state.index_copy_(0, safe, upd.reshape(cap_b, width))
         handled[safe] = True   # a refit block got the full budget: never again
-        self.handled = handled[:self.nbk]
-        return True
-
-    def result(self) -> FitResult:
-        p = self.p_dim
-        conv = self.state[:, p + 1] > 0.5
-        left = (~self.handled)[:, None].expand(self.nbk, self.bc).reshape(self.n_blk_pad)
-        in_range = torch.arange(self.n_blk_pad, device=conv.device) < self.n
-        n_overflow = (left & ~conv & in_range).sum(dtype=torch.int32)
-        n = self.n
-        return FitResult(x=self.state[:n, :p], fun=self.state[:n, p], converged=conv[:n],
-                         n_iter=self.state[:n, p + 2].to(torch.int32), n_overflow=n_overflow)
-
-
-def _fit_twophase(signal, fit_pass, **kw) -> FitResult:
-    tp = _TwoPhase(signal, fit_pass, **kw)
-    tp.phase1()
-    while tp.round():
-        pass
-    return tp.result()
+    state = state[:nbk].reshape(n_blk_pad, p + 3)
+    conv = state[:, p + 1] > 0.5
+    left = (~handled[:nbk])[:, None].expand(nbk, bc).reshape(n_blk_pad)
+    n_overflow = (left & ~conv & in_range).sum(dtype=torch.int32)
+    return FitResult(x=state[:n, :p], fun=state[:n, p], converged=conv[:n],
+                     n_iter=state[:n, p + 2].to(torch.int32), n_overflow=n_overflow)
 
 
 def resolve_fused(te, lo, hi, *, model: str, guess, max_iters: int, ftol: float,
@@ -1266,7 +1240,7 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
         strategy: 'single' (one pass; the kernels compact their own
             stragglers), 'twophase' (a ``phase1_iters`` pass over every
             voxel, then up to ``tail_rounds`` refits of the blocks that
-            still hold an unconverged voxel; see :class:`_TwoPhase`) or
+            still hold an unconverged voxel; see :func:`_fit_twophase`) or
             'auto' = 'single' (see resolve_strategy).
         full_budget: gaussian and VARPRO only — run every voxel to
             ``max_iters`` instead of stopping it once converged (a

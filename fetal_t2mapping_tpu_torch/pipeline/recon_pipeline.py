@@ -409,13 +409,11 @@ def process_qmri(bids_path: str, metadata: List[Dict], *, in_vivo: bool, low_fie
     drains while later stages compute, and every write has landed when
     this returns (``recon.flush_writes``).
 
-    ``prewarm=True`` (in vivo) first starts a background thread that runs
-    the session's device steps once on synthetic data of its acquisition
-    shapes (header reads only; :mod:`..utils.prewarm`), so one-time costs
-    (CUDA context, library handles, allocator growth) overlap the opening
-    reads. Results are the same with or without it. Returns the
-    :class:`~..utils.prewarm.PrewarmHandle` when a prewarm started, else
-    None.
+    ``prewarm=True`` (in vivo) keeps the reference's interface: it reads
+    the first session's headers and, when they hold the fusion's ax/cor/sag
+    triple, returns a finished :class:`~..utils.prewarm.PrewarmHandle` that
+    ran no step (no warm-up beat stage 2 without one on the H100; see
+    :mod:`..utils.prewarm`); else None. Results are the same either way.
 
     ``mesh`` (a ``parallel.VoxelMesh`` whose first device is ``device``)
     spreads the registrations and the torch-mode U-Net over its devices:
@@ -429,7 +427,7 @@ def process_qmri(bids_path: str, metadata: List[Dict], *, in_vivo: bool, low_fie
             synthseg = dataclasses.replace(synthseg, mesh=mesh)
     handle = None
     if prewarm and in_vivo:
-        handle = _start_prewarm(bids_path, metadata, synthseg, registration_kwargs, device)
+        handle = _start_prewarm(bids_path, metadata)
     with nifti.deferred_flushes():
         try:
             _process_qmri_stages(bids_path, metadata, in_vivo=in_vivo, low_field=low_field,
@@ -443,10 +441,10 @@ def process_qmri(bids_path: str, metadata: List[Dict], *, in_vivo: bool, low_fie
     return handle
 
 
-def _start_prewarm(bids_path, metadata, synthseg, registration_kwargs, device):
-    """Start the prewarm for the first session's geometry, or skip it with a
-    warning: a session without the fusion's ax/cor/sag triple, or a setup
-    that fails, costs only the overlap, never the pipeline."""
+def _start_prewarm(bids_path, metadata):
+    """The prewarm's handle for the first session's geometry, or None with a
+    warning for a session without the fusion's ax/cor/sag triple (the
+    reference skips those too)."""
     from ..utils.prewarm import geoms_from_metadata, start_recon_prewarm
 
     geoms = geoms_from_metadata(metadata, bids_path)
@@ -455,13 +453,7 @@ def _start_prewarm(bids_path, metadata, synthseg, registration_kwargs, device):
         log.warning("prewarm skipped: found orientations %s", sorted(geoms))
         return None
     n_echoes = len({r["EchoTime"] for r in metadata if r.get("EchoTime") is not None})
-    try:
-        return start_recon_prewarm(geoms, n_echoes=n_echoes,
-                                   registration_kwargs=registration_kwargs,
-                                   synthseg=synthseg, device=device)
-    except Exception:
-        log.warning("prewarm skipped (setup failed)", exc_info=True)
-        return None
+    return start_recon_prewarm(geoms, n_echoes=n_echoes)
 
 
 def _process_qmri_stages(bids_path, metadata, *, in_vivo, low_field, synthseg, seeds_key,

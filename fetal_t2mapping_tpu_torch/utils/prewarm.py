@@ -1,244 +1,65 @@
-"""Cold-start prewarm: run the stage-2 device steps once on a background
-thread, on small synthetic data of the session's geometry, while the
-pipeline's opening host work (input reads) runs.
+"""Cold-start prewarm: kept for the reference's API, and runs no step.
 
-The counterpart of ``fetal_t2mapping_tpu.utils.prewarm``. There the cost
-is a remote load per compiled TPU program; with eager PyTorch on one GPU
-it is what a process pays the first time it touches each piece. Measured
-on an H100 in fresh processes (``chip_smoke.py``'s ``first_launch_costs``
-and ``prewarm_study``, PERF.md): the CUDA context 0.25-0.31 s, the first
-cuBLAS matmul 0.12-0.47 s, the first call of each stage-2 entry point
-0.1-0.6 s more than the second (lazily loaded kernel modules). But stage
-2's first device op (a matmul in the first resample) comes one input read
-after the start, so there is little to overlap, and every warm-up made
-stage 2 slower: a replay at the session's size (+42%) or at 32 voxels a
-side, the context and a cuBLAS handle (PyTorch keeps one per thread), and
-the context alone (+12% in eight interleaved fresh processes). So by
-default (``side=0``) the prewarm runs no step. With ``side > 0`` it
-replays the pipeline's entry points on the session's geometry (from
-header reads only, :func:`..core.nifti.read_header`) scaled down to a grid
-of at most ``side`` voxels a side, with ``PREWARM_ITERS`` Adam steps per
-registration level: resample with the integer disk-cast replay, fusion,
-TV denoise, the echo registration and its warp, the FeTA remap, and the
-U-Net forward when the session segments with
-``SynthSegRunner(mode="torch")``; ``chip_smoke.py`` uses it to measure
-each step's first-launch cost.
-
-The replay runs on a CUDA stream of its own, so its kernels can overlap
-the session's instead of queueing behind them, and it draws its synthetic
-data from its own seeded numpy and torch generators: it never touches the
-global RNG state, and the session's results are the same with or without
-it.
+The counterpart of ``fetal_t2mapping_tpu.utils.prewarm``. There the cost it
+hides is a remote load per compiled TPU program, and a background thread
+runs the stage-2 programs once on synthetic data while the inputs are
+read. With eager PyTorch on one GPU the one-time costs are what a process
+pays the first time it touches each piece (the CUDA context, the cuBLAS
+handle, lazily loaded kernel modules), and stage 2's first device op comes
+one input read after its start, so there is almost nothing to overlap.
+Measured on an H100 in fresh processes (``chip_smoke.prewarm_study``,
+PERF.md): a replay of the stage at the session's size, a replay at 32
+voxels a side, the context and a cuBLAS handle, and the context alone each
+made stage 2 slower or did not beat it. So ``start_recon_prewarm`` returns
+a finished handle that ran no step, and ``process_qmri(prewarm=True)`` /
+``qmri_reconstruction --prewarm`` keep the reference's interface and
+results at no cost.
 
 Usage::
 
     process_qmri(..., prewarm=True)        # or qmri_reconstruction --prewarm
-
-or explicitly, to overlap an earlier phase::
-
-    h = start_recon_prewarm(acq_geoms, side=32, registration_kwargs=...)
-    ...                                     # ingest / host work
-    h.wait()                                # optional; the thread is a daemon
+    h = start_recon_prewarm(acq_geoms)     # h.done, h.steps == []
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import math
-import os
-import threading
-import time
 from typing import Dict, List, Optional
 
-import numpy as np
-import torch
-
-from ..core.volume import Volume, np_dtype
-from ..device import resolve_device
-from .profiling import profiler
+from ..core.volume import Volume
 
 log = logging.getLogger("fetal_t2mapping_tpu_torch.prewarm")
 
-#: the largest side, in voxels, of the grid the prewarm replays the stage on;
-#: 0 (the default): no step
-PREWARM_SIDE = 0
-#: Adam steps per pyramid level of the prewarm's registrations (a solve
-#: launches the same kernels whatever its budget)
-PREWARM_ITERS = 2
-
 
 class PrewarmHandle:
-    """Join handle of a background prewarm.
+    """Handle of a prewarm, with the reference's fields: ``steps`` (the
+    steps that completed: none), ``error`` (None) and ``seconds`` (0).
+    ``wait()`` returns at once."""
 
-    ``wait()`` blocks until the run ends and never raises: a prewarm
-    failure costs only the overlap, so it is logged and kept on ``error``.
-    ``steps`` lists the steps that completed, ``step_seconds`` the wall
-    time of each, ``seconds`` the run's."""
-
-    def __init__(self, thread: threading.Thread):
-        self._thread = thread
+    def __init__(self):
         self.steps: List[str] = []
-        self.step_seconds: Dict[str, float] = {}
         self.error: Optional[BaseException] = None
         self.seconds: float = 0.0
 
     def wait(self, timeout: Optional[float] = None) -> "PrewarmHandle":
-        self._thread.join(timeout)
         return self
 
     @property
     def done(self) -> bool:
-        return not self._thread.is_alive()
-
-
-def _smooth_noise(shape, rng: np.random.Generator) -> np.ndarray:
-    """A structured synthetic image (a low-frequency product pattern plus
-    noise): registration and TV run their usual budgets on it; only the
-    work matters, not the answer."""
-    grids = np.ix_(*(np.linspace(0.0, 3.0, s, dtype=np.float32) for s in shape))
-    base = 100.0 * np.cos(grids[0]) * np.cos(grids[1]) * np.cos(grids[2])
-    return (base + rng.normal(0.0, 5.0, shape)).astype(np.float32)
-
-
-def _scaled(geom: Volume, factor: float) -> Volume:
-    """``geom``'s field of view on a grid ``factor`` times as fine (< 1:
-    coarser): same origin, direction and physical extent."""
-    shape = tuple(max(2, int(math.ceil(s * factor))) for s in geom.shape)
-    spacing = tuple(sp * sz / nz for sp, sz, nz in zip(geom.spacing, geom.size, shape[::-1]))
-    return Volume(np.broadcast_to(np.zeros((), np_dtype(geom.data)), shape), spacing=spacing,
-                  origin=geom.origin, direction=geom.direction)
-
-
-def _run(acq_geoms: Dict[str, Volume], handle: PrewarmHandle, *, fixed_type: str,
-         n_echoes: int, denoise: bool, high_res: float, registration_kwargs: Optional[dict],
-         labels: bool, synthseg, side: int, device) -> None:
-    from ..core import nifti
-    from ..labels.feta import synthseg_to_feta
-    from ..recon.denoise import denoise_volume
-    from ..recon.fuse import fuse_orientations
-    from ..recon.registration import register_rigid_multi
-    from ..recon.resample import resample_to_reference, resample_volume
-
-    if not side:
-        # the default: no step; every warm-up measured on the H100 made stage
-        # 2 slower, creating the CUDA context on this thread included (PERF.md)
-        return
-    dev = resolve_device(device)
-    reg_kw = dict(registration_kwargs or {})
-    reg_kw["iters"] = (PREWARM_ITERS,) * len(reg_kw.get("levels", (4, 2, 1)))
-    rng = np.random.default_rng(0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    unet = getattr(synthseg, "mode", "") == "torch" and synthseg.available()
-    # the session's high-resolution grid, scaled so its largest side is `side`
-    hr_side = max(max(sz * sp / high_res for sz, sp in zip(g.size, g.spacing))
-                  for g in acq_geoms.values())
-    factor = min(1.0, side / hr_side)
-
-    last = [time.perf_counter()]
-
-    def done(step: str) -> None:
-        if stream is not None:
-            stream.synchronize()
-        handle.steps.append(step)
-        now = time.perf_counter()
-        handle.step_seconds[step] = now - last[0]
-        last[0] = now
-
-    def steps():
-        # 1) acquisition -> HR isotropic resample, per orientation, with the
-        #    header's dtype: the session resamples the converted int16/uint16
-        #    inputs, writes them cast to that dtype and fuses the cache-served
-        #    cast volumes, so replay that cast
-        his = {}
-        for otype, geom in acq_geoms.items():
-            geom = _scaled(geom, factor)
-            dt = np_dtype(geom.data)
-            noise = _smooth_noise(geom.shape, rng)
-            vol = geom.with_data(np.abs(noise).astype(dt) if dt.kind == "u" else noise.astype(dt))
-            hi = resample_volume(vol, [high_res / factor] * 3, on_device=True, device=dev)
-            if dt.kind in "iu":
-                hi = hi.with_data(nifti._cast_for_disk(hi.data, dt))
-            his[otype] = hi
-        done("resample")
-
-        # 2) fusion: the two-pair registration, the warps, the combine
-        fused = fuse_orientations(his, fixed_type, registration_kwargs=reg_kw, device=dev)
-        done("fuse")
-        if denoise:
-            denoise_volume(fused, device=dev)
-            done("denoise")
-
-        # 3) the later echoes' registration onto the first and the warp
-        if n_echoes > 1:
-            movs = [fused] * (n_echoes - 1)
-            regs = register_rigid_multi(fused, movs, device=dev, **reg_kw)
-            resample_to_reference(movs[0], fused, transform=regs[0].matrix_device,
-                                  on_device=True, device=dev)
-            done("reg_echo")
-
-        # 4) the FeTA remap, on labels made on the device
-        if labels:
-            lab = (torch.rand(fused.shape, generator=gen, device=dev) > 0.5).to(torch.int16) * 2
-            synthseg_to_feta(fused.with_data(lab), device=dev)
-            done("feta")
-
-        # 5) the U-Net forward, when the session segments in this process
-        #    with the port's U-Net
-        if unet:
-            from ..labels.unet3d import load_params, segment_volume
-
-            weights = synthseg.weights or os.environ.get("FT2_SYNTHSEG_WEIGHTS")
-            segment_volume(load_params(weights), rng.random(fused.shape).astype(np.float32),
-                           mesh=getattr(synthseg, "mesh", None), device=synthseg.device)
-            done("unet")
-
-    t0 = time.perf_counter()
-    try:
-        # thread-seconds of background work: it overlaps the main thread's
-        # stages by design
-        with profiler.stage("recon.prewarm"):
-            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                steps()
-    except Exception as exc:   # a prewarm failure never reaches the pipeline
-        handle.error = exc
-        log.warning("prewarm failed after %s: %s", handle.steps, exc)
-    finally:
-        handle.seconds = time.perf_counter() - t0
-        log.info("prewarm done in %.1f s: %s", handle.seconds, handle.steps)
+        return True
 
 
 def start_recon_prewarm(acq_geoms: Dict[str, Volume], *, fixed_type: str = "ax",
                         n_echoes: int = 3, denoise: bool = True, high_res: float = 1.0,
                         registration_kwargs: Optional[dict] = None, labels: bool = True,
-                        synthseg=None, side: int = PREWARM_SIDE,
-                        device="cuda") -> PrewarmHandle:
-    """Start the background prewarm for one session's geometry on ``device``.
-
-    ``acq_geoms`` maps orientation ('ax'/'cor'/'sag') to a geometry Volume
-    of that acquisition (from :func:`..core.nifti.read_header`; its data is
-    never read). ``registration_kwargs`` should be what the session passes.
-    ``synthseg`` (a :class:`..labels.synthseg.SynthSegRunner`) adds the
-    U-Net forward when its mode is ``"torch"`` (the other modes run outside
-    this process's device code). ``side`` bounds the replay's grid (0,
-    the default: no step). Returns at once; the daemon thread runs
-    each step once."""
-    geoms = dict(acq_geoms)
-    if fixed_type not in geoms:
-        raise ValueError(f"fixed_type {fixed_type!r} not in {sorted(geoms)}")
-    dev = resolve_device(device)
-    # late-binding closure: `handle` is assigned before start()
-    thread = threading.Thread(
-        target=lambda: _run(geoms, handle, fixed_type=fixed_type, n_echoes=n_echoes,
-                            denoise=denoise, high_res=high_res,
-                            registration_kwargs=registration_kwargs, labels=labels,
-                            synthseg=synthseg, side=int(side), device=dev),
-        name="ft2-prewarm", daemon=True)
-    handle = PrewarmHandle(thread)
-    with profiler.stage("recon.prewarm_start"):
-        thread.start()
-    return handle
+                        synthseg=None, device="cuda") -> PrewarmHandle:
+    """The reference's entry point with its arguments: checks that
+    ``acq_geoms`` (orientation -> geometry Volume) holds the fusion's fixed
+    orientation and returns a finished :class:`PrewarmHandle`. It starts no
+    thread and touches no device (see the module docstring)."""
+    if fixed_type not in acq_geoms:
+        raise ValueError(f"fixed_type {fixed_type!r} not in {sorted(acq_geoms)}")
+    return PrewarmHandle()
 
 
 def geoms_from_metadata(metadata: List[Dict], bids_path: str) -> Dict[str, Volume]:

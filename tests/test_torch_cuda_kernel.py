@@ -22,8 +22,7 @@ gives the bits of ``fit_fused`` on the masked voxels alone. N4: two card
 runs bitwise, the card within the CPU tests' tolerances of the CPU. ROI
 tables: the card's equal the CPU's. The I/O layer: a CUDA volume queued by
 ``nifti.write_async`` from a side stream is read back from the cache and,
-after the flush, from the file, equal to what the stream computed; the
-prewarm runs every step on the card. The voxel mesh on one card
+after the flush, from the file, equal to what the stream computed. The voxel mesh on one card
 (``voxel_mesh(devices=[cuda, cuda])``, two shards on two streams): each
 shard allocates its worklist on its own stream, so repeated sharded fits
 (the plain fit, 'twophase', and one read on the caller's stream without a
@@ -588,21 +587,6 @@ def test_write_async_from_a_side_stream(card, tmp_path, dtype):
     volcache.clear()
     got = nifti.read(path).data
     assert got.dtype == np.dtype(dtype) and np.array_equal(got, want)
-
-
-def test_prewarm_runs_every_step_on_cuda(card):
-    from fetal_t2mapping_tpu_torch.core import Volume
-    from fetal_t2mapping_tpu_torch.utils.prewarm import start_recon_prewarm
-
-    geoms = {}
-    for otype, axis in (("ax", 2), ("cor", 1), ("sag", 0)):
-        spacing, shape = [1.0, 1.0, 1.0], [48, 48, 48]
-        spacing[axis], shape[2 - axis] = 4.0, 12
-        geoms[otype] = Volume(np.broadcast_to(np.zeros((), np.int16), tuple(shape)),
-                              spacing=tuple(spacing))
-    h = start_recon_prewarm(geoms, n_echoes=3, side=32, device=card).wait(timeout=300)
-    assert h.done and h.error is None, h.error
-    assert h.steps == ["resample", "fuse", "denoise", "reg_echo", "feta"]
 
 
 _MESH_FITS = [("gaussian", LO, HI, None),

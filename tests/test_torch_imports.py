@@ -112,9 +112,7 @@ volcache.clear()
 ok = bool((nifti.read(path).data == np.arange(60).reshape(3, 4, 5)).all())
 geoms = {o: Volume(np.broadcast_to(np.zeros((), np.int16), (4, 12, 12)), spacing=(1, 1, 3))
          for o in ("ax", "cor", "sag")}
-h = start_recon_prewarm(geoms, n_echoes=1, denoise=False, side=12, device="cpu",
-                        registration_kwargs=dict(levels=(1,), sigmas=(0.0,), iters=(2,)))
-h.wait(timeout=120)
+h = start_recon_prewarm(geoms, n_echoes=1, denoise=False, device="cpu").wait()
 print(json.dumps({"ok": ok, "native": native.available(), "steps": h.steps,
                   "error": repr(h.error),
                   "leaked": sorted(m for m in sys.modules
@@ -139,7 +137,7 @@ def test_io_layer_runs_without_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["ok"] and res["native"] and res["leaked"] == [], res
-    assert res["steps"] == ["resample", "fuse", "feta"], res
+    assert res["steps"] == [] and res["error"] == "None", res   # the prewarm runs no step
 
 
 _JAX_IMPORT = re.compile(

@@ -138,6 +138,27 @@ def test_fit_fused_sharded_rejects_bad_tail_block():
                           strategy="twophase", tail_block=12)
 
 
+def test_launch_counters_lose_no_count_across_shard_threads(monkeypatch):
+    """run_sharded launches each shard's kernels from a thread of its own:
+    the module's launch counters count every launch (8 threads x 20,000)."""
+    import threading
+
+    monkeypatch.setattr(fused_fit, "KERNEL_LAUNCHES", 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)              # switch threads as often as possible
+    try:
+        threads = [threading.Thread(target=lambda: [fused_fit._count("KERNEL_LAUNCHES")
+                                                    for _ in range(20_000)])
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert fused_fit.KERNEL_LAUNCHES == 8 * 20_000
+
+
 def test_fit_batch_sharded_is_fit_batch():
     sig, _ = _make_data(512, seed=4)
     lo, hi = (0.0, 10.0), (1e6, 2000.0)

@@ -2,14 +2,15 @@
 process_qmri(prewarm=True): tests/test_prewarm.py's cases on the port.
 
 On the CPU these pin the host-side contracts: read_header's geometry and
-dtype fidelity, the thread's life cycle and its steps, a failure kept on
-the handle, the U-Net step in 'torch' mode, and the process_qmri wiring.
+dtype fidelity, the prewarm's handle (finished at once, no step: the port's
+prewarm runs none), and the process_qmri wiring.
 That the session's files are the same with and without the prewarm is
 held in test_torch_recon_pipeline.py.
 """
 
 import os
 import struct
+import threading
 
 import numpy as np
 import pytest
@@ -101,69 +102,38 @@ def _acq_geoms(n=30, dtype=np.float32):
     return geoms
 
 
-def _run(*args, side=16, **kwargs):
-    """The prewarm with its replay (side > 0) on the CPU, to its end."""
-    h = start_recon_prewarm(*args, side=side, device="cpu", **kwargs)
-    h.wait(timeout=300)
-    assert h.done
-    return h
-
-
 class TestPrewarm:
-    def test_runs_all_steps(self):
+    """The prewarm keeps the reference's interface and runs no step (no
+    warm-up made stage 2 faster on the H100, utils/prewarm)."""
+
+    @pytest.mark.parametrize("case", ["float32", "uint16", "synthseg_torch", "synthseg_fake",
+                                      "unmatched_registration_kwargs"])
+    def test_default_runs_no_step(self, case, tmp_path):
+        """Whatever the session (integer inputs, a torch-mode U-Net whose
+        weights are never read, registration arguments the stage would
+        reject), the handle is finished at once: no step, no error, no
+        thread started and the global RNG states untouched."""
+        kwargs = {"synthseg_torch": dict(synthseg=SynthSegRunner(
+                      mode="torch", weights=str(tmp_path / "missing.npz"), device="cpu")),
+                  "synthseg_fake": dict(synthseg=SynthSegRunner(mode="fake")),
+                  "unmatched_registration_kwargs": dict(
+                      registration_kwargs=dict(levels=(2, 1)))}.get(case, {})
+        geoms = _acq_geoms(dtype=np.uint16 if case == "uint16" else np.float32)
         state = torch.random.get_rng_state()
         np_state = np.random.get_state()[1].copy()
-        h = _run(_acq_geoms(), n_echoes=3, registration_kwargs=dict(REG_FAST))
-        assert h.error is None, h.error
-        assert h.steps == ["resample", "fuse", "denoise", "reg_echo", "feta"]
-        assert h.seconds > 0
-        # its own generators: the global RNG states are untouched
+        threads = threading.active_count()
+        h = start_recon_prewarm(geoms, n_echoes=3, device="cpu", **kwargs)
+        assert threading.active_count() == threads
+        assert h.wait(timeout=0) is h
+        assert h.done and h.error is None and h.steps == [] and h.seconds == 0.0
         assert torch.equal(torch.random.get_rng_state(), state)
         assert np.array_equal(np.random.get_state()[1], np_state)
-
-    def test_default_runs_no_step(self):
-        """side=0, the default: no step (every warm-up measured on the H100
-        made stage 2 slower, PERF.md), and nothing fails."""
-        h = start_recon_prewarm(_acq_geoms(), device="cpu").wait(timeout=300)
-        assert h.done and h.error is None, h.error
-        assert h.steps == [] and h.step_seconds == {}
-
-    def test_integer_inputs_replay_disk_cast(self):
-        h = _run(_acq_geoms(dtype=np.uint16), n_echoes=2, denoise=False,
-                 registration_kwargs=dict(REG_FAST))
-        assert h.error is None, h.error
-        assert h.steps == ["resample", "fuse", "reg_echo", "feta"]
-
-    def test_torch_synthseg_forward_is_prewarmed(self, tmp_path):
-        from fetal_t2mapping_tpu_torch.labels.unet3d import (SYNTHSEG_LABELS, UNetConfig,
-                                                             random_params)
-
-        cfg = UNetConfig(n_levels=3, base_features=4, n_labels=len(SYNTHSEG_LABELS))
-        wpath = str(tmp_path / "w.npz")
-        np.savez(wpath, **random_params(cfg))
-        h = _run(_acq_geoms(), n_echoes=2, denoise=False, registration_kwargs=dict(REG_FAST),
-                 synthseg=SynthSegRunner(mode="torch", weights=wpath, device="cpu"))
-        assert h.error is None, h.error
-        assert h.steps == ["resample", "fuse", "reg_echo", "feta", "unet"]
-
-    def test_other_synthseg_modes_skip_unet(self):
-        h = _run(_acq_geoms(), n_echoes=2, denoise=False, registration_kwargs=dict(REG_FAST),
-                 synthseg=SynthSegRunner(mode="fake"))
-        assert h.error is None, h.error
-        assert "unet" not in h.steps
 
     def test_requires_fixed_orientation(self):
         geoms = _acq_geoms()
         del geoms["ax"]
         with pytest.raises(ValueError, match="fixed_type"):
             start_recon_prewarm(geoms, device="cpu")
-
-    def test_prewarm_failure_is_contained(self):
-        # levels without matching sigmas fail inside the thread, after the
-        # resample: the error is kept on the handle, never raised
-        h = _run(_acq_geoms(), registration_kwargs=dict(levels=(2, 1)))
-        assert h.error is not None
-        assert h.steps == ["resample"]
 
 
 class TestProcessQmriPrewarm:
@@ -206,7 +176,7 @@ class TestProcessQmriPrewarm:
                          registration_kwargs=dict(REG_FAST), prewarm=True, device="cpu")
         h.wait(timeout=300)
         assert h.error is None, h.error
-        assert h.steps == []     # the default: no replay (utils/prewarm)
+        assert h.done and h.steps == []     # no step (utils/prewarm)
         recon = get_img_path(bids, rows[0], C.RECON_DIRNAME)
         assert os.path.exists(recon)
         assert nifti.read(recon).shape[0] >= 30
