@@ -54,7 +54,15 @@ counts in ``n_overflow`` (equal to a host count from the phase-1 flags),
 ``process_t2maps(mesh=)`` on phase 4's session (maps equal),
 ``register_rigid(mesh=)`` on phase 11's scene (within 5e-3 rad / 0.3 mm of
 one device, and the recovery gate), ``segment_volume(mesh=)`` at 160^3
-(labels equal) and ``mesh_from_flag`` with one card too many.
+(labels equal) and ``mesh_from_flag`` with one card too many. Phase 18,
+the last pieces: (a) phase 13's 240^3 request per model through
+``fit_volume(mesh=)`` on phase 17's mesh, every layout bitwise equal to the
+single-device call (a starved ``mask_frac`` too), 'twophase' bitwise on the
+voxels its rounds handle with ``n_overflow`` equal to the host count, ms
+per request, launches (one per shard) and peak memory; (b) ``entry()``
+against the same call on the CPU; (c) ``dryrun_multichip(2)`` on the mesh;
+(d) the five example scripts with ``figures=False`` against their truth
+gates.
 Each phase prints one line with its wall time; any failed gate or
 error exits non-zero. The second-to-last lines are the kernels' JSON
 record and the card's name and power limit; the last line is
@@ -2655,6 +2663,31 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
 
 
 # ------------------------------------------------ the voxel mesh and 'twophase' (phase 17)
+def smoke_mesh(dev: torch.device):
+    """Two cards when two are visible, else ``dev`` twice (two shards on two
+    streams of one card, or two CPU shards): (mesh, description)."""
+    from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
+
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        return voxel_mesh(2), "two cards"
+    return voxel_mesh(devices=[dev, dev]), f"{dev} twice (two streams)"
+
+
+def host_overflow(conv1: np.ndarray, bc: int, frac: float, rounds: int):
+    """The rows a 'twophase' fit of one batch leaves unrefit, from its
+    phase-1 flags ``conv1``: unconverged rows of the blocks of ``bc`` rows
+    past the first rounds * cap_b blocks that hold one, in block order."""
+    n = conv1.size
+    nbk = -(-n // bc)
+    c = np.ones(nbk * bc, bool)
+    c[:n] = conv1
+    quantum = 128 // math.gcd(bc, 128)
+    cap_b = max(quantum, -(-int(nbk * frac) // quantum) * quantum)
+    left = np.zeros(nbk, bool)
+    left[np.flatnonzero(~c.reshape(nbk, bc).all(1))[rounds * cap_b:]] = True
+    return np.repeat(left, bc)[:n] & ~conv1
+
+
 def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int = 240,
                  n_reg: int = 192, n_seg: int = 160):
     """The port's mesh and 'twophase' paths. The mesh is two cards when two
@@ -2671,38 +2704,18 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
     n_seg^3 with phase 9's weights (fp32, TF32 off): labels equal to the
     unsharded forward's; (f) mesh_from_flag(device_count() + 1) raises.
     Returns (per-model ms and launches of (a)/(b), registration ms)."""
-    from math import gcd
-
-    from fetal_t2mapping_tpu_torch.parallel import (fit_fused_sharded, mesh_from_flag,
-                                                   voxel_mesh)
+    from fetal_t2mapping_tpu_torch.parallel import fit_fused_sharded, mesh_from_flag
     from fetal_t2mapping_tpu_torch.recon import registration
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    if cuda and torch.cuda.device_count() >= 2:
-        mesh, mesh_kind = voxel_mesh(2), "two cards"
-    else:
-        mesh, mesh_kind = voxel_mesh(devices=[dev, dev]), f"{dev} twice (two streams)"
+    mesh, mesh_kind = smoke_mesh(dev)
 
     def same(a, b, keep=None):
         fields = [(a.x, b.x), (a.fun, b.fun), (a.converged, b.converged), (a.n_iter, b.n_iter)]
         if keep is None:
             return all(torch.equal(u, v) for u, v in fields)
         return all(torch.equal(u[keep], v[keep]) for u, v in fields)
-
-    def host_overflow(conv1: np.ndarray, bc: int, frac: float, rounds: int):
-        """The voxels 'twophase' leaves unrefit, from its phase-1 flags:
-        unconverged voxels of the blocks past the first rounds * cap_b
-        blocks that hold one, in block order."""
-        n = conv1.size
-        nbk = -(-n // bc)
-        c = np.ones(nbk * bc, bool)
-        c[:n] = conv1
-        quantum = 128 // gcd(bc, 128)
-        cap_b = max(quantum, -(-int(nbk * frac) // quantum) * quantum)
-        left = np.zeros(nbk, bool)
-        left[np.flatnonzero(~c.reshape(nbk, bc).all(1))[rounds * cap_b:]] = True
-        return np.repeat(left, bc)[:n] & ~conv1
 
     fits = {"gaussian": (TES3, LO, HI, None, {}),
             "gaussian_rician": (TES3, LO3, HI3, GUESS3, TOL3),
@@ -2869,6 +2882,288 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
     return rows, reg_ms
 
 
+# ------------------------------------------------ fit_volume over a mesh, the entry module
+# and the examples (phase 18)
+def volume_fit_rows(mask: np.ndarray, compact: bool, mask_frac: float, block: int) -> np.ndarray:
+    """The voxel (flat index) each row of fit_volume's fit batch holds, -1
+    for a filler row, recomputed on the host from the layout's rules: dense,
+    every voxel in order; compacted, the first ``_block_capacity`` blocks of
+    ``block`` voxels that hold a masked voxel, in block order."""
+    from fetal_t2mapping_tpu_torch.models.volume_fit import _block_capacity
+
+    flat = np.asarray(mask, bool).reshape(-1)
+    n = flat.size
+    if not compact:
+        return np.where(flat, np.arange(n), -1)
+    n_pad = -(-n // block) * block
+    sel = np.zeros(n_pad, bool)
+    sel[:n] = flat
+    kept = np.flatnonzero(sel.reshape(-1, block).any(1))[:_block_capacity(n, mask_frac, block)]
+    rows = np.full((_block_capacity(n, mask_frac, block), block), -1)
+    idx = kept[:, None] * block + np.arange(block)
+    rows[:kept.size] = np.where(sel[idx], idx, -1)
+    return rows.reshape(-1)
+
+
+def volume_twophase_left(rows: np.ndarray, conv1: np.ndarray, shards: int, n_fit: int,
+                         bc: int, frac: float, rounds: int = 2) -> np.ndarray:
+    """The masked voxels a 'twophase' fit_volume leaves unrefit: ``rows``
+    (volume_fit_rows) padded with filler to ``n_fit`` rows, split into
+    ``shards`` contiguous shards that each run their own rounds, from the
+    phase-1 flags ``conv1`` (flat, per voxel; a filler row converges in
+    phase 1). Returns a flat bool map."""
+    r = np.full(n_fit, -1)
+    r[:rows.size] = rows
+    conv = np.ones(n_fit, bool)
+    conv[r >= 0] = conv1[r[r >= 0]]
+    m = n_fit // shards
+    over = np.concatenate([host_overflow(conv[i * m:(i + 1) * m], bc, frac, rounds)
+                           for i in range(shards)])
+    left = np.zeros(conv1.size, bool)
+    left[r[over & (r >= 0)]] = True
+    return left
+
+
+def _peak_mib(fn, dev):
+    """(result, peak bytes allocated on ``dev`` during fn, in MiB; nan on the CPU)."""
+    if dev.type != "cuda":
+        return fn(), float("nan")
+    _sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    _sync()
+    return out, torch.cuda.max_memory_allocated(dev) / 2 ** 20
+
+
+def phase18a_serving_mesh(n: int = SERVING_N, device: str = "cuda"):
+    """The 240^3 serving request (bench.py:431-440, phase 13's 22% mask)
+    per model through fit_volume(mesh=) on phase 17's mesh: each layout's
+    every map and count bitwise equal to the single-device call; a starved
+    mask_frac gives the same n_overflow > 0; 'twophase' per layout: every
+    voxel its rounds handle bitwise equal to 'single', n_overflow equal to
+    the host count from the phase-1 flags; ms per request single and mesh,
+    kernel launches per mesh request (one per shard) and peak memory."""
+    from fetal_t2mapping_tpu_torch.models import volume_fit
+    from fetal_t2mapping_tpu_torch.parallel import pad_to_devices
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    mesh, mesh_kind = smoke_mesh(dev)
+    fields = volume_fit.VolumeFitResult._fields
+    starved = 0.05
+    lines, rows_out = [], {}
+    for fit_name in ("gaussian", "gaussian_rician", "rician"):
+        fit = SERVING_FITS[fit_name]
+        lo, hi = fit["lo"], fit["hi"]
+        kw = dict(model=fit["model"], guess=fit["guess"], ftol=fit["ftol"], gtol=fit["gtol"],
+                  varpro3=fit["varpro3"], check_capacity=False)
+        sig, mask, t2 = serving_request(n, 1.0, seed=21, device=device)
+        mask_np = mask.cpu().numpy()
+        n_mask = int(mask_np.sum())
+        # phase 13's rule, 6% over the touched blocks: 0.30 at 240^3
+        n_blocks = int(volume_fit._count_touched_blocks(mask, mask.numel(), 32))
+        mask_frac = math.ceil(106 * n_blocks * 32 / mask.numel()) / 100
+        conv1 = volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac,
+                                      max_iters=10, device=dev, **kw).converged
+        conv1 = conv1.cpu().numpy().reshape(-1)
+        bc = fused_fit.resolve_tail_block(None, fit["model"])
+        per_layout = {}
+        for lay, lk in LAYOUTS.items():
+            call_kw = dict(kw, mask_frac=mask_frac, **lk)
+            single, peak_s = _peak_mib(lambda: volume_fit.fit_volume(
+                sig, mask, TES3, lo, hi, device=dev, **call_kw), dev)
+            for c in COUNTERS:
+                setattr(fused_fit, c, 0)
+            meshed, peak_m = _peak_mib(lambda: volume_fit.fit_volume(
+                sig, mask, TES3, lo, hi, mesh=mesh, **call_kw), dev)
+            counts = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+            want = {c: mesh.size for c in fit["kernels"]} if cuda else {}
+            gate(counts == want, f"(a) {fit_name} {lay}: launches per mesh request {counts}, "
+                 f"expected {want}")
+            for f in fields:
+                gate(torch.equal(getattr(single, f), getattr(meshed, f)),
+                     f"(a) {fit_name} {lay}: fit_volume(mesh=) {f} differs from one device")
+            gate(int(meshed.n_masked) == n_mask and int(meshed.n_overflow) == 0,
+                 f"(a) {fit_name} {lay}: n_masked {int(meshed.n_masked)} ({n_mask}), n_overflow "
+                 f"{int(meshed.n_overflow)}")
+            over = {}
+            if lk.get("compact"):
+                s_kw = dict(kw, mask_frac=starved, **lk)
+                a = volume_fit.fit_volume(sig, mask, TES3, lo, hi, device=dev, **s_kw)
+                b = volume_fit.fit_volume(sig, mask, TES3, lo, hi, mesh=mesh, **s_kw)
+                over = dict(single=int(a.n_overflow), mesh=int(b.n_overflow))
+                gate(over["single"] == over["mesh"] > 0,
+                     f"(a) {fit_name} {lay}: starved n_overflow {over}")
+                gate(all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields),
+                     f"(a) {fit_name} {lay}: starved fit_volume(mesh=) differs from one device")
+            rows = volume_fit_rows(mask_np, bool(lk.get("compact")), mask_frac,
+                                   lk.get("block", 32))
+            tp_over = {}
+            for label, tail_frac in (("default", None), ("starved", 1e-4)):
+                tp = volume_fit.fit_volume(sig, mask, TES3, lo, hi, mesh=mesh, strategy="twophase",
+                                           tail_frac=tail_frac, **call_kw)
+                left = volume_twophase_left(rows, conv1, mesh.size,
+                                            pad_to_devices(rows.size, mesh), bc,
+                                            fused_fit.resolve_tail_frac(tail_frac, bc))
+                gate(int(tp.n_overflow) == int(left.sum()),
+                     f"(a) {fit_name} {lay} twophase {label}: n_overflow {int(tp.n_overflow)}, "
+                     f"host {int(left.sum())}")
+                keep = torch.from_numpy(mask_np & ~left.reshape(mask_np.shape)).to(dev)
+                for f in VF_MAPS:
+                    gate(torch.equal(getattr(tp, f)[keep], getattr(single, f)[keep]),
+                         f"(a) {fit_name} {lay} twophase {label}: {f} differs from 'single' on "
+                         "a handled voxel")
+                tp_over[label] = int(tp.n_overflow)
+            if cuda:
+                ms_s = serving_ms(lambda: volume_fit.fit_volume(sig, mask, TES3, lo, hi,
+                                                                device=dev, **call_kw))
+                ms_m = serving_ms(lambda: volume_fit.fit_volume(sig, mask, TES3, lo, hi,
+                                                                mesh=mesh, **call_kw))
+            else:
+                ms_s = ms_m = float("nan")
+            per_layout[lay] = dict(single_ms=ms_s, mesh_ms=ms_m, launches=counts,
+                                   peak_mib_single=peak_s, peak_mib_mesh=peak_m,
+                                   starved_n_overflow=over, twophase_n_overflow=tp_over)
+            del single, meshed, tp
+        rows_out[fit_name] = per_layout
+        lines.append(f"{fit_name}: " + ", ".join(
+            f"{lay} single {r['single_ms']:.3f} ms / mesh {r['mesh_ms']:.3f} ms, launches "
+            f"{r['launches']}, peak {r['peak_mib_single']:.0f} / {r['peak_mib_mesh']:.0f} MiB, "
+            f"starved mask_frac n_overflow {r['starved_n_overflow'] or '-'}, twophase "
+            f"n_overflow {r['twophase_n_overflow']}" for lay, r in per_layout.items()))
+        del sig, mask, t2
+    card = card_name_and_power_limit() if cuda else device
+    print(f"phase 18a fit_volume(mesh=) ({mesh_kind}: {mesh}; {n}^3 x 3 TEs, {n_mask} masked "
+          f"voxels, mask_frac {mask_frac}, starved {starved}; twophase at the default tail_frac "
+          f"and 1e-4; 3 rounds of 4 requests; every map and count bitwise equal to one device, "
+          f"twophase bitwise on handled voxels, n_overflow = host count): " + "; ".join(lines) + f"; {card}", flush=True)
+    return rows_out
+
+
+def phase18b_entry(device: str = "cuda"):
+    """entry() on ``device``: converged >= 0.9, and x within the gaussian
+    band (1e-3 of max(1, |x|)) of the same call on the CPU on the voxels
+    converged on both and identifiable (noiseless last echo >= 3 sigma;
+    example_batch's k and T2 redrawn from its seed)."""
+    from fetal_t2mapping_tpu_torch.entry import entry
+
+    fn, args = entry(device=device)
+    t0 = time.perf_counter()
+    x, conv, res = fn(*args)
+    _sync()
+    card_s = time.perf_counter() - t0
+    fn_c, args_c = entry(device="cpu")
+    x_c, conv_c, res_c = fn_c(*args_c)
+    rng = np.random.default_rng(0)
+    k = rng.uniform(600.0, 5000.0, 4096)
+    t2 = rng.uniform(20.0, 500.0, 4096)
+    ident = k * np.exp(-TES3[-1] / t2) >= 30.0
+    x, conv = x.cpu().numpy(), conv.cpu().numpy()
+    both = conv & conv_c.numpy() & ident
+    rel = np.abs(x - x_c.numpy()) / np.maximum(np.abs(x_c.numpy()), 1.0)
+    gate(tuple(x.shape) == (4096, 2) and bool(np.isfinite(res.cpu().numpy()).all()),
+         f"(b) entry: x {x.shape}, residual finite {bool(np.isfinite(res.cpu().numpy()).all())}")
+    gate(conv.mean() >= 0.9, f"(b) entry: converged {conv.mean():.4f} < 0.9")
+    worst = float(rel[both].max())
+    gate(worst <= 1e-3, f"(b) entry: card vs CPU max rel {worst:.3e} > 1e-3 on {both.sum()} voxels")
+    print(f"phase 18b entry() ({device}, 4096 voxels): converged {conv.mean():.4f} (CPU "
+          f"{conv_c.float().mean().item():.4f}), forward {card_s * 1e3:.1f} ms, card vs CPU max "
+          f"rel {worst:.3e} on {int(both.sum())} identifiable voxels converged on both", flush=True)
+    return worst
+
+
+def phase18c_dryrun(device: str = "cuda"):
+    """dryrun_multichip(2) on phase 17's mesh: the seven paths, each's wall time."""
+    from fetal_t2mapping_tpu_torch.entry import dryrun_multichip
+
+    mesh, mesh_kind = smoke_mesh(torch.device(device))
+    out = dryrun_multichip(mesh.size, devices=list(mesh.devices))
+    print(f"phase 18c dryrun_multichip({mesh.size}) on {mesh_kind}: path seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in out['seconds'].items()})}; path 7 "
+          f"{out['scale']['n_voxels']} voxels, maps bitwise {out['scale']['equal_maps']}",
+          flush=True)
+    return out["seconds"]
+
+
+def phase18d_examples(device: str = "cuda", unet_n: int = 160):
+    """The five example scripts on ``device`` with figures=False (the
+    card's machine has no matplotlib), each against its truth gates
+    (tests/test_examples.py's), and the wall time of each."""
+    from fetal_t2mapping_tpu_torch.examples import (invitro_phantom, invivo_analysis,
+                                                   multichip, profile_unet, serving)
+
+    dev = torch.device(device)
+    mesh, _ = smoke_mesh(dev)
+    secs = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    stats = run("serving", lambda: serving.main(2, device=device))
+    for s in stats:
+        gate(180_000 < s["n_masked"] < 260_000 and s["median_rel_err"] < 0.02 and s["converged"] > 0.98 and s["n_overflow"] == 0,
+             f"(d) serving: {s}")
+    mc = run("multichip", lambda: multichip.main(devices=list(mesh.devices)))
+    f, r = mc["fit"], mc["registration"]
+    gate(f["bitwise"] and f["max_shard_vs_single_rel"] == 0 and f["max_rel_t2_err_vs_truth"] < 1e-3
+         and f["overflow"] == 0, f"(d) multichip fit: {f}")
+    gate(r["rot_err_rad"] < 0.01 and r["trans_err_mm"] < 0.5, f"(d) multichip registration: {r}")
+    gate(mc["unet"]["label_agreement"] == 1.0, f"(d) multichip unet: {mc['unet']}")
+    with tempfile.TemporaryDirectory(prefix="ft2_smoke_ex_") as out:
+        roi = run("invitro_phantom", lambda: invitro_phantom.main(
+            os.path.join(out, "invitro"), device=device, figures=False))
+        rel = (roi["meanT2"] - roi["trueT2"]).abs() / roi["trueT2"]
+        ident = roi["trueT2"] >= 50
+        gate(len(roi) == 9 and bool(roi["meanT2"].notna().all()) and int(ident.sum()) == 8
+             and bool((rel[ident] < 0.10).all()) and bool((rel[~ident] < 0.25).all())
+             and bool((roi.loc[ident, "stdT2"] / roi.loc[ident, "meanT2"] < 0.25).all()),
+             f"(d) invitro_phantom ROI table:\n{roi}")
+        df = run("invivo_analysis", lambda: invivo_analysis.main(
+            os.path.join(out, "invivo"), device=device, figures=False))
+    wm, gm = df[df["roi"] == "wm"]["mean"], df[df["roi"] == "gm"]["mean"]
+    csf = df[df["roi"] == "csf"]["mean"]
+    gm_rois = df[(df["tissue"] == "gm") & df["roi"].str.startswith("ROI-")]
+    gate(len(wm) == len(gm) == len(csf) == 6 and 105 < wm.mean() < 125
+         and bool(wm.between(100, 130).all()) and 135 < gm.mean() < 155
+         and bool(gm.between(130, 160).all()) and 850 < csf.mean() < 950
+         and len(gm_rois) == 36 and bool(gm_rois["mean"].between(120, 170).all()),
+         "(d) invivo_analysis table off its truth")
+    conv_s2d.CONV_S2D_LAUNCHES = 0
+    prof = run("profile_unet", lambda: profile_unet.main(unet_n, reps=3, device=device))
+    names = [row["name"] for row in prof["rows"]]
+    if dev.type == "cuda":
+        gate(conv_s2d.CONV_S2D_LAUNCHES > 0 and any("conv_s2d" in nm for nm in names),
+             f"(d) profile_unet: conv_s2d launches {conv_s2d.CONV_S2D_LAUNCHES}, not in the "
+             f"table's {len(names)} ops")
+    gate(len(names) > 0, "(d) profile_unet: empty table")
+    top = ", ".join(f"{row['name'][:40]} {row['ms']:.2f} ms" for row in prof["rows"][:3])
+    print(f"phase 18d examples ({device}, figures=False: the card's machine has no matplotlib): wall s "
+          f"{json.dumps(secs)}; serving 96^3 warm {stats[-1]['ms']:.1f} ms/request; "
+          f"multichip fit bitwise, registration {r['rot_err_rad']:.4f} rad / "
+          f"{r['trans_err_mm']:.3f} mm; phantom max rel T2 err (identifiable) "
+          f"{rel[ident].max():.4f}; profile_unet {unet_n}^3 wall {prof['wall_ms']:.1f} ms, op "
+          f"self time {prof['op_ms']:.1f} ms per forward, top ops {top}", flush=True)
+    return secs
+
+
+def phase18(device: str = "cuda", n: int = SERVING_N, unet_n: int = 160):
+    """Phase 18: fit_volume over a mesh (a), entry() (b), the mesh dry run
+    (c) and the five examples (d); returns each part's wall seconds."""
+    wall = {}
+    for name, fn in (("a", lambda: phase18a_serving_mesh(n, device)),
+                     ("b", lambda: phase18b_entry(device)),
+                     ("c", lambda: phase18c_dryrun(device)),
+                     ("d", lambda: phase18d_examples(device, unet_n))):
+        t0 = time.perf_counter()
+        fn()
+        wall[name] = round(time.perf_counter() - t0, 1)
+    print(f"phase 18 wall seconds per part: {wall}", flush=True)
+    return wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs an "
@@ -2901,6 +3196,7 @@ def main() -> int:
     timed("phase 15", phase15_ingest_chain)
     timed("phase 16", phase16_io_layer)
     mesh_rows, _ = timed("phase 17", phase17_mesh)
+    timed("phase 18", phase18)
     print(f"phase wall times (s): {wall}, total {time.perf_counter() - t_start:.1f} s", flush=True)
     gate(not spills, f"kernel instances spill registers (bytes of spill stores): {spills}")
     kernels = [{

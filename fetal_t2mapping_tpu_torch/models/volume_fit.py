@@ -28,6 +28,16 @@ capacity are left unfitted (map 0, converged False) and their masked
 voxels counted in ``n_overflow``. Nothing here reads the device from the
 host, except the optional capacity check (one 4-byte read) and, with
 ``strategy='twophase'``, the fit's rounds (one 4-byte read each).
+
+Over a voxel mesh (``mesh=``, a ``parallel.VoxelMesh``) the partition,
+gather, filler and scatter stay on the mesh's first device, and only the
+dense batch the layout built is split: padded with filler rows to
+``pad_to_devices`` and fitted by ``fit_fused_sharded``, one contiguous
+shard per mesh entry. The volume is not cut into z slabs, which would leave
+the end shards of an ellipsoidal brain mask nearly empty. Capacity stays
+global, so under 'single' every map, ``n_masked`` and ``n_overflow`` equal
+the single-device call's bitwise; under 'twophase' each shard runs its own
+refit rounds.
 """
 
 from __future__ import annotations
@@ -137,22 +147,48 @@ def _filler(te, lo, hi, guess, dev: torch.device) -> torch.Tensor:
     return out
 
 
-def _fit(batch: torch.Tensor, fit_kw: dict):
-    """fit_fused on a device batch, without waiting for the device:
-    (t2, k, sigma, fun, converged, n_iter), each (N,), and the fit's own
-    n_overflow (0 for 'single'; a () int32 tensor for 'twophase')."""
-    res = fit_fused(batch, sync=False, device=batch.device, **fit_kw)
-    sigma = res.x[:, 2] if res.x.shape[1] == 3 else torch.zeros_like(res.x[:, 0])
-    return (res.x[:, 1], res.x[:, 0], sigma, res.fun, res.converged, res.n_iter), res.n_overflow
+def _batch_buffer(rows: int, t_axis: int, filler: torch.Tensor, mesh) -> torch.Tensor:
+    """The (N', T) fit batch: N' = ``rows``, or over a mesh the padded
+    count ``pad_to_devices(rows, mesh)`` with the filler in rows >= rows.
+    The caller writes rows [0, rows); every write is on the caller's
+    stream, which the shards' streams wait for."""
+    n_fit = rows
+    if mesh is not None:
+        from ..parallel.mesh import pad_to_devices
+
+        n_fit = pad_to_devices(rows, mesh)
+    buf = torch.empty((n_fit, t_axis), dtype=torch.float32, device=filler.device)
+    if n_fit != rows:
+        buf[rows:] = filler
+    return buf
 
 
-def _fit_dense(signal, sel, filler, fit_kw) -> VolumeFitResult:
+def _fit(batch: torch.Tensor, rows: int, fit_kw: dict, mesh):
+    """The fused fit of a device batch, without waiting for the device, on
+    its device or sharded over ``mesh``: (t2, k, sigma, fun, converged,
+    n_iter), each of the first ``rows`` rows, and the fit's own n_overflow
+    (0 for 'single'; a () int32 tensor for 'twophase', summed over shards)."""
+    if mesh is None:
+        res = fit_fused(batch, sync=False, device=batch.device, **fit_kw)
+    else:
+        from ..parallel.mesh import fit_fused_sharded
+
+        res = fit_fused_sharded(batch, mesh=mesh, sync=False, **fit_kw)
+    x = res.x[:rows]
+    sigma = x[:, 2] if x.shape[1] == 3 else torch.zeros_like(x[:, 0])
+    return (x[:, 1], x[:, 0], sigma, res.fun[:rows], res.converged[:rows],
+            res.n_iter[:rows]), res.n_overflow
+
+
+def _fit_dense(signal, sel, filler, fit_kw, mesh) -> VolumeFitResult:
     """Every voxel through the fit, filler outside the mask; results come
     back in voxel order and the maps are masked reshapes."""
     zyx = signal.shape[:3]
-    flat = signal.reshape(-1, signal.shape[3])
-    batch = torch.where(sel[:, None], flat, filler)
-    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, fit_kw)
+    n = sel.shape[0]
+    flat = signal.reshape(n, signal.shape[3])
+    batch = _batch_buffer(n, signal.shape[3], filler, mesh)
+    torch.where(sel[:, None], flat, filler, out=batch[:n])
+    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, n, fit_kw, mesh)
     selz = sel.reshape(zyx)
 
     def chan(v):
@@ -167,7 +203,7 @@ def _fit_dense(signal, sel, filler, fit_kw) -> VolumeFitResult:
         n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device) + inner_overflow)
 
 
-def _fit_compact(signal, sel, filler, fit_kw, *, mask_frac: float,
+def _fit_compact(signal, sel, filler, fit_kw, mesh, *, mask_frac: float,
                  block: int) -> VolumeFitResult:
     """Block compaction: the masked blocks (up to the static capacity) are
     gathered in a stable order, fitted, and scattered back one block per
@@ -187,8 +223,10 @@ def _fit_compact(signal, sel, filler, fit_kw, *, mask_frac: float,
     bidx, nb_sel = _tail_partition(~sel.reshape(nb, block).any(dim=1), blk_cap)
     batch = flat.reshape(nb, block * t_axis)[bidx].reshape(blk_cap, block, t_axis)
     mb = sel.reshape(nb, block)[bidx]                             # (blk_cap, block)
-    batch = torch.where(mb[..., None], batch, filler).reshape(blk_cap * block, t_axis)
-    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, fit_kw)
+    rows = blk_cap * block
+    buf = _batch_buffer(rows, t_axis, filler, mesh)
+    torch.where(mb[..., None], batch, filler, out=buf[:rows].view(blk_cap, block, t_axis))
+    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(buf, rows, fit_kw, mesh)
 
     valid_blk = torch.arange(blk_cap, device=signal.device) < nb_sel
     keep = mb & valid_blk[:, None]
@@ -211,13 +249,32 @@ def _fit_compact(signal, sel, filler, fit_kw, *, mask_frac: float,
         n_masked=n_masked, n_overflow=n_masked - keep.sum(dtype=torch.int32) + inner_overflow)
 
 
+def _fit_device(mesh, device) -> torch.device:
+    """fit_volume's device: ``device`` ('cuda' by default), or with a mesh
+    its first device, which a ``device`` given beside it must name."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    dev0 = mesh.devices[0]
+
+    def indexed(d: torch.device) -> torch.device:
+        return torch.device("cuda", torch.cuda.current_device()) \
+            if d.type == "cuda" and d.index is None else d
+
+    if device is not None:
+        dev = resolve_device(device)
+        if indexed(dev) != indexed(dev0):
+            raise ValueError(f"device {str(dev)!r} is not the mesh's first device "
+                             f"{str(dev0)!r}, where fit_volume(mesh=) returns its maps")
+    return dev0
+
+
 def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
                guess: Sequence[float] | None = None, max_iters: int = 60,
                ftol: float = 1e-9, gtol: float = 0.0, no_prior: bool = False,
                mask_frac: float = 0.25, block: int = 32, compact="auto",
                check_capacity: bool = True, prefix3=None, varpro3=None,
                strategy: str = "auto", phase1_iters: int = 10, tail_frac=None,
-               device="cuda") -> VolumeFitResult:
+               mesh=None, device=None) -> VolumeFitResult:
     """Fit every masked voxel of a (Z, Y, X, T) echo volume on the device.
 
     Args:
@@ -242,18 +299,26 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             and warn before fitting if they exceed the capacity (one 4-byte
             read from the device). Pipelined loops pass False and watch
             ``result.n_overflow``.
-        device: 'cuda' (default) runs the CUDA kernels, 'cpu' their plain
-            versions.
+        mesh: a ``parallel.VoxelMesh``: the layout's batch is fitted
+            sharded over it (``fit_fused_sharded``) and everything else runs
+            on ``mesh.devices[0]``. Under 'single' the result equals the
+            single-device call's bitwise; under 'twophase' each shard runs
+            its own refit rounds, so the refit part of ``n_overflow`` is
+            per shard.
+        device: 'cuda' (the default without a mesh) runs the CUDA kernels,
+            'cpu' their plain versions. With a mesh it defaults to, and
+            must be, ``mesh.devices[0]``.
 
     Returns:
-        VolumeFitResult of dense maps on ``device`` and the () int32
-        counts n_masked and n_overflow, without waiting for the device.
+        VolumeFitResult of dense maps on the fit's device (``device`` or
+        ``mesh.devices[0]``) and the () int32 counts n_masked and
+        n_overflow, without waiting for the device.
     """
     te_t, lo_t, hi_t, guess_t = validate_fused_args(model, te, lo, hi, guess, no_prior)
     resolve_strategy(strategy)
     if block < 1:
         raise ValueError(f"block must be >= 1; got {block}")
-    dev = resolve_device(device)
+    dev = _fit_device(mesh, device)
     signal = torch.as_tensor(signal, dtype=torch.float32, device=dev)
     if signal.dim() != 4:
         raise ValueError(f"signal must be (Z, Y, X, T); got {tuple(signal.shape)}")
@@ -279,5 +344,6 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
     sel = mask.reshape(n) > 0
     filler = _filler(te_t, lo_t, hi_t, guess_t, dev)
     if not compact:
-        return _fit_dense(signal, sel, filler, fit_kw)
-    return _fit_compact(signal, sel, filler, fit_kw, mask_frac=mask_frac, block=int(block))
+        return _fit_dense(signal, sel, filler, fit_kw, mesh)
+    return _fit_compact(signal, sel, filler, fit_kw, mesh, mask_frac=mask_frac,
+                        block=int(block))

@@ -502,6 +502,34 @@ def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo,
             assert not got[~m].any()
 
 
+@pytest.mark.parametrize("model,lo,hi,guess,counters", [
+    ("gaussian", LO, HI, None, ("KERNEL_LAUNCHES",)),
+    ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
+     ("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES"))])
+def test_fit_volume_over_a_two_stream_mesh_is_the_single_call(card, model, lo, hi, guess,
+                                                              counters):
+    """fit_volume(mesh=) on two streams of one card: each layout's maps and
+    counts are the single-device call's bits, one launch per shard."""
+    from fetal_t2mapping_tpu_torch.models import fit_volume
+    from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
+
+    sig, mask = _serving_volume(40, seed=9)
+    s, m = torch.from_numpy(sig).to(card), torch.from_numpy(mask).to(card)
+    mesh = voxel_mesh(devices=[card, card])
+    for lay in (dict(compact=False), dict(compact=True, mask_frac=0.6),
+                dict(compact=True, mask_frac=0.6, block=1)):
+        kw = dict(model=model, guess=guess, **lay)
+        one = fit_volume(s, m, TES3, lo, hi, device=card, **kw)
+        for name in counters:
+            setattr(fused_fit, name, 0)
+        two = fit_volume(s, m, TES3, lo, hi, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        for name in counters:
+            assert getattr(fused_fit, name) == 2, name
+        for f in one._fields:
+            assert torch.equal(getattr(one, f), getattr(two, f)), (lay, f)
+
+
 def _n4_scene(n, seed=0):
     rng = np.random.default_rng(seed)
     z, y, x = np.meshgrid(*[np.linspace(-1, 1, n)] * 3, indexing="ij")

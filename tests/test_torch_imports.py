@@ -58,7 +58,9 @@ def test_importing_every_module_leaves_jax_out():
                  "utils.ingest", "cli.dcm2csv", "labels.convert_synthseg",
                  "core.volcache", "native", "utils.prewarm", "parallel", "parallel.mesh",
                  "core.nifti", "models.t2map", "pipeline.t2map_pipeline", "cli.t2mapping",
-                 "labels.synthseg"):
+                 "labels.synthseg", "entry", "examples", "examples.serving",
+                 "examples.multichip", "examples.invitro_phantom", "examples.invivo_analysis",
+                 "examples.profile_unet"):
         assert f"fetal_t2mapping_tpu_torch.{name}" in expected
     assert res["leaked"] == []
 
