@@ -21,7 +21,13 @@ subset. Phases 11-12, stage 2 (torch ops on the card, no hand kernel):
 the CPU at 48^3; then one in-vivo session (3 TEs x ax/cor/sag slab stacks
 fusing to 240^3) through ``process_qmri`` and ``process_t2maps`` on it,
 gated on the recon and the T2 map against the simulation's truth, and one
-240^3 in-vitro phantom through ``process_qmri``, card equal to CPU. Phase
+240^3 in-vitro phantom through ``process_qmri``, card equal to CPU. The
+two solver loops run as CUDA graphs of one step, replayed per iteration:
+the trace sampler of phases 4 and 7 (its replays counted in the sessions,
+then held bitwise against the eager loop on the card, each timed) and the
+registration levels of phases 11-12 (bitwise against the eager loops,
+ms, graph captures and replays, and the host's launches under the
+profiler). Phase
 13, the serving path: ``fit_volume`` per model on bench.py's 240^3 x 3-TE
 request (and ~5% and ~50% ellipsoid masks), its dense, block and
 voxel-exact layouts timed, bitwise equal to each other and to
@@ -91,7 +97,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fetal_t2mapping_tpu_torch import build
+from fetal_t2mapping_tpu_torch import build, graphs
 from fetal_t2mapping_tpu_torch import config as C
 from fetal_t2mapping_tpu_torch.core import EchoStack, Volume, nifti, volcache
 from fetal_t2mapping_tpu_torch.core.stack import pad_bucket
@@ -500,13 +506,17 @@ def phase4_main_path(make_plots: bool):
         cfg = C.fit_config("gaussian", low_field=True)
         profiler.reset()
         fused_fit.KERNEL_LAUNCHES = 0
+        replays0 = graphs.REPLAYS
         t0 = time.perf_counter()
         summaries = process_t2maps(rows, bids, list(TES_SESSION), cfg, phantom=False,
                                    low_field=True, sim="smoke", make_plots=make_plots,
                                    device="cuda")
         session_s = time.perf_counter() - t0
         launches = fused_fit.KERNEL_LAUNCHES
+        trace_replays = graphs.REPLAYS - replays0
         gate(launches > 0, "the main path launched no fit kernel")
+        gate(trace_replays >= cfg.max_iters - 1,
+             f"the session's traces ran {trace_replays} graph replays < {cfg.max_iters - 1}")
         gate(len(summaries) == 1, f"expected one session, got {len(summaries)}")
         s = summaries[0]
         maps = {name: nifti.read(path).data for name, path in s["maps"].items()}
@@ -525,11 +535,14 @@ def phase4_main_path(make_plots: bool):
         ident = np.concatenate([ident_vox, np.full(batch.shape[0] - n, ident_vox[-1])])
         text, diff = compare(torch.from_numpy(batch).cuda(),
                              tuple(float(t) for t in TES_SESSION), ident)
+        traces = traces_graph_vs_eager("gaussian", cfg, TES_SESSION)
         print(f"phase 4 main path (process_t2maps, 240^3, {s['n_voxels']} masked "
               f"voxels, make_plots={make_plots}): session {session_s:.3f} s "
               f"(fit_stack {s['fit_seconds']:.3f} s), data set-up {setup_s:.1f} s, "
               f"median rel T2 err vs truth {med_rel:.3e}, converged "
-              f"{s['converged_frac']:.5f}, kernel launches {launches}, stages "
+              f"{s['converged_frac']:.5f}, kernel launches {launches}, traces "
+              f"(t2map.fit.traces) {stages.get('t2map.fit.traces', 0.0):.4f} s through "
+              f"{trace_replays} graph replays; {traces}; stages "
               f"{stages}; kernel vs plain on its batch{text}", flush=True)
         return launches, diff
 
@@ -926,10 +939,23 @@ SESSIONS3 = {
 COUNTERS = ("KERNEL_LAUNCHES", "GR_VARPRO_LAUNCHES", "FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES")
 
 
+def dynamo_import_s() -> float:
+    """Seconds a fresh process takes to import torch._dynamo, which
+    torch.func imports at the first gradient of a process (the 3-parameter
+    trace sampler's first call pays it)."""
+    code = ("import time, torch; t = time.perf_counter(); import torch._dynamo; "
+            "print(time.perf_counter() - t)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=300)
+    return float(out.stdout.strip().splitlines()[-1])
+
+
 def phase7_sessions3(make_plots: bool):
     """One 240^3 process_t2maps session per 3-parameter model on the card:
     the main path of each noise model, with the launches of each kernel
-    counted from 0 around the session."""
+    counted from 0 around the session, the trace sampler's graph replays
+    and its graph against the eager loop on the card."""
+    print(f"phase 7 import torch._dynamo in a fresh process: {dynamo_import_s():.3f} s", flush=True)
     launches = {}
     for model, (low_field, tes, k_range, t2_range, needed) in SESSIONS3.items():
         with tempfile.TemporaryDirectory(prefix="ft2_smoke3_") as root:
@@ -941,12 +967,16 @@ def phase7_sessions3(make_plots: bool):
             profiler.reset()
             for name in COUNTERS:
                 setattr(fused_fit, name, 0)
+            replays0 = graphs.REPLAYS
             t0 = time.perf_counter()
             summaries = process_t2maps(rows, bids, list(tes), cfg, phantom=False,
                                        low_field=low_field, sim="smoke3",
                                        make_plots=make_plots, device="cuda")
             session_s = time.perf_counter() - t0
             counts = {name: getattr(fused_fit, name) for name in COUNTERS}
+            trace_replays = graphs.REPLAYS - replays0
+            gate(trace_replays >= cfg.max_iters - 1,
+                 f"{model} session: {trace_replays} trace-graph replays < {cfg.max_iters - 1}")
             for name in needed:
                 gate(counts[name] >= 1, f"{model} session launched no {name}")
             launches[model] = counts
@@ -966,14 +996,48 @@ def phase7_sessions3(make_plots: bool):
             # map writes and the wait for the writer pool at the end
             io_s = sum(stages.get(k, 0.0) for k in ("t2map.load", "t2map.save", "io.flush_wait"))
             fit_s = stages.get("t2map.fit", 0.0)
+            traces = traces_graph_vs_eager(model, cfg, tes)
             print(f"phase 7 main path {model} (process_t2maps, 240^3, "
                   f"{'low' if low_field else 'high'} field, TEs {tes}, {summ['n_voxels']} masked "
                   f"voxels): session {session_s:.3f} s (fit_stack {summ['fit_seconds']:.3f} s), "
                   f"fit {fit_s / session_s:.1%} of the session vs gzip I/O {io_s / session_s:.1%}, "
                   f"data set-up {setup_s:.1f} s, median rel T2 err vs truth {med_rel:.3e}, "
-                  f"converged {summ['converged_frac']:.5f}, launches {counts}, stages {stages}",
-                  flush=True)
+                  f"converged {summ['converged_frac']:.5f}, launches {counts}, traces "
+                  f"(t2map.fit.traces) {stages.get('t2map.fit.traces', 0.0):.4f} s through "
+                  f"{trace_replays} graph replays; {traces}; stages {stages}", flush=True)
     return launches
+
+
+def traces_graph_vs_eager(model, cfg, tes, n=50, seed=17, reps=5):
+    """fit_batch_traced (one CUDA graph step, replayed per iteration) on
+    ``n`` of the session's kind of voxels against the eager loop on the
+    card, gated bitwise (fit and trace planes); ms per call of each, the
+    graph's from its cache (the session captured it)."""
+    from fetal_t2mapping_tpu_torch.models import init, solver
+
+    lo, hi = np.asarray(cfg.lower, np.float32), np.asarray(cfg.upper, np.float32)
+    k_range, t2_range = SESSIONS3[model][2:4] if model in SESSIONS3 else ((600.0, 5000.0),
+                                                                         (20.0, 500.0))
+    sig = torch.from_numpy(make_data3(n, tes, seed, k_range, t2_range)[0]).cuda()
+    x0 = init.loglinear_init(sig, tes, lo, hi)
+    kw = dict(model=model, max_iters=cfg.max_iters, ftol=cfg.ftol, gtol=cfg.gtol)
+    times = {}
+    for name, fn in (("graph", solver.fit_batch_traced), ("eager", solver._fit_batch_traced_loop)):
+        out = fn(sig, tes, x0, lo, hi, **kw)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(sig, tes, x0, lo, hi, **kw)
+        out[1]["f_val"].sum().item()
+        times[name] = ((time.perf_counter() - t0) * 1e3 / reps, out)
+    (ga, ta), (ea, tea) = times["graph"][1], times["eager"][1]
+    planes = [(getattr(ga, f), getattr(ea, f)) for f in ("x", "fun", "converged", "n_iter")]
+    planes += [(ta[f], tea[f]) for f in ta]
+    same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+               for a, b in planes)
+    gate(same, f"{model}: graphed traces differ from the eager loop's on the card")
+    return (f"fit_batch_traced {n} voxels x {cfg.max_iters} iterations: graph "
+            f"{times['graph'][0]:.2f} ms, eager {times['eager'][0]:.2f} ms a call, bitwise equal")
 
 
 # ------------------------------------------------ the SynthSeg U-Net
@@ -1364,13 +1428,84 @@ def timed_solves(fn, reps=3):
     return float(np.median(times)), out
 
 
+class eager_levels:
+    """Within the block the registration's levels run as the eager loops
+    on the card too (the graphs' plain versions), through the module's
+    private functions; for comparison only."""
+
+    def __enter__(self):
+        from fetal_t2mapping_tpu_torch.recon import registration as reg
+
+        self._saved = reg._level_while_steps, reg._level_scan_steps
+        reg._level_while_steps = lambda *a, graph: reg._level_while(*a)
+        reg._level_scan_steps = lambda *a, graph: reg._level_scan(*a)
+        return self
+
+    def __exit__(self, *exc):
+        from fetal_t2mapping_tpu_torch.recon import registration as reg
+
+        reg._level_while_steps, reg._level_scan_steps = self._saved
+        return False
+
+
+# the host's launch calls in a torch.profiler trace: kernels and graphs
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_solve(fn):
+    """One call of ``fn`` (a solve, synced on its parameters) under
+    torch.profiler: wall ms, device busy ms, idle share, device kernels,
+    the host's kernel launches and graph launches; a string if the
+    profiler is unavailable."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn().params_device.sum().item()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+    except Exception as exc:   # the profiler is untried on this machine: report, do not fail
+        return f"profiler unavailable ({type(exc).__name__}: {exc})"
+    kern = [e for e in events if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    host = {e.key: e.count for e in events if e.key in HOST_LAUNCHES + ("cudaGraphLaunch",)}
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:3]
+    return dict(wall_ms=round(wall_ms, 1), busy_ms=round(busy_ms, 1),
+                idle=round(1 - busy_ms / wall_ms, 3), device_kernels=sum(e.count for e in kern),
+                host_kernel_launches=sum(host.get(k, 0) for k in HOST_LAUNCHES),
+                graph_launches=host.get("cudaGraphLaunch", 0),
+                top=[f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                     for e in top])
+
+
+def same_solve(a, b) -> bool:
+    """Two registration results with the same bits: parameters, per-level
+    histories, stop iterations and best metrics."""
+    def bits(t):
+        return t.detach().cpu().contiguous().view(torch.int32)
+    if not torch.equal(bits(a.params_device), bits(b.params_device)):
+        return False
+    if any(not torch.equal(bits(x), bits(y)) for x, y in zip(a._solve["hist"], b._solve["hist"])):
+        return False
+    if (a.iters_run is None) != (b.iters_run is None):
+        return False
+    return a.iters_run is None or (np.array_equal(a.iters_run, b.iters_run) and torch.equal(
+        bits(a._solve["final_f"]), bits(b._solve["final_f"])))
+
+
 def phase11_registration(n: int = 192, device: str = "cuda"):
     """register_rigid(ncc) at the default settings on bench.py's 192^3 blob
     scene and its moved copy (rx 0.05, ry -0.04, rz 0.04 rad, t (4, -3, 3)
-    mm): gated at 0.01 rad and 0.5 mm (bench.py:722-729). Then the fusion's
-    call (register_rigid_multi, 2 movings), register_affine(cr) on a
-    cross-contrast pair, a profile of one rigid solve, and the card against
-    the CPU at 48^3 (stop_tol=None, the CPU tests' REG_FAST levels and
+    mm): gated at 0.01 rad and 0.5 mm (bench.py:722-729), its levels run
+    as CUDA graphs (one capture per level, one replay per iteration) and
+    gated bitwise against the same solve through the eager loops on the
+    card. Then the fusion's call (register_rigid_multi, 2 movings),
+    register_affine(cr) on a cross-contrast pair (both bitwise to eager),
+    a profile of one rigid solve graphed and eager (device busy time, the
+    host's kernel and graph launches), and the card against the CPU at 48^3 (stop_tol=None, the CPU tests' REG_FAST levels and
     1e-4 of max(1, |p|))."""
     from fetal_t2mapping_tpu_torch.recon import registration
 
@@ -1384,42 +1519,46 @@ def phase11_registration(n: int = 192, device: str = "cuda"):
     moving_cc = moving.with_data((200.0 * np.sqrt(moving.data / 150.0)).astype(np.float32))
     setup_s = time.perf_counter() - t0
 
-    rigid_ms, res = timed_solves(lambda: registration.register_rigid(fixed, moving, metric="ncc",
-                                                                     device=device))
+    def rigid():
+        return registration.register_rigid(fixed, moving, metric="ncc", device=device)
+
+    c0, r0 = graphs.CAPTURES, graphs.REPLAYS
+    rigid_ms, res = timed_solves(rigid)
+    per_solve = ((graphs.CAPTURES - c0) / 4, (graphs.REPLAYS - r0) / 4)   # the warm solve + 3
     rot, tr = pose_error(T1, res.matrix, center)
     gate(rot < 0.01 and tr < 0.5, f"{n}^3 rigid recovery {rot:.4f} rad / {tr:.3f} mm "
                                   "(gates 0.01 rad, 0.5 mm)")
+    # the same solve through the eager loops on the card: the graphs' bits
+    with eager_levels():
+        eager_ms, eager_res = timed_solves(rigid)
+    gate(same_solve(res, eager_res), f"{n}^3 rigid: the graphed levels differ from the eager loops")
+    if device != "cpu":
+        gate(per_solve[0] == len(res.iters_run) and per_solve[1] >= sum(res.iters_run) - 3,
+             f"{n}^3 rigid: {per_solve} graph captures / replays a solve for iters_run "
+             f"{res.iters_run.tolist()}")
     multi_ms, regs = timed_solves(
         lambda: registration.register_rigid_multi(fixed, [moving, moving2], metric="ncc",
                                                   device=device))
     multi_err = [pose_error(T, r.matrix, center) for T, r in zip((T1, T2), regs)]
     for r_, t_ in multi_err:
         gate(r_ < 0.01 and t_ < 0.5, f"{n}^3 multi-pair recovery {r_:.4f} rad / {t_:.3f} mm")
+    with eager_levels():
+        eager_multi = registration.register_rigid_multi(fixed, [moving, moving2], metric="ncc",
+                                                        device=device)
+    gate(all(same_solve(a, b) for a, b in zip(regs, eager_multi)),
+         f"{n}^3 multi-pair: the graphed levels differ from the eager loops")
     affine_ms, aff = timed_solves(
         lambda: registration.register_affine(fixed, moving_cc, metric="cr", device=device), reps=1)
     aff_err = pose_error(T1, aff.matrix, center)
+    with eager_levels():
+        eager_aff = registration.register_affine(fixed, moving_cc, metric="cr", device=device)
+    gate(same_solve(aff, eager_aff), f"{n}^3 affine cr: the graphed levels differ from the eager loops")
 
-    # one rigid solve under the profiler: the card's busy time by kernel
-    prof_line = "not measured"
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        _sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            registration.register_rigid(fixed, moving, metric="ncc",
-                                        device=device).params_device.sum().item()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-                and str(e.device_type).endswith("CUDA")]
-        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
-        prof_line = (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle share "
-                     f"{1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in kern)} kernel launches; top "
-                     + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
-                                 for e in top))
-    except Exception as exc:   # the profiler is untried on this machine: report, do not fail
-        prof_line = f"profiler unavailable ({type(exc).__name__}: {exc})"
+    # one rigid solve under the profiler, graphed and eager: the card's busy
+    # time, the host's launches
+    prof = profile_solve(rigid)
+    with eager_levels():
+        prof_eager = profile_solve(rigid)
 
     # the card against the CPU at 48^3
     m = 48
@@ -1446,13 +1585,16 @@ def phase11_registration(n: int = 192, device: str = "cuda"):
     b = registration.register_rigid(f48, m48, device=device, **kw).params
     default_diff = float(np.abs(a - b).max()) / max(1.0, float(np.abs(a).max()))
     print(f"phase 11 registration {n}^3 (scene set-up {setup_s:.1f} s): register_rigid ncc median "
-          f"{rigid_ms:.1f} ms, iters_run {res.iters_run.tolist()}, host syncs per solve "
-          f"{res.host_syncs}, recovery {rot:.5f} rad / {tr:.4f} mm; register_rigid_multi (2 "
-          f"movings) median {multi_ms:.1f} ms, iters_run {regs[0].iters_run.tolist()}, host syncs "
-          f"{regs[0].host_syncs}, recovery {[(round(r_, 5), round(t_, 4)) for r_, t_ in multi_err]}; "
+          f"{rigid_ms:.1f} ms graphed, {eager_ms:.1f} ms through the eager loops (bitwise equal), "
+          f"graph captures / replays a solve {per_solve}, iters_run {res.iters_run.tolist()}, "
+          f"host syncs per solve {res.host_syncs}, recovery {rot:.5f} rad / {tr:.4f} mm; "
+          f"register_rigid_multi (2 movings) median {multi_ms:.1f} ms, iters_run "
+          f"{regs[0].iters_run.tolist()}, host syncs {regs[0].host_syncs}, recovery "
+          f"{[(round(r_, 5), round(t_, 4)) for r_, t_ in multi_err]}, bitwise to eager; "
           f"register_affine cr (cross contrast) {affine_ms:.1f} ms, iters_run "
-          f"{aff.iters_run.tolist()}, recovery {aff_err[0]:.5f} rad / {aff_err[1]:.4f} mm; "
-          f"profile of one rigid solve: {prof_line}; 48^3 card vs CPU (REG_FAST, stop_tol=None, "
+          f"{aff.iters_run.tolist()}, recovery {aff_err[0]:.5f} rad / {aff_err[1]:.4f} mm, bitwise "
+          f"to eager; profile of one rigid solve, graphed: {prof}; eager: {prof_eager}; "
+          f"48^3 card vs CPU (REG_FAST, stop_tol=None, "
           f"ncc and mi) {worst:.2e} of max(1,|p|) (the CPU's ncc answer moves {ulp_move:.2e} under "
           f"a one-ulp change of the moving image), at the default levels {default_diff:.2e}",
           flush=True)
@@ -1634,10 +1776,14 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
         rows = set_metadata(logs, ["smoke.csv"], low_field=True)
         profiler.reset()
         fused_fit.KERNEL_LAUNCHES = 0
+        c0, r0 = graphs.CAPTURES, graphs.REPLAYS
         t0 = time.perf_counter()
         process_qmri(bids, rows, in_vivo=True, low_field=True,
                      synthseg=SynthSegRunner(mode="fake"), device=device)
         stage2_s = time.perf_counter() - t0
+        stage2_graphs = (graphs.CAPTURES - c0, graphs.REPLAYS - r0)
+        if torch.device(device).type == "cuda":
+            gate(min(stage2_graphs) > 0, f"stage 2 ran no registration graph {stage2_graphs}")
         t0 = time.perf_counter()
         summaries = process_t2maps(rows, bids, list(SESSION_TES), C.fit_config("gaussian", True),
                                    low_field=True, sim="smoke", make_plots=False, device=device)
@@ -1673,7 +1819,8 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
     in_grid = sum(max(sd) < n for sd in C.PHANTOM_SEEDS[C.DEFAULT_PHANTOM_SEEDS_KEY])
     gate(n_labels == in_grid, f"{n_labels} sphere labels for {in_grid} seeds in the grid")
     print(f"phase 12 session (process_qmri in vivo, 3 TEs x ax/cor/sag {n}x{n}x{n // 4} at 1x1x4 "
-          f"mm -> {n}^3, SynthSeg fake; data set-up {setup_s:.1f} s): stage 2 {stage2_s:.2f} s, "
+          f"mm -> {n}^3, SynthSeg fake; data set-up {setup_s:.1f} s): stage 2 {stage2_s:.2f} s "
+          f"(registration graphs captured / replayed {stage2_graphs}), "
           f"stage 3 (process_t2maps gaussian) {stage3_s:.2f} s, gauss_fit launches {launches}; "
           f"fused recon median rel err vs truth on the core {errs}; mask share {mask_frac:.3f}; "
           f"stage-3 median rel T2 err vs truth in mask and brain {t2_err:.4f}; stage seconds "

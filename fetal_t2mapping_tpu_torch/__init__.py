@@ -15,6 +15,9 @@ fusion, denoising, SynthSeg, masks and labels) on an NVIDIA GPU:
                  weight converter (``convert_synthseg``)
 - ``ops``      — trilinear/nearest sampling, Gaussian filtering, TV, morphology
 - ``recon``    — resampling, rigid/affine registration, fusion, denoising
+- ``graphs``   — a solver loop's step captured once as a CUDA graph and
+                 replayed per iteration (the registration levels and the
+                 convergence-trace sampler on the card)
 - ``build``    — the nvcc build and ctypes binding of ``csrc/*.cu``, and the
                  g++ build and binding of the ingest's host library
                  ``csrc/dicom_host.cpp``

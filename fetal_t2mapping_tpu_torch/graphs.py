@@ -1,0 +1,82 @@
+"""A solver loop's step captured once as a CUDA graph and replayed per iteration.
+
+The JAX package compiles its two solver loops into one device program each:
+the registration levels (``lax.while_loop`` / the fixed-budget scan in
+``recon.registration``) and the convergence-trace sampler (``lax.scan`` in
+``models.solver.fit_batch_traced``). Stepped from Python, one eager op at a
+time, the same loops are bound by kernel launches on the card (a 192^3
+rigid solve launched ~53,000 kernels and left the card ~94% idle). Here the
+loop body is written as a step that reads and writes preallocated buffers
+in place (iteration counters included), captured once with CUDA stream
+capture and replayed once per iteration: one graph launch where the step
+launched hundreds of kernels.
+
+``capture`` runs the first step eagerly on a side stream before capturing
+the step on that same stream. That warm-up is a real iteration of the loop:
+it fills lazy caches (a host-to-device copy is not allowed during capture)
+and sets up the stream's cuBLAS workspace, so the captured kernels are the
+ones an eager step launches. Capture is thread-local, so threads that queue
+downloads on their own streams (the asynchronous NIfTI writer) may run
+meanwhile. A capture or replay that fails raises: no caller falls back to
+the eager loop.
+
+``CAPTURES`` and ``REPLAYS`` count this process's captures and replays.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+import torch
+
+#: graphs captured and replayed in this process (each counted where it happens)
+CAPTURES = 0
+REPLAYS = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counter: str) -> None:
+    with _COUNT_LOCK:
+        globals()[counter] += 1
+
+
+class StepGraph:
+    """A step captured by ``capture`` (a function of no arguments that
+    updates CUDA buffers in place); call the object to replay it on the
+    current stream."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph):
+        self._graph = graph
+
+    def __call__(self) -> None:
+        self._graph.replay()
+        _count("REPLAYS")
+
+
+def capture(step: Callable[[], None], warm_up: Callable[[], None],
+            device: torch.device) -> StepGraph:
+    """Run ``warm_up()`` eagerly, then capture ``step()``, both on one side
+    stream of ``device``; the caller's stream waits for the warm-up.
+    Capturing launches nothing, so the buffers hold the warm-up's results
+    afterwards."""
+    caller = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(caller)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.stream(side):
+        warm_up()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        except BaseException:
+            # end the capture before the original error propagates
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+            raise
+        graph.capture_end()
+    caller.wait_stream(side)
+    _count("CAPTURES")
+    return StepGraph(graph)

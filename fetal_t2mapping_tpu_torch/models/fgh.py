@@ -1,15 +1,16 @@
-"""Hand-fused (value, gradient, Hessian) of the 3-parameter fit objectives.
+"""Hand-fused (value, gradient, Hessian) of the T2 fit objectives.
 
-The counterpart of ``fetal_t2mapping_tpu.models.fgh`` for the
-gaussian_rician and rician models, in plain elementwise PyTorch: each
+The counterpart of ``fetal_t2mapping_tpu.models.fgh`` for the three noise
+models, in plain elementwise PyTorch: each
 function takes a parameter tuple of tensors of any shape (one value per
 voxel in the fits), the per-echo signal list ``s`` and the static echo
 times ``te``, unrolls the echo axis in Python and returns (f, g, H) with
-g and H as tuples. These are the math of the 3-parameter kernels' plain
-versions (``models.fused_fit``), and the CUDA kernels in ``csrc/fit3.cu``
-follow them op for op.
+g and H as tuples. The 3-parameter functions are the math of the
+3-parameter kernels' plain versions (``models.fused_fit``), and the CUDA
+kernels in ``csrc/fit3.cu`` follow them op for op.
 
 Objectives (the reference's, run_t2mapping.py:129-177):
+- gaussian:        f = mean_t (s - k e)^2, e = exp(-te/t2)
 - gaussian_rician: f = mean_t (s - sqrt(k^2 e^2 + sigma^2))^2, e = exp(-te/t2)
 - rician:          f = -sum_t [log s - log sigma^2 - (|s|-|m|)^2/(2 sigma^2)
                               + log i0e(x)],  x = m s / sigma^2, m = k e
@@ -97,6 +98,40 @@ def _exps(t2, te):
     return [torch.exp(t * u_inv) for t in te]
 
 
+# -------------------------------------------------------------- gaussian
+def gaussian_fgh(params, s, te):
+    """(f, (g_k, g_t2), ((h_kk, h_kt), (h_kt, h_tt))) of the mean-SSE
+    mono-exponential objective, full Newton (the reference's algebra)."""
+    k, t2 = params
+    inv_t = 1.0 / len(te)
+    e = _exps(t2, te)
+    m = [k * et for et in e]
+    r = [st - mt for st, mt in zip(s, m)]
+    u = [rdiv(t, t2 * t2) for t in te]
+    dm_t = [mt * ut for mt, ut in zip(m, u)]
+
+    f = sum(rt * rt for rt in r) * inv_t
+    g_k = -2.0 * inv_t * sum(rt * et for rt, et in zip(r, e))
+    g_t = -2.0 * inv_t * sum(rt * dt for rt, dt in zip(r, dm_t))
+    h_kk = 2.0 * inv_t * sum(et * et for et in e)
+    h_kt = 2.0 * inv_t * sum(et * ut * (mt - rt) for et, ut, mt, rt in zip(e, u, m, r))
+    d2m_tt = [dt * ut - 2.0 * mt * ut / t2 for dt, ut, mt in zip(dm_t, u, m)]
+    h_tt = 2.0 * inv_t * sum(dt * dt - rt * d2 for dt, rt, d2 in zip(dm_t, r, d2m_tt))
+    return f, (g_k, g_t), ((h_kk, h_kt), (h_kt, h_tt))
+
+
+def gaussian_value_e(params, s, te):
+    """(objective, [exp(-te/t2)]); the exponentials feed the next fgh call."""
+    k, t2 = params
+    es = _exps(t2, te)
+    r = [st - k * et for st, et in zip(s, es)]
+    return cdiv(sum(rt * rt for rt in r), float(len(te))), es
+
+
+def gaussian_value(params, s, te):
+    return gaussian_value_e(params, s, te)[0]
+
+
 # ------------------------------------------------------- gaussian_rician
 def gaussian_rician_fgh(params, s, te, e_list=None):
     """Full-Newton (f, g, H) of the first-moment Rician-corrected mean-SSE.
@@ -154,6 +189,10 @@ def gaussian_rician_fgh(params, s, te, e_list=None):
         for j in range(i):
             h[i][j] = h[j][i]
     return f, tuple(g), tuple(tuple(row) for row in h)
+
+
+def gaussian_rician_value(params, s, te):
+    return gaussian_rician_value_e(params, s, te)[0]
 
 
 def gaussian_rician_value_e(params, s, te):
@@ -224,6 +263,10 @@ def rician_fgh(params, s, te, e_list=None):
     return f, tuple(g), tuple(tuple(row) for row in h)
 
 
+def rician_value(params, s, te):
+    return rician_value_e(params, s, te)[0]
+
+
 def rician_value_e(params, s, te):
     """(objective, [exp(-te/t2)]); the exponentials feed the next fgh call."""
     k, t2, sg = params
@@ -241,5 +284,10 @@ def rician_value_e(params, s, te):
     return f, es
 
 
-FGH = {"gaussian_rician": gaussian_rician_fgh, "rician": rician_fgh}
-VALUE_E = {"gaussian_rician": gaussian_rician_value_e, "rician": rician_value_e}
+FGH = {"gaussian": gaussian_fgh, "gaussian_rician": gaussian_rician_fgh, "rician": rician_fgh}
+VALUE = {"gaussian": gaussian_value, "gaussian_rician": gaussian_rician_value,
+         "rician": rician_value}
+# value + the per-echo exponentials (for fits that carry them)
+VALUE_E = {"gaussian": gaussian_value_e, "gaussian_rician": gaussian_rician_value_e,
+           "rician": rician_value_e}
+N_PARAMS = {"gaussian": 2, "gaussian_rician": 3, "rician": 3}

@@ -44,10 +44,9 @@ import torch
 
 from .. import build
 from ..device import resolve_device
-from .fgh import FGH, VALUE_E, cdiv, rdiv
+from .fgh import FGH, N_PARAMS, VALUE_E, cdiv, rdiv
 from .solver import FitResult
 
-N_PARAMS = {"gaussian": 2, "gaussian_rician": 3, "rician": 3}
 
 _LAM0 = 1e-3
 _LAM_UP = 5.0

@@ -20,14 +20,16 @@ def _bounds(lo, hi, signal):
     return lo, hi
 
 
-def loglinear_init(signal: torch.Tensor, te, lo, hi) -> torch.Tensor:
+def loglinear_init(signal: torch.Tensor, te, lo, hi, sigma0=None) -> torch.Tensor:
     """Initial parameter batch from a weighted log-linear fit.
 
     Args:
         signal: (N, T) float32 voxel signals.
         te: (T,) echo times (ms).
-        lo, hi: (N, P) or (P,) parameter bounds; P = 2 or 3. For P = 3,
-            sigma starts at the RMS residual of the log-linear prediction.
+        lo, hi: (N, P) or (P,) parameter bounds; P = 2 or 3.
+        sigma0: optional scalar or (N,) initial sigma for 3-parameter
+            bounds; defaults to the RMS residual of the log-linear
+            prediction. Ignored for P = 2.
 
     Returns:
         x0: (N, P) initial parameters on ``signal``'s device, clipped
@@ -54,8 +56,11 @@ def loglinear_init(signal: torch.Tensor, te, lo, hi) -> torch.Tensor:
     k = torch.exp(torch.clamp(a, -30.0, 30.0))
     cols = [k, t2]
     if lo.shape[-1] == 3:
-        pred = k[:, None] * torch.exp(-te[None, :] / t2[:, None])
-        cols.append(torch.sqrt(torch.mean(torch.square(signal - pred), dim=1) + 1e-12))
+        if sigma0 is None:
+            pred = k[:, None] * torch.exp(-te[None, :] / t2[:, None])
+            sigma0 = torch.sqrt(torch.mean(torch.square(signal - pred), dim=1) + 1e-12)
+        cols.append(torch.as_tensor(sigma0, dtype=signal.dtype, device=signal.device)
+                    .expand(k.shape))
     x0 = torch.stack(cols, dim=-1)
     return torch.minimum(torch.maximum(x0, lo), hi)
 

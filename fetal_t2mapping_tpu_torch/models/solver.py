@@ -17,10 +17,12 @@ other full-volume fit goes through ``models.fused_fit``.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Union
 
 import torch
 
+from .. import graphs
 from .signal import make_objective, make_value_grad_hess
 
 _LAM0 = 1e-3
@@ -247,13 +249,27 @@ def fit_batch_traced(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
 
     Intended for a small sampled voxel subset (the reference records
     f_val/step_size per iteration via an L-BFGS-B callback). Runs exactly
-    ``max_iters`` iterations on ``signal``'s device.
+    ``max_iters`` iterations on ``signal``'s device: on the CPU as the
+    eager loop (``_fit_batch_traced_loop``, the plain version); on a CUDA
+    tensor as one step captured as a CUDA graph and replayed per iteration
+    (``_fit_batch_traced_steps``; the reference's ``lax.scan``), with the
+    same results. The graph and its buffers are kept for later calls of
+    the same model, shapes, budget, tolerances and device.
 
     Returns:
         (FitResult, traces) where traces is a dict of (iters, N) tensors:
         'f_val', 'step_size' and 'active' (bool; False once the voxel has
         converged).
     """
+    if torch.is_tensor(signal) and signal.device.type == "cuda":
+        return _fit_batch_traced_steps(signal, te, x0, lo, hi, model=model,
+                                       max_iters=max_iters, ftol=ftol, gtol=gtol, graph=True)
+    return _fit_batch_traced_loop(signal, te, x0, lo, hi, model=model, max_iters=max_iters,
+                                  ftol=ftol, gtol=gtol)
+
+
+def _fit_batch_traced_loop(signal, te, x0, lo, hi, *, model, max_iters, ftol, gtol):
+    """fit_batch_traced as an eager Python loop over ``_step``."""
     obj, fgh = make_objective(model), make_value_grad_hess(model)
     signal, te, x, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
     f = obj(x, te, signal)
@@ -267,3 +283,79 @@ def fit_batch_traced(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
     traces = {"f_val": torch.stack(f_val), "step_size": torch.stack(step_size),
               "active": torch.stack(active)}
     return FitResult(x=x, fun=f, converged=conv, n_iter=nit), traces
+
+
+# the trace sampler's CUDA graphs and their buffers, by (model, N, T, P,
+# iterations, ftol, gtol, device); a call holds the lock from its inputs'
+# copy to its outputs' clone
+_TRACE_GRAPHS: dict = {}
+_TRACE_GRAPHS_MAX = 16
+_TRACE_LOCK = threading.Lock()
+
+
+def _trace_buffers(n, t, p, iters, dev):
+    """The traced loop's state and inputs, preallocated for in-place steps."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return dict(
+        signal=torch.empty((n, t), **f32), te=torch.empty((t,), **f32),
+        lo=torch.empty((n, p), **f32), hi=torch.empty((n, p), **f32),
+        x=torch.empty((n, p), **f32), f=torch.empty((n,), **f32), lam=torch.empty((n,), **f32),
+        conv=torch.empty((n,), dtype=torch.bool, device=dev),
+        nit=torch.empty((n,), dtype=torch.int32, device=dev),
+        it=torch.empty((), dtype=torch.int64, device=dev),
+        f_val=torch.zeros((iters, n), **f32), step_size=torch.zeros((iters, n), **f32),
+        active=torch.zeros((iters, n), dtype=torch.bool, device=dev))
+
+
+def _traced_step(b, fgh, obj, ftol, gtol):
+    """One iteration of the traced loop on the buffers ``b``, in place: the
+    trace planes take row ``b["it"]`` (a device counter), so the step reads
+    nothing from the host and can be replayed as a graph."""
+    row = b["it"].view(1)
+    b["active"].index_copy_(0, row, ~b["conv"][None])
+    x, f, lam, conv, nit, step_norm = _step(fgh, obj, b["x"], b["f"], b["lam"], b["conv"],
+                                            b["nit"], b["te"], b["signal"], b["lo"], b["hi"],
+                                            ftol, gtol)
+    b["f_val"].index_copy_(0, row, f[None])
+    b["step_size"].index_copy_(0, row, step_norm[None])
+    for name, new in (("x", x), ("f", f), ("lam", lam), ("conv", conv), ("nit", nit)):
+        b[name].copy_(new)
+    b["it"].add_(1)
+
+
+def _fit_batch_traced_steps(signal, te, x0, lo, hi, *, model, max_iters, ftol, gtol, graph):
+    """fit_batch_traced through the in-place ``_traced_step``: driven
+    eagerly (``graph=False``), or on the card captured once as a CUDA graph
+    (the first iteration runs eagerly as the capture's warm-up) and
+    replayed for every further iteration, the graph kept for later calls."""
+    obj, fgh = make_objective(model), make_value_grad_hess(model)
+    signal, te, x0, lo, hi, *_ = _prep(signal, te, x0, lo, hi)
+    (n, p), t, dev = x0.shape, te.shape[0], signal.device
+    key = (model, n, t, p, max_iters, ftol, gtol, dev)
+    with _TRACE_LOCK:
+        buf, step_graph = _TRACE_GRAPHS.get(key, (None, None)) if graph else (None, None)
+        if buf is None:
+            buf = _trace_buffers(n, t, p, max_iters, dev)
+        for name, src in (("signal", signal), ("te", te), ("lo", lo), ("hi", hi), ("x", x0)):
+            buf[name].copy_(src)
+        buf["f"].copy_(obj(x0, te, signal))
+        buf["lam"].fill_(_LAM0)
+        buf["conv"].zero_()
+        buf["nit"].zero_()
+        buf["it"].zero_()
+
+        def step():
+            _traced_step(buf, fgh, obj, ftol, gtol)
+
+        done = 0
+        if graph and step_graph is None and max_iters > 0:
+            step_graph, done = graphs.capture(step, step, dev), 1
+            if len(_TRACE_GRAPHS) >= _TRACE_GRAPHS_MAX:
+                _TRACE_GRAPHS.pop(next(iter(_TRACE_GRAPHS)))
+            _TRACE_GRAPHS[key] = (buf, step_graph)
+        for _ in range(done, max_iters):
+            step_graph() if graph else step()
+        res = FitResult(x=buf["x"].clone(), fun=buf["f"].clone(),
+                        converged=buf["conv"].clone(), n_iter=buf["nit"].clone())
+        traces = {name: buf[name].clone() for name in ("f_val", "step_size", "active")}
+    return res, traces

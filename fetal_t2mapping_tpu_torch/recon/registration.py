@@ -31,7 +31,13 @@ the reference's ``_level_while_multi``: a pair that plateaus first keeps
 stepping while another still improves). The host reads that flag every
 ``_CHECK_EVERY`` iterations; the steps taken after the stop are not
 committed, so the stop iteration and the result are those of a test every
-iteration.
+iteration. On one card each level's step (metric, autograd, Adam, best
+tracking, history row, the freeze) is captured once as a CUDA graph
+(``graphs``) and replayed once per iteration, with the step index a device
+counter: the reference's ``lax.while_loop`` / ``lax.scan`` as one graph
+launch per iteration, with the eager loop's results. On the CPU, and over
+a ``mesh`` (whose metric adds partial sums across devices), the levels run
+as eager loops.
 
 The returned transform is a 4x4 world->world matrix T mapping fixed-space
 points into moving space: registered(w) = moving(T @ w).
@@ -44,6 +50,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import graphs
 from ..core.volume import Volume
 from ..device import resolve_device
 from ..ops.filtering import smooth_subsample
@@ -390,15 +397,27 @@ def _value_and_grad(metric, params):
 
 
 # --------------------------------------------------------------- optimizer
-def _adam_step(f_g, params, m, v, t: int, lr):
-    """One Adam(0.9, 0.999) step at step index ``t`` (counted from 1)."""
-    f, g = f_g(params)
+def _bias_denominators(t: int, dev):
+    """Adam's bias corrections 1 - 0.9^t and 1 - 0.999^t at step ``t``, as
+    0-dim tensors on ``dev``."""
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    return 1 - (0.9 * one) ** t, 1 - (0.999 * one) ** t
+
+
+def _adam(g, params, m, v, den1, den2, lr):
+    """Adam(0.9, 0.999) from gradient ``g`` with bias-correction
+    denominators ``den1``, ``den2``: (new params, m, v)."""
     m = 0.9 * m + 0.1 * g
     v = 0.999 * v + 0.001 * g * g
-    one = torch.ones((), dtype=torch.float32, device=params.device)
-    mhat = m / (1 - (0.9 * one) ** t)
-    vhat = v / (1 - (0.999 * one) ** t)
-    return f, params - lr * mhat / (torch.sqrt(vhat) + 1e-8), m, v
+    mhat = m / den1
+    vhat = v / den2
+    return params - lr * mhat / (torch.sqrt(vhat) + 1e-8), m, v
+
+
+def _adam_step(f_g, params, m, v, t: int, lr):
+    """One Adam step at step index ``t`` (counted from 1)."""
+    f, g = f_g(params)
+    return (f,) + _adam(g, params, m, v, *_bias_denominators(t, params.device), lr)
 
 
 def _best_improved(f, best_f, f0, stop_tol):
@@ -407,6 +426,19 @@ def _best_improved(f, best_f, f0, stop_tol):
     See the JAX package's ``_best_improved``."""
     scale = torch.maximum(f0 - best_f, 0.01 * torch.abs(best_f))
     return f < best_f - stop_tol * torch.clamp(scale, min=1e-12)
+
+
+def _track_best(f, params, best_f, best_p, t_best, f0, t1, tol, stop_window: int):
+    """The plateau exit's bookkeeping after the iterate ``params`` scored
+    ``f`` at step ``t1`` (a Python int or a device counter): (new t_best,
+    best_f, best_p, running). A warm start AT the optimum makes Adam
+    wander, so the level returns where the metric was best."""
+    new_t_best = torch.where(_best_improved(f, best_f, f0, tol), t1, t_best)
+    better = f < best_f
+    new_best_f = torch.where(better, f, best_f)
+    new_best_p = torch.where(better[:, None], params, best_p)
+    running = torch.any((t1 - new_t_best) < stop_window)
+    return new_t_best, new_best_f, new_best_p, running
 
 
 def _level_scan(f_g, params, lr, iters: int):
@@ -442,13 +474,8 @@ def _level_while(f_g, params, lr, iters: int, stop_tol: float, stop_window: int)
         t1 = i + 1
         f, new_params, new_m, new_v = _adam_step(f_g, params, m, v, t1, lr)
         f0 = f if f0 is None else f0
-        # track the best iterate: a warm start AT the optimum makes Adam
-        # wander, so return where the metric was best
-        new_t_best = torch.where(_best_improved(f, best_f, f0, tol), t1, t_best)
-        better = f < best_f
-        new_best_f = torch.where(better, f, best_f)
-        new_best_p = torch.where(better[:, None], params, best_p)
-        running = torch.any((t1 - new_t_best) < stop_window)
+        new_t_best, new_best_f, new_best_p, running = _track_best(
+            f, params, best_f, best_p, t_best, f0, t1, tol, stop_window)
         params, m, v = (torch.where(active, a, b) for a, b in
                         ((new_params, params), (new_m, m), (new_v, v)))
         t_best = torch.where(active, new_t_best, t_best)
@@ -460,6 +487,134 @@ def _level_while(f_g, params, lr, iters: int, stop_tol: float, stop_window: int)
     hist = torch.stack(hist + [best_f] * (iters - len(hist)))
     hist = torch.where(torch.arange(iters, device=dev)[:, None] >= t_end, best_f[None, :], hist)
     return best_p, hist, t_end, best_f, syncs
+
+
+# ------------------------------------------------- the levels as graph steps
+# The two level loops above, rewritten as a step that updates preallocated
+# buffers in place, with the step index a device counter: on the card the
+# step is captured once per level as a CUDA graph and replayed once per
+# iteration (the JAX package's lax.while_loop / lax.scan); the CPU tests
+# drive the same step eagerly against the loops above.
+_BIAS_TABLES: dict = {}
+
+
+def _bias_table(iters: int, dev) -> torch.Tensor:
+    """(iters, 2) Adam bias-correction denominators for steps 1..iters, each
+    row computed by ``_bias_denominators`` itself, so a step that looks its
+    row up by a device counter divides by the eager loop's bits (no
+    ``pow`` by a tensor exponent, whose rounding need not match ``pow`` by
+    a Python int). Kept per device; a longer table serves a shorter level."""
+    table = _BIAS_TABLES.get(dev)
+    if table is None or table.shape[0] < iters:
+        table = torch.stack([torch.stack(_bias_denominators(t, dev))
+                             for t in range(1, iters + 1)])
+        _BIAS_TABLES[dev] = table
+    return table
+
+
+def _level_buffers(params, iters: int):
+    """The level loop's state: the iterate, Adam's moments, the step
+    counter and the (iters, P) history, plus the plateau exit's state."""
+    dev, P = params.device, params.shape[0]
+    return dict(
+        params=params.clone(), m=torch.zeros_like(params), v=torch.zeros_like(params),
+        t=torch.zeros((), dtype=torch.int64, device=dev),
+        hist=torch.zeros((iters, P), dtype=torch.float32, device=dev),
+        best_f=torch.full((P,), float("inf"), dtype=torch.float32, device=dev),
+        best_p=params.clone(), t_best=torch.zeros((P,), dtype=torch.int64, device=dev),
+        t_end=torch.zeros((), dtype=torch.int64, device=dev),
+        active=torch.ones((), dtype=torch.bool, device=dev),
+        f0=torch.zeros((P,), dtype=torch.float32, device=dev))
+
+
+def _adam_on_buffers(b, f_g, table, lr):
+    """One Adam step on the buffers; returns (f, new params, m, v) and
+    leaves the buffers unchanged."""
+    f, g = f_g(b["params"])
+    # index_select, not table[t]: indexing by a 0-dim tensor reads it on the host
+    den = table.index_select(0, b["t"].view(1))[0]
+    return (f,) + _adam(g, b["params"], b["m"], b["v"], den[0], den[1], lr)
+
+
+def _scan_step(b, f_g, table, lr):
+    """One iteration of ``_level_scan`` on the buffers ``b``, in place."""
+    f, params, m, v = _adam_on_buffers(b, f_g, table, lr)
+    b["hist"].index_copy_(0, b["t"].view(1), f[None])
+    for name, new in (("params", params), ("m", m), ("v", v)):
+        b[name].copy_(new)
+    b["t"].add_(1)
+
+
+def _while_step(b, f_g, table, lr, tol, stop_window: int, first: bool):
+    """One iteration of ``_level_while`` on the buffers ``b``, in place
+    (``first``: the level's first step, which sets f0)."""
+    f, new_params, new_m, new_v = _adam_on_buffers(b, f_g, table, lr)
+    if first:
+        b["f0"].copy_(f)
+    t1 = b["t"] + 1
+    active = b["active"]
+    new_t_best, new_best_f, new_best_p, running = _track_best(
+        f, b["params"], b["best_f"], b["best_p"], b["t_best"], b["f0"], t1, tol, stop_window)
+    for name, new in (("params", new_params), ("m", new_m), ("v", new_v),
+                      ("t_best", new_t_best), ("best_f", new_best_f), ("best_p", new_best_p)):
+        b[name].copy_(torch.where(active, new, b[name]))
+    b["hist"].index_copy_(0, b["t"].view(1), torch.where(active, f, b["best_f"])[None])
+    b["t_end"].add_(active.to(torch.int64))
+    active.logical_and_(running)
+    b["t"].add_(1)
+
+
+def _run_steps(first, step, n: int, graph: bool, dev, stop=None):
+    """Run a level's ``n`` iterations: ``first()`` then ``step()`` for the
+    rest, eagerly, or with ``graph`` as ``first`` on a side stream, then
+    ``step`` captured and replayed. ``stop`` (a 0-dim bool tensor that is
+    False once the level has stopped) is read on the host every
+    ``_CHECK_EVERY`` iterations; returns the number of those reads."""
+    if n == 0:
+        return 0
+    syncs = 0
+    if graph and n > 1:
+        step = graphs.capture(step, first, dev)
+    else:
+        first()
+    for i in range(1, n):
+        if stop is not None and i % _CHECK_EVERY == 0:
+            syncs += 1
+            if not bool(stop):
+                break
+        step()
+    return syncs
+
+
+def _level_scan_steps(f_g, params, lr, iters: int, graph: bool):
+    """``_level_scan`` through the in-place ``_scan_step`` (``graph``: one
+    CUDA graph per level, replayed per iteration)."""
+    b = _level_buffers(params, iters)
+    table = _bias_table(iters, params.device)
+
+    def step():
+        _scan_step(b, f_g, table, lr)
+
+    _run_steps(step, step, iters, graph, params.device)
+    return b["params"], b["hist"]
+
+
+def _level_while_steps(f_g, params, lr, iters: int, stop_tol: float, stop_window: int,
+                       graph: bool):
+    """``_level_while`` through the in-place ``_while_step``, with the same
+    host read of the active flag every ``_CHECK_EVERY`` iterations and the
+    same results (``graph``: one CUDA graph per level, replayed per
+    iteration; its first step runs eagerly, as the capture's warm-up)."""
+    dev = params.device
+    b = _level_buffers(params, iters)
+    table = _bias_table(iters, dev)
+    tol = torch.tensor(stop_tol, dtype=torch.float32, device=dev)
+    syncs = _run_steps(lambda: _while_step(b, f_g, table, lr, tol, stop_window, True),
+                       lambda: _while_step(b, f_g, table, lr, tol, stop_window, False),
+                       iters, graph, dev, stop=b["active"])
+    hist = torch.where(torch.arange(iters, device=dev)[:, None] >= b["t_end"],
+                       b["best_f"][None, :], b["hist"])
+    return b["best_p"], hist, b["t_end"], b["best_f"], syncs
 
 
 def _resolve_stop_window(stop_window, metric: str) -> int:
@@ -586,6 +741,9 @@ def _register(fixed: Volume, movings: Sequence[Volume], *, mode: str, levels, si
     tf = _transform_fn(mode, center, scale)
     lr_t = torch.as_tensor(np.float32(lr), **f32)
     window = _resolve_stop_window(stop_window, metric)
+    # a level on one card runs as a CUDA graph of one step; a mesh's metric
+    # adds partial sums across devices, so its levels stay eager loops
+    graph = mesh is None and dev.type == "cuda"
     hist, n_exec, final_f, syncs = [], ([] if stop_tol is not None else None), None, 0
     for li, ((f_dat, f_sp), n_smp, mlvl) in enumerate(zip(f_pyr, samples, mask_pyr)):
         fixed_pts, fixed_vals = _fixed_level_operands(fixed, f_dat, f_sp, int(n_smp), mlvl)
@@ -595,10 +753,13 @@ def _register(fixed: Volume, movings: Sequence[Volume], *, mode: str, levels, si
         met = _make_metric_fn(metric, tf, fixed_pts, fixed_vals, mov, mesh)
         f_g = lambda p, met=met: _value_and_grad(met, p)
         if stop_tol is None:
-            params, h = _level_scan(f_g, params, lr_t, int(iters[li]))
+            params, h = (_level_scan_steps(f_g, params, lr_t, int(iters[li]), graph=True)
+                         if graph else _level_scan(f_g, params, lr_t, int(iters[li])))
         else:
-            params, h, t_end, final_f, k = _level_while(
-                f_g, params, lr_t, int(iters[li]), float(stop_tol), window)
+            params, h, t_end, final_f, k = (
+                _level_while_steps(f_g, params, lr_t, int(iters[li]), float(stop_tol), window,
+                                   graph=True) if graph else
+                _level_while(f_g, params, lr_t, int(iters[li]), float(stop_tol), window))
             n_exec.append(t_end)
             syncs += k
         hist.append(h)
@@ -636,7 +797,9 @@ def register_rigid(fixed: Volume, moving: Volume, *,
     optimizer); ``iters`` is the per-level budget either way. ``mesh`` (a
     ``parallel.VoxelMesh``) splits the metric's fixed-image samples over
     its devices (see ``_make_metric_fn``) and replaces ``device``: the
-    solve and its result live on the mesh's first device."""
+    solve and its result live on the mesh's first device. On one CUDA
+    device each pyramid level runs as one captured CUDA graph step replayed
+    per iteration; over a mesh the levels run as eager loops."""
     return _register(fixed, [moving], mode="rigid", levels=levels, sigmas=sigmas,
                      iters=iters, samples=samples, lr=lr, metric=metric,
                      init_params=_one_pair(init_params), fixed_mask=fixed_mask, stop_tol=stop_tol,

@@ -1,7 +1,8 @@
 """Host-side utilities of the port.
 
 - ``bids``      — BIDS derivative paths
-- ``metadata``  — session CSV logs read into row dicts (stdlib ``csv``)
+- ``metadata``  — session CSV logs read into row dicts (stdlib ``csv``), or
+                  one log into a pandas DataFrame (``csv2df``)
 - ``maps_io``   — T2-map and summary writers
 - ``profiling`` — stage timers
 - ``dicom``     — the Part-10 reader and its pixel decoders (RLE,
@@ -17,6 +18,6 @@
 """
 
 from .bids import get_img_path, mk_bids_dir
-from .metadata import read_csv, set_metadata
+from .metadata import csv2df, read_csv, set_metadata
 
-__all__ = ["get_img_path", "mk_bids_dir", "read_csv", "set_metadata"]
+__all__ = ["get_img_path", "mk_bids_dir", "read_csv", "set_metadata", "csv2df"]

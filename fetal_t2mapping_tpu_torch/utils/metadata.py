@@ -5,7 +5,8 @@ acquisition (sub/ses/run/EchoTime/orientation/...). Same shortlists and
 ``set_metadata`` semantics as ``fetal_t2mapping_tpu.utils.metadata``, read
 with the stdlib ``csv`` module instead of pandas. Each column is typed the
 way ``pandas.read_csv`` infers it: all integers -> int, all numbers ->
-float, otherwise str; an empty cell is None.
+float, otherwise str; an empty cell is None. ``csv2df`` is the reference's
+pandas loader of one log.
 """
 
 from __future__ import annotations
@@ -69,6 +70,14 @@ def read_csv(csv_path: str) -> List[Dict]:
     columns = [_typed_column([r[j] if j < len(r) else "" for r in body])
                for j in range(len(header))]
     return [dict(zip(header, values)) for values in zip(*columns)] if body else []
+
+
+def csv2df(csv_path: str):
+    """One session log as a ``pandas.DataFrame`` (the reference's loader;
+    pandas is imported here, so importing this module does not need it)."""
+    import pandas as pd
+
+    return pd.read_csv(csv_path)
 
 
 def set_metadata(csv_path: str, csvs: Sequence[str], low_field: bool) -> List[Dict]:

@@ -124,6 +124,37 @@ def test_fgh_and_value_e_match_reference(model, carried_exps):
                     <= 1e-4), (i, j)
 
 
+@pytest.mark.parametrize("model", ("gaussian",) + MODELS)
+def test_value_dicts_and_gaussian_entries_match_reference(model):
+    """The per-model tables (FGH / VALUE / VALUE_E / N_PARAMS) have the
+    reference's keys; VALUE is VALUE_E's objective; every model's f, g and
+    H (the gaussian entries too) within the bands of the test above."""
+    for table in ("FGH", "VALUE", "VALUE_E", "N_PARAMS"):
+        assert set(getattr(fgh, table)) == set(getattr(ref_fgh, table)), table
+    assert fgh.N_PARAMS == ref_fgh.N_PARAMS
+    params, s = _rand_points("gaussian_rician" if model == "gaussian" else model, n=256, seed=5)
+    params = params[:fgh.N_PARAMS[model]]
+    pt = tuple(torch.from_numpy(p) for p in params)
+    pj = tuple(jnp.asarray(p) for p in params)
+    s_t = list(torch.from_numpy(s).t())
+    s_j = [jnp.asarray(s[:, i]) for i in range(3)]
+    v_p, v_r = fgh.VALUE[model](pt, s_t, TES), ref_fgh.VALUE[model](pj, s_j, TES)
+    assert _rel(v_p.numpy(), v_r, 1.0).max() <= 1e-5
+    np.testing.assert_array_equal(v_p.numpy(), fgh.VALUE_E[model](pt, s_t, TES)[0].numpy())
+    f_p, g_p, h_p = fgh.FGH[model](pt, s_t, TES)
+    f_r, g_r, h_r = ref_fgh.FGH[model](pj, s_j, TES)
+    assert _rel(f_p.numpy(), f_r, 1.0).max() <= 1e-5
+    np.testing.assert_array_equal(f_p.numpy().shape, (256,))
+    p = fgh.N_PARAMS[model]
+    for i in range(p):
+        gr = np.asarray(g_r[i])
+        assert _rel(g_p[i].numpy(), gr, max(1e-2 * np.abs(gr).max(), 1e-6)).max() <= 1e-4
+        for j in range(p):
+            hr = np.asarray(h_r[i][j])
+            assert (_rel(h_p[i][j].numpy(), hr, max(1e-2 * np.abs(hr).max(), 1e-6)).max()
+                    <= 1e-4), (i, j)
+
+
 def test_rician_value_stable_at_pinned_sigma_corner():
     """At x = m s / sigma^2 ~ 1e7 (sigma pinned at its lower bound) the
     float32 NLL tracks the float64 reference-order evaluation: the

@@ -145,6 +145,19 @@ def test_metadata_rows_equal_pandas(tmp_path):
         md.set_metadata(logs, ["notacsv.txt"], low_field=True)
 
 
+def test_csv2df_equals_reference(tmp_path):
+    """csv2df is the reference's pandas loader, exported from utils as
+    there."""
+    from fetal_t2mapping_tpu import utils as ref_utils
+    from fetal_t2mapping_tpu_torch import utils as port_utils
+
+    logs = _write_logs(str(tmp_path))
+    path = os.path.join(logs, "a.csv")
+    pd.testing.assert_frame_equal(port_utils.csv2df(path), ref_utils.csv2df(path))
+    assert "csv2df" in port_utils.__all__ and md.csv2df is port_utils.csv2df
+    assert md.csv2df(path).to_dict("records") == md.read_csv(path)
+
+
 def test_session_enumeration_equals_pandas(tmp_path):
     logs = _write_logs(str(tmp_path))
     bids = str(tmp_path / "projects") + "/"

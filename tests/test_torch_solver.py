@@ -68,6 +68,30 @@ def test_loglinear_init_per_voxel_bounds():
     assert (np.abs(x_p - x_r) / np.abs(x_r))[ident].max() <= 1e-4
 
 
+@pytest.mark.parametrize("sigma0", [None, 25.0, "per-voxel"])
+def test_loglinear_init_sigma0_matches_reference(sigma0):
+    """sigma0 (a scalar or one value per voxel) replaces the RMS-residual
+    start of the 3-parameter sigma; k and T2 are unchanged. The band of
+    the default start's test below (1e-4 of max(|x|, 1) on identifiable
+    voxels)."""
+    sig, ident = _make_data3(512, "gaussian_rician", seed=14)
+    lo, hi = LO3["gaussian_rician"], HI3["gaussian_rician"]
+    if sigma0 == "per-voxel":
+        sigma0 = np.random.default_rng(2).uniform(0.5, 2000.0, 512).astype(np.float32)
+    x_r = np.asarray(ref_init.loglinear_init(sig, jnp.asarray(TES), lo, hi, sigma0))
+    x_p = port_init.loglinear_init(torch.from_numpy(sig), TES, lo, hi,
+                                   sigma0=None if sigma0 is None else torch.as_tensor(sigma0)).numpy()
+    assert x_p.shape == (512, 3)
+    assert _rel(x_p, x_r)[ident].max() <= 1e-4
+    if sigma0 is not None:
+        np.testing.assert_array_equal(x_p[:, 2], np.clip(np.broadcast_to(sigma0, (512,)),
+                                                         lo[2], hi[2]).astype(np.float32))
+    # a 2-parameter box ignores sigma0, as the reference does
+    two = port_init.loglinear_init(torch.from_numpy(sig), TES, LO, HI, sigma0=7.0)
+    np.testing.assert_array_equal(two.numpy(),
+                                  port_init.loglinear_init(torch.from_numpy(sig), TES, LO, HI).numpy())
+
+
 def test_gauss_fgh_and_predict_signal_match_reference():
     sig, _ = _make_data(512, seed=6)
     rng = np.random.default_rng(0)
