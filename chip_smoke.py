@@ -27,7 +27,13 @@ the trace sampler of phases 4 and 7 (its replays counted in the sessions,
 then held bitwise against the eager loop on the card, each timed) and the
 registration levels of phases 11-12 (bitwise against the eager loops,
 ms, graph captures and replays, and the host's launches under the
-profiler). Phase
+profiler). So do the batch solver ``fit_batch`` (phase 10's fit_stack per
+model and the no-prior 3-parameter fit at the 240^3 session's mask, each
+graphed against the eager loop: s, bitwise, graphs and host reads, peak
+MiB; phase 17's sharded solvers), TV, ``fill_holes`` and
+``build_slice_mask`` (phase 12, on one of the session's recons: ms graphed
+and eager, bitwise) and each N4 level (phase 14: s graphed and eager,
+bitwise with field_cv, the host's launches per level). Phase
 13, the serving path: ``fit_volume`` per model on bench.py's 240^3 x 3-TE
 request (and ~5% and ~50% ellipsoid masks), its dense, block and
 voxel-exact layouts timed, bitwise equal to each other and to
@@ -467,9 +473,7 @@ def _write_session(root: str, n_side: int, seed: int):
     shape = (n_side,) * 3
     k = rng.uniform(600.0, 5000.0, shape).astype(np.float32)
     t2 = rng.uniform(20.0, 500.0, shape).astype(np.float32)
-    ax = (np.arange(n_side, dtype=np.float32) - (n_side - 1) / 2) / (n_side / 2)
-    zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
-    mask = ((zz / 0.75) ** 2 + (yy / 0.85) ** 2 + (xx / 0.65) ** 2 <= 1.0)  # bench.py:438-440
+    mask = session_mask(n_side)
     bids = os.path.join(root, "projects/")
     logs = os.path.join(root, "dicom/logs/")
     os.makedirs(logs)
@@ -901,9 +905,7 @@ def _write_session3(root, n_side, seed, tes, k_range, t2_range):
     shape = (n_side,) * 3
     k = rng.uniform(*k_range, shape).astype(np.float32)
     t2 = rng.uniform(*t2_range, shape).astype(np.float32)
-    ax = (np.arange(n_side, dtype=np.float32) - (n_side - 1) / 2) / (n_side / 2)
-    zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
-    mask = ((zz / 0.75) ** 2 + (yy / 0.85) ** 2 + (xx / 0.65) ** 2 <= 1.0)  # bench.py:438-440
+    mask = session_mask(n_side)
     bids = os.path.join(root, "projects/")
     logs = os.path.join(root, "dicom/logs/")
     os.makedirs(logs)
@@ -1246,22 +1248,22 @@ GUESS_MODELS = {  # model: (low field, TEs, k range, T2 range), as phases 4 and 
 BANDS = {"gaussian": (1e-3, 1e-2), "gaussian_rician": (1e-2, 3e-2), "rician": (1e-2, 3e-2)}
 
 
-def guess_echoes(model, seed):
-    """GUESS_SHAPE echoes of one model's data (additive noise for gaussian,
+def guess_echoes(model, seed, shape=GUESS_SHAPE):
+    """``shape`` echoes of one model's data (additive noise for gaussian,
     the magnitude of complex noise for the 3-parameter models, sigma 8) and
     the identifiable voxels (last echo >= 3 sigma)."""
     _, tes, k_range, t2_range = GUESS_MODELS[model]
     rng = np.random.default_rng(seed)
-    k = rng.uniform(*k_range, GUESS_SHAPE).astype(np.float32)
-    t2 = rng.uniform(*t2_range, GUESS_SHAPE).astype(np.float32)
+    k = rng.uniform(*k_range, shape).astype(np.float32)
+    t2 = rng.uniform(*t2_range, shape).astype(np.float32)
     echoes = []
     for te in tes:
         a = k * np.exp(-te / t2)
-        noise = rng.normal(0, NOISE, GUESS_SHAPE).astype(np.float32)
+        noise = rng.normal(0, NOISE, shape).astype(np.float32)
         if model == "gaussian":
             echoes.append(np.maximum(a + noise, 1e-2).astype(np.float32))
         else:
-            echoes.append(np.hypot(a + noise, rng.normal(0, NOISE, GUESS_SHAPE)).astype(np.float32))
+            echoes.append(np.hypot(a + noise, rng.normal(0, NOISE, shape)).astype(np.float32))
     return echoes, k * np.exp(-tes[-1] / t2) >= 3 * NOISE
 
 
@@ -1287,7 +1289,7 @@ def guess_outside(model, a, b, ident):
     return ident & ~((rel_x <= bx) & (rel_f <= bf))
 
 
-def guess_bands(model, fit, echoes, tes, ident, what):
+def guess_bands(model, fit, echoes, tes, ident, what, label="guess start", gated=True):
     """fit(echoes, device) on the card against the CPU: the convergence
     rates within 0.01, and the bands on every identifiable voxel both
     converged (gaussian) or, for the 3-parameter models, on every such
@@ -1296,8 +1298,11 @@ def guess_bands(model, fit, echoes, tes, ident, what):
     or rounding-sensitive (one side's own answer leaves the bands when the
     echoes move by one float32 ulp, up or down). n_overflow equal, or, where
     one side's own count moves under such a change, within 0.01 of the
-    voxels. Returns the summary text, with the witness of each voxel
-    outside the bands (the first 8)."""
+    voxels. The one-ulp fits run only where a voxel is outside the bands
+    or the counts differ. With ``gated=False`` the voxels outside the
+    bands are reported, not gated (the rates and counts still are).
+    Returns the summary text, with the witness of each voxel outside the
+    bands (the first 8) and those without one."""
     a, b = (guess_cols(fit(echoes, dev)) for dev in ("cuda", "cpu"))
     ident = ident.ravel()
     both = ident & a[2] & b[2]
@@ -1310,7 +1315,7 @@ def guess_bands(model, fit, echoes, tes, ident, what):
     equal = np.abs(f64[:, 0] - f64[:, 1]) <= BANDS[model][1] * np.maximum(
         np.abs(f64).min(axis=1), 1.0)
     sensitive, counts, moved = np.zeros(ident.size, bool), {}, False
-    for own, dev in ((a, "cuda"), (b, "cpu")):
+    for own, dev in ((a, "cuda"), (b, "cpu")) if out.size or a[3] != b[3] else ():
         for towards, way in ((np.inf, "up"), (0.0, "down")):
             other = guess_cols(fit([np.nextafter(e, np.float32(towards)) for e in echoes], dev))
             sensitive |= guess_outside(model, other, own, ident)
@@ -1327,28 +1332,66 @@ def guess_bands(model, fit, echoes, tes, ident, what):
             f"equally good minima, {int(sensitive[out].sum())} rounding-sensitive"
             f"{': ' + witness if witness else ''}), dconv {dconv:.4f}, n_overflow card "
             f"{a[3]} / CPU {b[3]} (echoes one ulp up or down: {counts})")
+    text += f"; without a witness: {unexplained.size} {unexplained[:8].tolist()}"
     gate(both.sum() >= 16 and dconv <= 0.01 and ovf_ok
-         and (out.size == 0 if model == "gaussian" else unexplained.size == 0),
-         f"{model} guess start, {text}; without a witness: {unexplained[:8]}")
+         and (not gated or (out.size == 0 if model == "gaussian" else unexplained.size == 0)),
+         f"{model} {label}, {text}")
     return text
+
+
+MAP_NAMES = ("t2", "k", "sigma", "res", "fun", "converged", "n_iter")
+
+
+def same_maps(a, b) -> bool:
+    """Two fit_stack outputs with the same bits in every map and count."""
+    return a.n_overflow == b.n_overflow and all(
+        np.array_equal(getattr(a, m).data.view(np.uint8), getattr(b, m).data.view(np.uint8))
+        for m in MAP_NAMES)
+
+
+def peak_mib(dev: torch.device) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 20 if dev.type == "cuda" else math.nan
+
+
+def stack_graph_vs_eager(stack, cfg, device="cuda"):
+    """fit_stack on the card with its batch solver as the replayed graph,
+    then with the eager loop (a host read every iteration), then graphed
+    again, gated bitwise: (output, (first, second) graphed s, eager s,
+    (captures, replays, host reads) of a graphed call, (graphed, eager)
+    peak MiB)."""
+    dev = torch.device(device)
+    runs = []
+    for route in ("graph", "eager", "graph"):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = graph_counts()
+        with eager_loops(*(("fit_batch",) if route == "eager" else ())):
+            t0 = time.perf_counter()
+            out = fit_stack(stack, cfg, device=dev)
+            _sync()
+            wall = time.perf_counter() - t0
+        runs.append((out, wall, counts_since(before), peak_mib(dev)))
+    gate(all(same_maps(runs[0][0], r[0]) for r in runs[1:]),
+         f"{cfg.model} fit_stack: the graphed batch solver differs from the eager loop")
+    (out, g_s, counts, g_mib), (_, e_s, _, e_mib), (_, g2_s, _, _) = runs
+    return out, (g_s, g2_s), e_s, counts, (g_mib, e_mib)
 
 
 def phase10_guess_start():
     """fit_stack with loglinear_init=False — the two-phase solver from the
     protocol guess clipped into each voxel's box, torch ops on the device,
     no hand kernel — once per model on the card over a fully masked
-    GUESS_SHAPE stack (2^20 voxels): finite maps, n_overflow and the time;
+    GUESS_SHAPE stack (2^20 voxels): finite maps, n_overflow and the time,
+    the batch solver as a replayed graph against the eager loop (bitwise);
     then the same call on the card and on the CPU over its first 16^3
-    voxels, held together by guess_bands."""
+    voxels, held together by guess_bands. Then the no-prior 3-parameter
+    fit (phase10_no_prior)."""
     text = ""
     for model, (low_field, tes, _, _) in GUESS_MODELS.items():
         echoes, ident = guess_echoes(model, seed=17)
         cfg = C.fit_config(model, low_field, loglinear_init=False)
         stack = fully_masked(echoes, tes)
-        t0 = time.perf_counter()
-        out = fit_stack(stack, cfg, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        out, wall, eager_s, counts, _ = stack_graph_vs_eager(stack, cfg)
         for name in ("t2", "k", "sigma", "res", "fun"):
             data = getattr(out, name).data
             gate(data.shape == GUESS_SHAPE and bool(np.isfinite(data).all()),
@@ -1357,11 +1400,60 @@ def phase10_guess_start():
         bands = guess_bands(model, lambda e, dev: fit_stack(fully_masked(e, tes), cfg, device=dev),
                             sub, tes, ident[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB],
                             f"card vs CPU on {GUESS_SUB ** 3} voxels")
-        text += (f" {model}: {wall:.3f} s (fit_stack {out.fit_seconds:.3f} s), converged "
+        text += (f" {model}: {wall[0]:.3f} s graphed, {wall[1]:.3f} s a second time (fit_stack "
+                 f"{out.fit_seconds:.3f} s; graphs "
+                 f"captured / replayed / host reads {counts}), {eager_s:.3f} s eager (a host "
+                 f"read every iteration), bitwise equal; converged "
                  f"{float((out.converged.data > 0.5).mean()):.5f}, n_overflow {out.n_overflow} "
                  f"of the {pad_bucket(out.n_voxels)} gathered rows; {bands};")
     print(f"phase 10 guess start (fit_stack, loglinear_init=False, two-phase solver, "
-          f"{GUESS_SHAPE[0]}x{GUESS_SHAPE[1]}x{GUESS_SHAPE[2]} on cuda):{text}", flush=True)
+          f"{GUESS_SHAPE[0]}x{GUESS_SHAPE[1]}x{GUESS_SHAPE[2]} on cuda):{text} "
+          f"{card_name_and_power_limit()}", flush=True)
+    phase10_no_prior()
+
+
+def session_mask(n: int) -> np.ndarray:
+    """bench.py:438-440's ellipsoid (half-axes 0.75 / 0.85 / 0.65) in n^3."""
+    ax = (np.arange(n, dtype=np.float32) - (n - 1) / 2) / (n / 2)
+    zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
+    return (zz / 0.75) ** 2 + (yy / 0.85) ** 2 + (xx / 0.65) ** 2 <= 1.0
+
+
+def phase10_no_prior(n: int = 240, device: str = "cuda"):
+    """The no-prior 3-parameter fit (fit_stack with prior=False:
+    fit_batch_multistart over the log-linear, grid and guess starts) per
+    model at the 240^3 session's mask (bench.py:438-440, ~3.0M voxels x 3
+    starts): s with the batch solver graphed and eager (bitwise), peak MiB
+    of each; then card against CPU on the first 16^3 voxels (guess_bands:
+    the convergence rates gated, the voxels outside the bands reported —
+    the card's multistart can end in another local minimum than the
+    CPU's where no one-ulp witness explains it)."""
+    text = ""
+    mask = Volume(session_mask(n).astype(np.uint8))
+    for model in ("gaussian_rician", "rician"):
+        low_field, tes = GUESS_MODELS[model][:2]
+        cfg = C.fit_config(model, low_field, prior=False)
+        echoes, ident = guess_echoes(model, seed=23, shape=(n,) * 3)
+        stack = EchoStack.from_volumes([Volume(e) for e in echoes], [mask] * len(tes), tes)
+        out, g_s, e_s, counts, mib = stack_graph_vs_eager(stack, cfg, device)
+        inside = mask.data > 0
+        for name in ("t2", "k", "sigma", "fun"):
+            data = getattr(out, name).data
+            gate(bool(np.isfinite(data[inside]).all()), f"{model} no prior: non-finite {name}")
+        sub = [e[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB] for e in echoes]
+        bands = guess_bands(model, lambda e, dev: fit_stack(fully_masked(e, tes), cfg, device=dev),
+                            sub, tes, ident[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB],
+                            f"card vs CPU on {GUESS_SUB ** 3} voxels (reported, not gated)",
+                            label="no prior", gated=False)
+        text += (f" {model}: {out.n_voxels} voxels x 3 starts, {g_s[0]:.3f} s graphed, "
+                 f"{g_s[1]:.3f} s a second time (fit_stack "
+                 f"{out.fit_seconds:.3f} s; graphs captured / replayed / host reads {counts}), "
+                 f"{e_s:.3f} s eager, bitwise equal; peak {mib[0]:.0f} MiB graphed, {mib[1]:.0f} "
+                 f"MiB eager; converged {float((out.converged.data[inside] > 0.5).mean()):.5f}; "
+                 f"{bands};")
+    card = card_name_and_power_limit() if device == "cuda" else device
+    print(f"phase 10 no prior (fit_stack prior=False, fit_batch_multistart, {n}^3 session mask "
+          f"on {device}):{text} {card}", flush=True)
 
 
 # ------------------------------------------------ stage 2: registration and the session
@@ -1428,42 +1520,77 @@ def timed_solves(fn, reps=3):
     return float(np.median(times)), out
 
 
-class eager_levels:
-    """Within the block the registration's levels run as the eager loops
-    on the card too (the graphs' plain versions), through the module's
-    private functions; for comparison only."""
+def _eager_routes(name):
+    """(module, attribute, eager replacement) for each graph-replaying
+    function of the loop ``name``: the replacement runs the eager loop that
+    the graph replaces."""
+    from fetal_t2mapping_tpu_torch.models import solver
+    from fetal_t2mapping_tpu_torch.ops import morphology, tv
+    from fetal_t2mapping_tpu_torch.recon import biasfield
+    from fetal_t2mapping_tpu_torch.recon import registration as reg
+
+    return {
+        "levels": [(reg, "_level_while_steps", lambda *a, graph: reg._level_while(*a)),
+                   (reg, "_level_scan_steps", lambda *a, graph: reg._level_scan(*a))],
+        "fit_batch": [(solver, "_fit_batch_steps",
+                       lambda *a, graph, **k: solver._fit_batch_loop(*a, **k))],
+        "tv": [(tv, "_tv2d_steps", lambda img, w, eps, n, *, graph: tv._tv2d(img, w, eps, n))],
+        "fill": [(morphology, "_fill_holes_steps",
+                  lambda m, axes, *, graph: morphology._fill_holes_loop(m, axes))],
+        "n4": [(biasfield, "_n4_level_steps",
+                lambda v, m, *, graph, **k: biasfield._n4_level_loop(v, m, **k))],
+    }[name]
+
+
+class eager_loops:
+    """Within the block the named loops ('levels', 'fit_batch', 'tv',
+    'fill', 'n4') run as their eager loops on the card too (the graphs'
+    plain versions), through the modules' private step functions; for
+    comparison only."""
+
+    def __init__(self, *names):
+        self._names = names
 
     def __enter__(self):
-        from fetal_t2mapping_tpu_torch.recon import registration as reg
-
-        self._saved = reg._level_while_steps, reg._level_scan_steps
-        reg._level_while_steps = lambda *a, graph: reg._level_while(*a)
-        reg._level_scan_steps = lambda *a, graph: reg._level_scan(*a)
+        self._saved = []
+        for name in self._names:
+            for module, attr, eager in _eager_routes(name):
+                self._saved.append((module, attr, getattr(module, attr)))
+                setattr(module, attr, eager)
         return self
 
     def __exit__(self, *exc):
-        from fetal_t2mapping_tpu_torch.recon import registration as reg
-
-        reg._level_while_steps, reg._level_scan_steps = self._saved
+        for module, attr, fn in reversed(self._saved):
+            setattr(module, attr, fn)
         return False
+
+
+def graph_counts():
+    """(graphs captured, replayed, stop flags read) so far in this process."""
+    return graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS
+
+
+def counts_since(before):
+    return tuple(a - b for a, b in zip(graph_counts(), before))
 
 
 # the host's launch calls in a torch.profiler trace: kernels and graphs
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
-def profile_solve(fn):
-    """One call of ``fn`` (a solve, synced on its parameters) under
-    torch.profiler: wall ms, device busy ms, idle share, device kernels,
-    the host's kernel launches and graph launches; a string if the
-    profiler is unavailable."""
+def profile_solve(fn, done=lambda out: out.params_device.sum().item()):
+    """One call of ``fn`` (a solve; ``done`` syncs on its result, by
+    default on the solved parameters) under torch.profiler: wall ms,
+    device busy ms, idle share, device kernels, the host's kernel launches
+    and graph launches; a string if the profiler is unavailable."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
         _sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn().params_device.sum().item()
+            done(fn())
+            _sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
     except Exception as exc:   # the profiler is untried on this machine: report, do not fail
@@ -1529,7 +1656,7 @@ def phase11_registration(n: int = 192, device: str = "cuda"):
     gate(rot < 0.01 and tr < 0.5, f"{n}^3 rigid recovery {rot:.4f} rad / {tr:.3f} mm "
                                   "(gates 0.01 rad, 0.5 mm)")
     # the same solve through the eager loops on the card: the graphs' bits
-    with eager_levels():
+    with eager_loops("levels"):
         eager_ms, eager_res = timed_solves(rigid)
     gate(same_solve(res, eager_res), f"{n}^3 rigid: the graphed levels differ from the eager loops")
     if device != "cpu":
@@ -1542,7 +1669,7 @@ def phase11_registration(n: int = 192, device: str = "cuda"):
     multi_err = [pose_error(T, r.matrix, center) for T, r in zip((T1, T2), regs)]
     for r_, t_ in multi_err:
         gate(r_ < 0.01 and t_ < 0.5, f"{n}^3 multi-pair recovery {r_:.4f} rad / {t_:.3f} mm")
-    with eager_levels():
+    with eager_loops("levels"):
         eager_multi = registration.register_rigid_multi(fixed, [moving, moving2], metric="ncc",
                                                         device=device)
     gate(all(same_solve(a, b) for a, b in zip(regs, eager_multi)),
@@ -1550,14 +1677,14 @@ def phase11_registration(n: int = 192, device: str = "cuda"):
     affine_ms, aff = timed_solves(
         lambda: registration.register_affine(fixed, moving_cc, metric="cr", device=device), reps=1)
     aff_err = pose_error(T1, aff.matrix, center)
-    with eager_levels():
+    with eager_loops("levels"):
         eager_aff = registration.register_affine(fixed, moving_cc, metric="cr", device=device)
     gate(same_solve(aff, eager_aff), f"{n}^3 affine cr: the graphed levels differ from the eager loops")
 
     # one rigid solve under the profiler, graphed and eager: the card's busy
     # time, the host's launches
     prof = profile_solve(rigid)
-    with eager_levels():
+    with eager_loops("levels"):
         prof_eager = profile_solve(rigid)
 
     # the card against the CPU at 48^3
@@ -1776,14 +1903,14 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
         rows = set_metadata(logs, ["smoke.csv"], low_field=True)
         profiler.reset()
         fused_fit.KERNEL_LAUNCHES = 0
-        c0, r0 = graphs.CAPTURES, graphs.REPLAYS
+        before = graph_counts()
         t0 = time.perf_counter()
         process_qmri(bids, rows, in_vivo=True, low_field=True,
                      synthseg=SynthSegRunner(mode="fake"), device=device)
         stage2_s = time.perf_counter() - t0
-        stage2_graphs = (graphs.CAPTURES - c0, graphs.REPLAYS - r0)
+        stage2_graphs = counts_since(before)
         if torch.device(device).type == "cuda":
-            gate(min(stage2_graphs) > 0, f"stage 2 ran no registration graph {stage2_graphs}")
+            gate(min(stage2_graphs) > 0, f"stage 2 ran no graph {stage2_graphs}")
         t0 = time.perf_counter()
         summaries = process_t2maps(rows, bids, list(SESSION_TES), C.fit_config("gaussian", True),
                                    low_field=True, sim="smoke", make_plots=False, device=device)
@@ -1796,6 +1923,8 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
 
         errs, t2_err, mask_frac, _ = invivo_gates(bids, rows, fields, n,
                                                   summaries[0]["maps"]["t2"])
+        acq = next(r for r in rows if r["EchoTime"] == SESSION_TES[0] / 1000.0)
+        loops = stage2_loops(nifti.read(get_img_path(bids, acq, C.RECON_DIRNAME)).data, device)
 
     # in vitro: the card against the CPU, exactly
     vol = _phantom_recon(n)
@@ -1820,13 +1949,53 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
     gate(n_labels == in_grid, f"{n_labels} sphere labels for {in_grid} seeds in the grid")
     print(f"phase 12 session (process_qmri in vivo, 3 TEs x ax/cor/sag {n}x{n}x{n // 4} at 1x1x4 "
           f"mm -> {n}^3, SynthSeg fake; data set-up {setup_s:.1f} s): stage 2 {stage2_s:.2f} s "
-          f"(registration graphs captured / replayed {stage2_graphs}), "
+          f"(graphs captured / replayed / host reads {stage2_graphs}; fuse.denoise "
+          f"{stages.get('fuse.denoise')} s, recon.masks_bet {stages.get('recon.masks_bet')} s), "
           f"stage 3 (process_t2maps gaussian) {stage3_s:.2f} s, gauss_fit launches {launches}; "
           f"fused recon median rel err vs truth on the core {errs}; mask share {mask_frac:.3f}; "
           f"stage-3 median rel T2 err vs truth in mask and brain {t2_err:.4f}; stage seconds "
           f"{stages}; in vitro ({n}^3 phantom, masks + labels) card {vitro_s[device]} s, CPU "
-          f"{vitro_s['cpu']} s, equal", flush=True)
+          f"{vitro_s['cpu']} s, equal; on the {SESSION_TES[0]} ms recon: {loops}", flush=True)
     return launches
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+def stage2_loops(recon: np.ndarray, device: str) -> str:
+    """tv_denoise_slices, fill_holes (the recon above its mean) and
+    build_slice_mask on one of the session's recons, each as its replayed
+    graph and then as its eager loop on the same device, gated bitwise: ms
+    of one call each, and the graphed call's graphs captured / replayed /
+    host reads."""
+    from fetal_t2mapping_tpu_torch.ops import morphology, tv
+
+    rec = torch.from_numpy(np.ascontiguousarray(recon, np.float32)).to(device)
+    above = rec > rec.mean()
+    calls = {"tv_denoise_slices": ("tv", lambda: tv.tv_denoise_slices(rec)),
+             "fill_holes": ("fill", lambda: morphology.fill_holes(above)),
+             "build_slice_mask": ("fill", lambda: morphology.build_slice_mask(rec))}
+    parts = []
+    for name, (loop, fn) in calls.items():
+        res = {}
+        for route in ("graph", "eager"):
+            with eager_loops(*((loop,) if route == "eager" else ())):
+                _sync()
+                before = graph_counts()
+                t0 = time.perf_counter()
+                out = fn()
+                _sync()
+                res[route] = (out, (time.perf_counter() - t0) * 1e3, counts_since(before))
+        gate(same_bits(res["graph"][0], res["eager"][0]),
+             f"{name}: the graphed loop differs from the eager loop on {device}")
+        parts.append(f"{name} {res['graph'][1]:.1f} ms graphed (graphs captured / replayed / host "
+                     f"reads {res['graph'][2]}), {res['eager'][1]:.1f} ms eager, bitwise equal")
+    card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
+    return "; ".join(parts) + f" ({card})"
 
 
 # ------------------------------------------------ the serving path (fit_volume)
@@ -2057,10 +2226,36 @@ def phase14_n4_analysis(n: int = SESSION_N, n_lut: int = N_HEADLINE3, device: st
     img, mask, field, tissue = n4_scene(n)
     mm = (240.0 / n,) * 3                           # a 240 mm field of view: 1 mm at 240^3
     vol, mvol = Volume(img, spacing=mm), Volume(mask.astype(np.uint8), spacing=mm)
+    def same_n4(x, y):
+        return (np.array_equal(x.corrected.data, y.corrected.data)
+                and np.array_equal(x.field.data, y.field.data)
+                and np.array_equal(x.field_cv, y.field_cv))
+
+    before = graph_counts()
     s1, a = timed_s(lambda: n4_bias_correction(vol, mvol, device=device))
+    n4_graphs = counts_since(before)
     s1b, b = timed_s(lambda: n4_bias_correction(vol, mvol, device=device))
-    gate(np.array_equal(a.corrected.data, b.corrected.data) and np.array_equal(a.field.data, b.field.data)
-         and np.array_equal(a.field_cv, b.field_cv), "n4: two card runs differ")
+    gate(same_n4(a, b), "n4: two card runs differ")
+    with eager_loops("n4"):
+        s1e, e = timed_s(lambda: n4_bias_correction(vol, mvol, device=device))
+    gate(same_n4(a, e), "n4: the graphed level differs from the eager loop (corrected, field "
+                        "or field_cv)")
+    if torch.device(device).type == "cuda":
+        gate(n4_graphs[:2] == (1, 39) and n4_graphs[2] == 0,
+             f"n4: graphs captured / replayed / host reads {n4_graphs} for one 40-iteration level")
+    # the host's launches per level at 96^3 with the 240^3 scene's 1 mm
+    # voxels: the smoothing's taps, and so the launches, are the same
+    img96, mask96, *_ = n4_scene(96, seed=2)
+    v96 = Volume(img96, spacing=mm)
+    m96 = Volume(mask96.astype(np.uint8), spacing=mm)
+    launches = {}
+    for route in ("graph", "eager"):
+        with eager_loops(*(("n4",) if route == "eager" else ())):
+            prof = profile_solve(lambda: n4_bias_correction(v96, m96, device=device),
+                                 done=lambda r: None)
+        launches[route] = (prof if isinstance(prof, str) else
+                           {k: prof[k] for k in ("wall_ms", "host_kernel_launches",
+                                                 "graph_launches", "device_kernels")})
     single = n4_gates(a, img, mask, field, tissue, "single level")
     s3, c = timed_s(lambda: n4_bias_correction(vol, mvol, ctrl_spacing_mm=(200.0, 100.0, 50.0),
                                                device=device))
@@ -2103,8 +2298,12 @@ def phase14_n4_analysis(n: int = SESSION_N, n_lut: int = N_HEADLINE3, device: st
             np.float32)), device=device)
         gate(np.array_equal(outs[False][0], one.corrected.data),
              "run_biasfield_correction: output differs from n4_bias_correction on its input")
-    print(f"phase 14 n4 ({n}^3, {mm[0]:g} mm, known field; {single}): defaults {s1:.3f} s and {s1b:.3f} s, "
-          f"bitwise equal; (200, 100, 50) mm {s3:.3f} s ({multi}); shared_log_bias x 3 echoes "
+    card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
+    print(f"phase 14 n4 ({n}^3, {mm[0]:g} mm, known field; {single}): defaults (one level of 40 "
+          f"iterations) {s1:.3f} s and {s1b:.3f} s graphed (graphs captured / replayed / host "
+          f"reads {n4_graphs}), {s1e:.3f} s eager, bitwise equal (field_cv included); a level's "
+          f"host launches at 96^3: {launches}; {card}; "
+          f"(200, 100, 50) mm {s3:.3f} s ({multi}); shared_log_bias x 3 echoes "
           f"{s_sh:.3f} s (field correlation {corr_sh:.4f}); card vs CPU at 48^3 rel {rel:.3e}, "
           f"|mean|/std {inv:.3e} (CPU {s_cpu:.2f} s); run_biasfield_correction per acquisition "
           f"and shared on 2 x 2 volumes at 48^3: written", flush=True)
@@ -2530,6 +2729,7 @@ _STAGE2_RUN = r"""
 import json, os, sys, threading, time
 t0 = time.perf_counter()
 """ + _STAGE2_STEPS + r"""
+from fetal_t2mapping_tpu_torch import graphs
 from fetal_t2mapping_tpu_torch.cli import qmri_reconstruction
 from fetal_t2mapping_tpu_torch.core import volcache
 from fetal_t2mapping_tpu_torch.pipeline import recon_pipeline
@@ -2562,6 +2762,7 @@ pending = volcache.n_pending()
 h = handles[0] if handles else None
 print(json.dumps({"rc": rc, "import_s": import_s, "main_s": main_s, "pending": pending,
                   "stages": profiler.as_dict(), "report": profiler.report(),
+                  "graphs": [graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS],
                   "prewarm": None if h is None else {
                       "steps": h.steps, "seconds": h.seconds, "done": h.done,
                       "error": None if h.error is None else repr(h.error)}}))
@@ -2789,8 +2990,8 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
                   if k.startswith(keep)}
         print(f"phase 16 run {key} {IO_RUNS[key]}: process wall {r['wall_s']:.2f} s (imports "
               f"{r['import_s']:.2f} s, qmri_reconstruction.main {r['main_s']:.2f} s), writes "
-              f"pending at return {r['pending']}, prewarm {r['prewarm']}; stage seconds {stages}",
-              flush=True)
+              f"pending at return {r['pending']}, prewarm {r['prewarm']}; graphs captured / "
+              f"replayed / host reads {tuple(r['graphs'])}; stage seconds {stages}", flush=True)
     print("phase 16 run b profiler.report():\n" + runs["b"]["report"], flush=True)
     print(f"phase 16 first-launch costs (s, first and second time in a fresh process; the "
           f"stage-2 entry points at 32^3): {json.dumps(costs)}", flush=True)
@@ -2836,7 +3037,7 @@ def host_overflow(conv1: np.ndarray, bc: int, frac: float, rounds: int):
 
 
 def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int = 240,
-                 n_reg: int = 192, n_seg: int = 160):
+                 n_reg: int = 192, n_seg: int = 160, n_batch: int = 2 ** 18):
     """The port's mesh and 'twophase' paths. The mesh is two cards when two
     are visible, else cuda:0 twice (two shards on two streams of one card).
     (a) fit_fused_sharded at n_fit x 3 TEs per model against fit_fused:
@@ -2849,7 +3050,8 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
     within 5e-3 rad / 0.3 mm of single at a fixed budget, the recovery
     gate at the defaults, ms and launches; (e) segment_volume(mesh=) at
     n_seg^3 with phase 9's weights (fp32, TF32 off): labels equal to the
-    unsharded forward's; (f) mesh_from_flag(device_count() + 1) raises.
+    unsharded forward's; (f) mesh_from_flag(device_count() + 1) raises;
+    (g) the batch solvers over the mesh (mesh_batch_solvers).
     Returns (per-model ms and launches of (a)/(b), registration ms)."""
     from fetal_t2mapping_tpu_torch.parallel import fit_fused_sharded, mesh_from_flag
     from fetal_t2mapping_tpu_torch.recon import registration
@@ -3016,6 +3218,8 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
         raised = str(exc)
     gate(f"only {visible} CUDA device(s)" in raised, f"(f) mesh_from_flag: {raised!r}")
 
+    batch_line = mesh_batch_solvers(mesh, dev, n_batch)
+
     card = card_name_and_power_limit() if cuda else device
     print(f"phase 17 mesh ({mesh_kind}: {mesh}; 'twophase' phase1_iters 10, tail_rounds 2): (a)+(b) "
           f"at {n_fit} voxels x 3 TEs, bitwise to 'single' but the overflow, n_overflow = host "
@@ -3025,8 +3229,49 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
           f"{reg_ms:.1f} ms (single {single_ms:.1f} ms), launches per mesh solve {launches}, "
           f"recovery {rot:.5f} rad / {tr:.4f} mm, fixed budget mesh vs single {d_rot:.2e} / "
           f"{d_tr:.4f} mm; (e) segment_volume {n_seg}^3 fp32 single {seg['single_s']:.3f} s, "
-          f"mesh {seg['mesh_s']:.3f} s, labels equal; (f) {raised!r}; {card}", flush=True)
+          f"mesh {seg['mesh_s']:.3f} s, labels equal; (f) {raised!r}; (g) {batch_line}; {card}",
+          flush=True)
     return rows, reg_ms
+
+
+def mesh_batch_solvers(mesh, dev: torch.device, n: int) -> str:
+    """(g) the batch solvers over the mesh, each shard's fit_batch as its
+    replayed graph: fit_batch_sharded (gaussian, log-linear start) and
+    fit_batch_multistart_sharded (rician, log-linear, grid and guess
+    starts) at n voxels, bitwise against the one-device call; graphs
+    captured / replayed / host reads of the sharded call."""
+    from fetal_t2mapping_tpu_torch.models import init, solver
+    from fetal_t2mapping_tpu_torch.parallel import (fit_batch_multistart_sharded,
+                                                     fit_batch_sharded)
+
+    parts = []
+    for model, tes, lo, hi in (("gaussian", TES3, LO, HI), ("rician", TES3, LO3, HI3)):
+        make = make_data if model == "gaussian" else make_data3
+        sig = torch.from_numpy(make(n, tes, seed=5)[0]).to(dev)
+        x0 = init.loglinear_init(sig, tes, lo, hi)
+        kw = dict(model=model, max_iters=60, ftol=1e-9, gtol=0.0)
+        if model == "gaussian":
+            single = solver.fit_batch(sig, tes, x0, lo, hi, **kw)
+            before = graph_counts()
+            sharded = fit_batch_sharded(sig, tes, x0, lo, hi, mesh, **kw)
+        else:
+            x0s = torch.stack([x0, init.grid_init(sig, tes, lo, hi),
+                               torch.as_tensor(GUESS3, dtype=torch.float32, device=dev)
+                               .clamp(torch.as_tensor(lo, device=dev),
+                                      torch.as_tensor(hi, device=dev)).expand_as(x0)])
+            single = solver.fit_batch_multistart(sig, tes, x0s, lo, hi, **kw)
+            before = graph_counts()
+            sharded = fit_batch_multistart_sharded(sig, tes, x0s, lo, hi, mesh, **kw)
+        counts = counts_since(before)
+        gate(all(same_bits(getattr(single, f), getattr(sharded, f))
+                 for f in ("x", "fun", "converged", "n_iter")),
+             f"(g) {model}: the sharded batch solver differs from one device")
+        gate(counts[0] == mesh.size or dev.type != "cuda",
+             f"(g) {model}: {counts} graphs captured / replayed / host reads over {mesh.size} shards")
+        parts.append(f"{'fit_batch_sharded gaussian' if model == 'gaussian' else 'fit_batch_multistart_sharded rician'} "
+                     f"{n} voxels, bitwise to one device, graphs captured / replayed / host reads "
+                     f"{counts}")
+    return "; ".join(parts)
 
 
 # ------------------------------------------------ fit_volume over a mesh, the entry module

@@ -129,8 +129,13 @@ def resolve_varpro3(varpro3, model: str) -> bool:
     return bool(varpro3)
 
 
-def resolve_strategy(strategy: str) -> str:
-    """'auto' -> 'single', for every model; 'single' and 'twophase' as given.
+def resolve_strategy(strategy: str, phase1_iters: int = 10, max_iters: int = 60,
+                     model: str = "gaussian", prefix3: int = 0,
+                     varpro3: bool = False) -> str:
+    """'auto' -> 'single', for every model and budget; 'single' and
+    'twophase' as given. Takes the reference's parameters and defaults
+    (``phase1_iters`` and ``max_iters`` default to the production budgets),
+    so each of its call forms runs here; the one-argument form works too.
 
     'single' runs one pass over every voxel. The reference's 'auto' picks
     the same for gaussian, for rician with prefix pruning and for the
@@ -145,7 +150,10 @@ def resolve_strategy(strategy: str) -> str:
     continuation push the voxels still running after their head into a
     worklist that a persistent tail kernel drains, resuming the exact
     carried state. So 'auto' gives 'single'; 'twophase' is there for the
-    reference's API (see :func:`_fit_twophase`)."""
+    reference's API (see :func:`_fit_twophase`). Unlike the reference,
+    'auto' never gives 'twophase' (the reference does for a straggler
+    budget ``max_iters - phase1_iters`` above its crossover, and for the
+    unpruned 3-parameter multistart)."""
     if strategy not in ("single", "auto", "twophase"):
         raise ValueError(f"unknown strategy {strategy!r}")
     return "twophase" if strategy == "twophase" else "single"
@@ -1186,7 +1194,7 @@ def resolve_fused(te, lo, hi, *, model: str, guess, max_iters: int, ftol: float,
         raise ValueError(f"tail_block must divide 128; got {tail_block}")
     prefix3 = resolve_prefix3(prefix3, max_iters)
     varpro3 = resolve_varpro3(varpro3, model)
-    strategy = resolve_strategy(strategy)
+    strategy = resolve_strategy(strategy, phase1_iters, max_iters, model, prefix3, varpro3)
 
     def fit_pass(batch, *, max_iters, prefix3):
         return _fit_pass(batch, model, te_t, lo_t, hi_t, guess_t, max_iters=max_iters,

@@ -145,6 +145,13 @@ def fit_batch(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
               ftol: float = 1e-9, gtol: float = 0.0) -> FitResult:
     """Fit every voxel in the batch, on ``signal``'s device.
 
+    On the CPU as the eager loop (``_fit_batch_loop``, the plain version);
+    on a CUDA tensor as one step captured as a CUDA graph and replayed per
+    iteration (``_fit_batch_steps``; the reference's ``lax.while_loop``),
+    with the same results: the host reads "every voxel converged" every
+    ``_CHECK_EVERY`` iterations, and the steps run past a stop change
+    nothing (a converged voxel is frozen).
+
     Args:
         signal: (N, T) measured intensities (a tensor fixes the device).
         te: (T,) echo times (ms).
@@ -154,6 +161,15 @@ def fit_batch(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
         max_iters: iteration cap (stops early once every voxel converged).
         ftol/gtol: per-voxel stopping tolerances.
     """
+    kw = dict(model=model, max_iters=max_iters, ftol=ftol, gtol=gtol)
+    if torch.is_tensor(signal) and signal.device.type == "cuda":
+        return _fit_batch_steps(signal, te, x0, lo, hi, graph=True, **kw)
+    return _fit_batch_loop(signal, te, x0, lo, hi, **kw)
+
+
+def _fit_batch_loop(signal, te, x0, lo, hi, *, model, max_iters, ftol, gtol) -> FitResult:
+    """fit_batch as an eager Python loop over ``_step``, the stop read
+    every iteration."""
     obj, fgh = make_objective(model), make_value_grad_hess(model)
     signal, te, x, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
     f = obj(x, te, signal)
@@ -163,6 +179,45 @@ def fit_batch(signal, te, x0, lo, hi, *, model: str, max_iters: int = 60,
         x, f, lam, conv, nit, _ = _step(fgh, obj, x, f, lam, conv, nit, te,
                                         signal, lo, hi, ftol, gtol)
     return FitResult(x=x, fun=f, converged=conv, n_iter=nit)
+
+
+# fit_batch's in-place steps read "every voxel converged" from the device
+# this often: a step leaves converged voxels unchanged, so the steps run
+# between a stop and its read change nothing
+_CHECK_EVERY = 10
+
+
+def _batch_step(b, fgh, obj, ftol, gtol):
+    """One ``_step`` on the buffers ``b``, in place, the iteration counter
+    ``b["it"]`` on the device: the step reads nothing from the host."""
+    x, f, lam, conv, nit, _ = _step(fgh, obj, b["x"], b["f"], b["lam"], b["conv"], b["nit"],
+                                    b["te"], b["signal"], b["lo"], b["hi"], ftol, gtol)
+    for name, new in (("x", x), ("f", f), ("lam", lam), ("conv", conv), ("nit", nit)):
+        b[name].copy_(new)
+    b["it"].add_(1)
+
+
+def _fit_batch_steps(signal, te, x0, lo, hi, *, model, max_iters, ftol, gtol,
+                     graph) -> FitResult:
+    """fit_batch through the in-place ``_batch_step``: driven eagerly
+    (``graph=False``), or on the card captured once as a CUDA graph (the
+    first iteration runs eagerly as the capture's warm-up) and replayed
+    for every further iteration. The host reads ``conv.all()`` before
+    iterations 0, 10, 20, ... (``graphs.read``)."""
+    obj, fgh = make_objective(model), make_value_grad_hess(model)
+    signal, te, x0, lo, hi, lam, conv, nit = _prep(signal, te, x0, lo, hi)
+    b = dict(signal=signal, te=te, lo=lo, hi=hi, x=x0.clone(), f=obj(x0, te, signal), lam=lam,
+             conv=conv, nit=nit, it=torch.zeros((), dtype=torch.int64, device=signal.device))
+
+    def step():
+        _batch_step(b, fgh, obj, ftol, gtol)
+
+    run = graphs.stepper(step, signal.device, graph)
+    for i in range(max_iters):
+        if i % _CHECK_EVERY == 0 and graphs.read(b["conv"].all()):
+            break
+        run()
+    return FitResult(x=b["x"], fun=b["f"], converged=b["conv"], n_iter=b["nit"])
 
 
 def _tail_partition(conv: torch.Tensor, capacity: int):

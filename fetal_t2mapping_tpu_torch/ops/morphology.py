@@ -12,7 +12,10 @@ labels (reference utils/qmri_utils.py:223-252, 591-623, 868-951):
   binary_fill_holes with the default structure).
 
 Every function takes and returns bool tensors and runs on the tensor's
-device.
+device. On a CUDA tensor the flood fill's block of ``_FILL_CHECK_EVERY``
+steps is captured once as a CUDA graph and replayed until the fixed point
+(``_fill_holes_steps``; the reference's ``lax.while_loop``); the CPU runs
+the eager loop (``_fill_holes_loop``), with the same results.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .. import graphs
 
 # fill_holes reads "did anything change" from the card every this many
 # flood-fill steps: the fill is idempotent at its fixed point, so extra
@@ -115,18 +120,31 @@ def _dilate_cross(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     return out
 
 
-def _fill_holes(m: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
-    """Fill cavities not connected to the border along ``axes``."""
+def _fill_seed(m: torch.Tensor, axes: Sequence[int]):
+    """(outside, the background voxels on the faces of the connected axes).
+    Size-1 axes are left out: seeding their "faces" (the slab itself) would
+    mark every cavity as outside."""
     outside = ~m
-    # seed: background voxels on the faces of the connected axes. Size-1
-    # axes are left out: seeding their "faces" (the slab itself) would mark
-    # every cavity as outside
     seed = torch.zeros_like(m)
     for a in axes:
         if m.shape[a] > 1:
             seed.narrow(a, 0, 1).fill_(True)
             seed.narrow(a, m.shape[a] - 1, 1).fill_(True)
-    reach = seed & outside
+    return outside, seed & outside
+
+
+def _fill_holes(m: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Fill cavities not connected to the border along ``axes``: on a CUDA
+    tensor through the replayed graph, else the eager loop."""
+    if m.device.type == "cuda":
+        return _fill_holes_steps(m, axes, graph=True)
+    return _fill_holes_loop(m, axes)
+
+
+def _fill_holes_loop(m: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """The flood fill as an eager loop, compared every block by
+    ``torch.equal`` (a host read)."""
+    outside, reach = _fill_seed(m, axes)
     while True:
         before = reach
         for _ in range(_FILL_CHECK_EVERY):
@@ -134,6 +152,36 @@ def _fill_holes(m: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
         if torch.equal(reach, before):
             break
     return m | (outside & ~reach)
+
+
+def _fill_block(b, axes: Sequence[int]) -> None:
+    """One block of ``_FILL_CHECK_EVERY`` flood steps on the buffers ``b``,
+    in place; ``b["changed"]`` receives whether the block moved ``reach``."""
+    b["before"].copy_(b["reach"])
+    for _ in range(_FILL_CHECK_EVERY):
+        b["reach"].copy_(_dilate_cross(b["reach"], axes) & b["outside"])
+    b["changed"].copy_((b["reach"] != b["before"]).any())
+
+
+def _fill_holes_steps(m: torch.Tensor, axes: Sequence[int], *, graph: bool) -> torch.Tensor:
+    """``_fill_holes_loop`` through the in-place ``_fill_block``: driven
+    eagerly (``graph=False``), or on the card captured once as a CUDA graph
+    (the first block runs eagerly as the capture's warm-up) and replayed
+    per block. The host reads ``b["changed"]`` once per block
+    (``graphs.read``); at the fixed point a block changes nothing."""
+    outside, reach = _fill_seed(m, axes)
+    b = dict(outside=outside, reach=reach, before=torch.empty_like(reach),
+             changed=torch.ones((), dtype=torch.bool, device=m.device))
+
+    def block():
+        _fill_block(b, axes)
+
+    run = graphs.stepper(block, m.device, graph)
+    while True:
+        run()
+        if not graphs.read(b["changed"]):
+            break
+    return m | (outside & ~b["reach"])
 
 
 def fill_holes(mask) -> torch.Tensor:

@@ -22,9 +22,15 @@ Algorithm (N4ITK, Tustison et al. 2010, as the JAX package re-derives it):
    differs from a float64 one by up to ~2%).
 
 The loop stays on the device with no host read per iteration; ``field_cv``
-is downloaded once. The soft histogram (a scatter-add in the JAX package)
-is summed in 32.32 fixed point with integer adds, which are exact in any
-order, so two runs give the same bits. The smoothing's denominator,
+is downloaded once. On the CPU each level runs as the eager loop
+(``_n4_level_loop``); on a CUDA tensor the iteration is a step on
+preallocated buffers (``_n4_step``: the log image, the level's bias, the
+(n_iters,) CVs and the iteration counter on the device), captured once per
+level as a CUDA graph and replayed for every further iteration
+(``_n4_level_steps``; the reference's ``lax.scan``), with the same
+results. The soft histogram (a scatter-add in the JAX package) is summed
+in 32.32 fixed point with integer adds, which are exact in any order, so
+two runs give the same bits. The smoothing's denominator,
 smooth(mask), is the same in every iteration of a level and is computed
 once per level.
 
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.volume import Volume
+from .. import graphs
 from ..device import resolve_device
 from ..ops.filtering import gaussian_smooth3d
 from .resample import to_tensor
@@ -67,13 +74,15 @@ def _soft_histogram(i0: torch.Tensor, i1: torch.Tensor, w1: torch.Tensor,
 
 
 def _sharpen_update(v: torch.Tensor, mask_f: torch.Tensor, n_bins: int, fwhm: float,
-                    wiener_eps: float) -> torch.Tensor:
-    """One histogram-sharpening pass: per-voxel residual bias v - E[u|v]."""
+                    wiener_eps: float, top: torch.Tensor) -> torch.Tensor:
+    """One histogram-sharpening pass: per-voxel residual bias v - E[u|v].
+    ``top`` is ``n_bins - 1`` as a 0-dim float32 tensor on v's device (made
+    once: a host-to-device copy cannot be captured in a graph)."""
     inside = mask_f > 0
     vmin = torch.where(inside, v, torch.inf).amin()
     vmax = torch.where(inside, v, -torch.inf).amax()
     span = torch.clamp_min(vmax - vmin, 1e-6)
-    scale = span.new_tensor(float(n_bins - 1)) / span
+    scale = top / span
 
     pos = (v - vmin) * scale
     i0 = torch.clamp(torch.floor(pos), 0, n_bins - 1).to(torch.int64)
@@ -109,22 +118,76 @@ def _sharpen_update(v: torch.Tensor, mask_f: torch.Tensor, n_bins: int, fwhm: fl
     return (v - expected) * mask_f
 
 
+def _top_bin(v: torch.Tensor, n_bins: int) -> torch.Tensor:
+    return torch.tensor(float(n_bins - 1), dtype=v.dtype, device=v.device)
+
+
+def _field_cv(field: torch.Tensor) -> torch.Tensor:
+    f64 = field.to(torch.float64)
+    return torch.std(f64, correction=0) / torch.clamp_min(torch.abs(torch.mean(f64)), 1e-6)
+
+
 def _n4_level(v: torch.Tensor, mask_f: torch.Tensor, *, n_iters: int, n_bins: int,
               fwhm: float, wiener_eps: float,
               sigma_vox: Tuple[float, float, float]):
-    """One resolution level: (v, the level's log-bias, (n_iters,) field CVs)."""
+    """One resolution level: (v, the level's log-bias, (n_iters,) field CVs);
+    on a CUDA tensor through the replayed graph, else the eager loop."""
+    kw = dict(n_iters=n_iters, n_bins=n_bins, fwhm=fwhm, wiener_eps=wiener_eps,
+              sigma_vox=sigma_vox)
+    if v.device.type == "cuda":
+        return _n4_level_steps(v, mask_f, graph=True, **kw)
+    return _n4_level_loop(v, mask_f, **kw)
+
+
+def _n4_level_loop(v: torch.Tensor, mask_f: torch.Tensor, *, n_iters: int, n_bins: int,
+                   fwhm: float, wiener_eps: float, sigma_vox: Tuple[float, float, float]):
+    """One level as an eager Python loop."""
     den = torch.clamp_min(gaussian_smooth3d(mask_f, sigma_vox), 1e-6)
+    top = _top_bin(v, n_bins)
     bias = torch.zeros_like(v)
     cvs = []
     for _ in range(n_iters):
-        residual = _sharpen_update(v, mask_f, n_bins, fwhm, wiener_eps)
+        residual = _sharpen_update(v, mask_f, n_bins, fwhm, wiener_eps, top)
         field = gaussian_smooth3d(residual * mask_f, sigma_vox) / den
         v = v - field
         bias = bias + field
-        f64 = field.to(torch.float64)
-        cvs.append(torch.std(f64, correction=0)
-                   / torch.clamp_min(torch.abs(torch.mean(f64)), 1e-6))
+        cvs.append(_field_cv(field))
     return v, bias, torch.stack(cvs)
+
+
+def _n4_step(b, mask_f, den, top, *, n_bins, fwhm, wiener_eps, sigma_vox) -> None:
+    """One iteration of ``_n4_level_loop`` on the buffers ``b``, in place:
+    the CV goes to row ``b["it"]`` (a device counter) of ``b["cvs"]``."""
+    residual = _sharpen_update(b["v"], mask_f, n_bins, fwhm, wiener_eps, top)
+    field = gaussian_smooth3d(residual * mask_f, sigma_vox) / den
+    b["v"].sub_(field)
+    b["bias"].add_(field)
+    b["cvs"].index_copy_(0, b["it"].view(1), _field_cv(field).view(1))
+    b["it"].add_(1)
+
+
+def _n4_level_steps(v: torch.Tensor, mask_f: torch.Tensor, *, n_iters: int, n_bins: int,
+                    fwhm: float, wiener_eps: float, sigma_vox: Tuple[float, float, float],
+                    graph: bool):
+    """``_n4_level_loop`` through the in-place ``_n4_step``: driven eagerly
+    (``graph=False``), or on the card captured once as a CUDA graph (the
+    first iteration runs eagerly as the capture's warm-up: it makes the
+    FFT plans) and replayed for every further iteration. The count is
+    fixed: the host reads nothing."""
+    den = torch.clamp_min(gaussian_smooth3d(mask_f, sigma_vox), 1e-6)
+    top = _top_bin(v, n_bins)
+    b = dict(v=v.clone(), bias=torch.zeros_like(v),
+             cvs=torch.zeros(n_iters, dtype=torch.float64, device=v.device),
+             it=torch.zeros((), dtype=torch.int64, device=v.device))
+
+    def step():
+        _n4_step(b, mask_f, den, top, n_bins=n_bins, fwhm=fwhm, wiener_eps=wiener_eps,
+                 sigma_vox=sigma_vox)
+
+    run = graphs.stepper(step, v.device, graph)
+    for _ in range(n_iters):
+        run()
+    return b["v"], b["bias"], b["cvs"]
 
 
 @dataclasses.dataclass(frozen=True)

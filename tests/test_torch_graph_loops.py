@@ -1,18 +1,22 @@
-"""The port's two solver loops as in-place steps, the functions that are
+"""The port's solver loops as in-place steps, the functions that are
 captured as CUDA graphs on the card (``fetal_t2mapping_tpu_torch.graphs``):
-the convergence-trace sampler (``solver._fit_batch_traced_steps``) and the
-registration levels (``registration._level_while_steps`` /
-``_level_scan_steps``).
+the batch solver (``solver._fit_batch_steps``), the convergence-trace
+sampler (``solver._fit_batch_traced_steps``) and the registration levels
+(``registration._level_while_steps`` / ``_level_scan_steps``). The
+stage-2 loops (TV, the hole fill, N4) are in
+``test_torch_graph_loops_stage2.py``.
 
 On the CPU each step, driven eagerly, is held bitwise to the eager loop it
-replaces (``_fit_batch_traced_loop``, ``_level_while``, ``_level_scan``):
-the traces of the three models at both tolerance sets; whole rigid and
-affine solves (ncc, mi, cr; one pair and two) with their parameters,
-histories, stop iterations and best metrics; and a plateau stop that falls
-between two host reads of the active flag. The ``cuda`` cases run on the
-card (``python3 -m pytest --noconftest tests/test_torch_graph_loops.py``):
-graph against the eager loop there, bitwise, and a second call that
-replays the cached trace graph.
+replaces (``_fit_batch_loop``, ``_fit_batch_traced_loop``,
+``_level_while``, ``_level_scan``): the batch fits and the traces of the
+three models at both tolerance sets, the multistart and two-phase solvers
+through the steps; whole rigid and affine solves (ncc, mi, cr; one pair
+and two) with their parameters, histories, stop iterations and best
+metrics; and a batch stop and a plateau stop that fall between two host
+reads. The ``cuda`` cases run on the card (``python3 -m pytest
+--noconftest tests/test_torch_graph_loops.py``): graph against the eager
+loop there, bitwise, and a second call that replays the cached trace
+graph. ``resolve_strategy`` takes each of the reference's call forms.
 
 Imports nothing of JAX: the JAX package is held against these loops in
 ``test_torch_solver.py`` and ``test_torch_registration.py``.
@@ -24,7 +28,7 @@ import torch
 
 from fetal_t2mapping_tpu_torch import graphs
 from fetal_t2mapping_tpu_torch.core.volume import Volume
-from fetal_t2mapping_tpu_torch.models import init, solver
+from fetal_t2mapping_tpu_torch.models import fused_fit, init, solver
 from fetal_t2mapping_tpu_torch.recon import registration as reg
 from fetal_t2mapping_tpu_torch.recon.resample import resample_to_reference
 
@@ -105,6 +109,156 @@ def test_fit_batch_traced_on_cpu_is_the_loop():
     kw = dict(model="rician", max_iters=60, ftol=1e-9, gtol=0.0)
     _assert_traced_equal(solver._fit_batch_traced_loop(sig, TES, x0, lo, hi, **kw),
                          solver.fit_batch_traced(sig, TES, x0, lo, hi, **kw), "rician")
+
+
+# ------------------------------------------------------------ fit_batch
+def _batch_pair(model, tol, device, n=50, seed=4, max_iters=60):
+    """(eager loop, in-place steps) of fit_batch on the same inputs; the
+    steps as a graph where ``device`` is a card."""
+    lo, hi = BOUNDS[model]
+    ftol, gtol = TOLS[tol]
+    sig = _signal(model, n, seed).to(device)
+    x0 = init.loglinear_init(sig, TES, lo, hi)
+    kw = dict(model=model, max_iters=max_iters, ftol=ftol, gtol=gtol)
+    loop = solver._fit_batch_loop(sig, TES, x0, lo, hi, **kw)
+    steps = solver._fit_batch_steps(sig, TES, x0, lo, hi, graph=sig.is_cuda, **kw)
+    return loop, steps
+
+
+def _assert_fits_equal(a, b, what):
+    for name in ("x", "fun", "converged", "n_iter"):
+        _assert_bitwise(getattr(a, name), getattr(b, name), f"{what} {name}")
+
+
+@pytest.mark.parametrize("tol", sorted(TOLS))
+@pytest.mark.parametrize("model", sorted(BOUNDS))
+def test_fit_batch_steps_equal_loop(model, tol):
+    reads = graphs.HOST_READS
+    loop, steps = _batch_pair(model, tol, "cpu", seed=5)
+    _assert_fits_equal(loop, steps, f"{model} {tol}")
+    assert graphs.HOST_READS - reads <= 6      # 60 iterations, a read every 10
+
+
+def test_fit_batch_on_cpu_is_the_loop():
+    lo, hi = BOUNDS["gaussian_rician"]
+    sig = _signal("gaussian_rician", seed=9)
+    x0 = init.loglinear_init(sig, TES, lo, hi)
+    kw = dict(model="gaussian_rician", max_iters=60, ftol=1e-9, gtol=0.0)
+    captures, reads = graphs.CAPTURES, graphs.HOST_READS
+    _assert_fits_equal(solver._fit_batch_loop(sig, TES, x0, lo, hi, **kw),
+                       solver.fit_batch(sig, TES, x0, lo, hi, **kw), "gaussian_rician")
+    assert (graphs.CAPTURES, graphs.HOST_READS) == (captures, reads)
+
+
+def _steps_as_the_loop(*a, **kw):
+    return solver._fit_batch_steps(*a, graph=False, **kw)
+
+
+@pytest.mark.parametrize("solve", ["multistart", "twophase"])
+def test_batch_solvers_through_steps(monkeypatch, solve):
+    """fit_batch_multistart and fit_batch_twophase reach the steps through
+    fit_batch with no code of their own: the same bits either way."""
+    model = "rician"
+    lo, hi = BOUNDS[model]
+    sig = _signal(model, 40, seed=6)
+    x0 = init.loglinear_init(sig, TES, lo, hi)
+    if solve == "multistart":
+        x0s = torch.stack([x0, init.grid_init(sig, TES, lo, hi), torch.clamp(
+            torch.tensor([[1000.0, 100.0, 10.0]]).expand_as(x0), torch.tensor(lo), torch.tensor(hi))])
+        run = lambda: solver.fit_batch_multistart(sig, TES, x0s, lo, hi, model=model)  # noqa: E731
+    else:
+        run = lambda: solver.fit_batch_twophase(sig, TES, x0, lo, hi, model=model)  # noqa: E731
+    loop = run()
+    with monkeypatch.context() as mp:
+        mp.setattr(solver, "_fit_batch_loop", _steps_as_the_loop)
+        reads = graphs.HOST_READS
+        steps = run()
+        assert graphs.HOST_READS > reads
+    _assert_fits_equal(loop, steps, solve)
+    if solve == "twophase":
+        _assert_bitwise(loop.n_overflow, steps.n_overflow, "n_overflow")
+
+
+def _stop_iteration(sig, x0, **kw):
+    """The iteration after which the eager loop finds every voxel converged."""
+    lo, hi = BOUNDS[kw["model"]]
+    for m in range(1, kw["max_iters"] + 1):
+        r = solver._fit_batch_loop(sig, TES, x0, lo, hi, **dict(kw, max_iters=m))
+        if bool(r.converged.all()):
+            return m
+    return None
+
+
+def _stop_between_reads(model, device):
+    """(signal, x0, fit keywords, stop iteration) of the first seed from 4
+    whose batch, on ``device``, has converged after an iteration inside the
+    budget that is not a multiple of _CHECK_EVERY (the card and the CPU
+    round differently, so the seed may differ)."""
+    lo, hi = BOUNDS[model]
+    ftol, gtol = TOLS["pipeline"]
+    kw = dict(model=model, max_iters=60, ftol=ftol, gtol=gtol)
+    for seed in range(4, 12):
+        sig = _signal(model, 50, seed=seed).to(device)
+        x0 = init.loglinear_init(sig, TES, lo, hi)
+        t_stop = _stop_iteration(sig, x0, **kw)
+        if t_stop is not None and t_stop % solver._CHECK_EVERY:
+            return sig, x0, kw, t_stop
+    raise AssertionError(f"{model}: no seed stops between two host reads")
+
+
+@pytest.mark.parametrize("model", sorted(BOUNDS))
+def test_fit_batch_stop_between_host_reads(monkeypatch, model):
+    """Every voxel has converged after an iteration that is not a multiple
+    of _CHECK_EVERY: the steps run on to the next host read, and each of
+    them leaves every state buffer as it was; the result is the loop's."""
+    lo, hi = BOUNDS[model]
+    sig, x0, kw, t_stop = _stop_between_reads(model, "cpu")
+    states = []
+    real_step = solver._batch_step
+
+    def recording_step(b, *a):
+        real_step(b, *a)
+        states.append({k: b[k].clone() for k in ("x", "f", "lam", "conv", "nit", "it")})
+
+    monkeypatch.setattr(solver, "_batch_step", recording_step)
+    reads = graphs.HOST_READS
+    steps = solver._fit_batch_steps(sig, TES, x0, lo, hi, graph=False, **kw)
+    every = solver._CHECK_EVERY
+    assert len(states) == -(-t_stop // every) * every
+    assert graphs.HOST_READS - reads == len(states) // every + 1   # the last saw the stop
+    for later in states[t_stop:]:
+        assert int(later["it"]) > int(states[t_stop - 1]["it"])
+        for k in ("x", "f", "lam", "conv", "nit"):
+            _assert_bitwise(later[k], states[t_stop - 1][k], f"{model} {k} after the stop")
+    _assert_fits_equal(solver._fit_batch_loop(sig, TES, x0, lo, hi, **kw), steps, model)
+
+
+# ------------------------------------------------- resolve_strategy (F3)
+# every call form of tests/test_pallas_fit.py's resolve_strategy checks
+REFERENCE_CALL_FORMS = [
+    (("auto", 10, 60), {}),
+    (("auto", 10, 300), {}),
+    (("single", 10, 300), {}),
+    (("auto", 10, 60, "rician"), {}),
+    (("auto", 10, 30, "gaussian_rician"), {}),
+    (("auto", 10, 60, "rician"), {"prefix3": 4}),
+    (("auto", 10, 60, "gaussian_rician"), {"prefix3": 4}),
+    (("twophase", 10, 60, "gaussian_rician"), {"prefix3": 0, "varpro3": True}),
+    (("auto", 10, 60, "gaussian_rician", 0, False), {}),
+    (("auto",), {}),
+]
+
+
+@pytest.mark.parametrize("args,kwargs", REFERENCE_CALL_FORMS,
+                         ids=[f"{'-'.join(map(str, a))}{'-' if k else ''}"
+                              f"{'-'.join(f'{n}={v}' for n, v in k.items())}"
+                              for a, k in REFERENCE_CALL_FORMS])
+def test_resolve_strategy_reference_call_forms(args, kwargs):
+    """Each form runs (no TypeError); 'single' and 'twophase' come back as
+    given and 'auto' gives 'single' on the H100 for every model and budget
+    (the reference gives 'twophase' for some: ROADMAP Queue 3)."""
+    got = fused_fit.resolve_strategy(*args, **kwargs)
+    assert got == ("single" if args[0] == "auto" else args[0])
 
 
 # ---------------------------------------------------------- registration
@@ -247,6 +401,37 @@ def test_traced_graph_equals_eager_on_card(card, model, tol):
     loop2, graph2 = _traced_pair(model, tol, card, seed=11)
     assert graphs.CAPTURES == captures and graphs.REPLAYS == replays + 60
     _assert_traced_equal(loop2, graph2, f"{model} {tol} (cached graph)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", sorted(TOLS))
+@pytest.mark.parametrize("model", sorted(BOUNDS))
+def test_fit_batch_graph_equals_eager_on_card(card, model, tol):
+    captures, replays, reads = graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS
+    loop, graph = _batch_pair(model, tol, card, n=300, seed=5)
+    _assert_fits_equal(loop, graph, f"{model} {tol} on the card")
+    assert graphs.CAPTURES == captures + 1 and graphs.REPLAYS > replays
+    assert graphs.HOST_READS - reads <= 6
+    # through the public entry point: the graph again
+    lo, hi = BOUNDS[model]
+    sig = _signal(model, 300, 5).to(card)
+    x0 = init.loglinear_init(sig, TES, lo, hi)
+    ftol, gtol = TOLS[tol]
+    _assert_fits_equal(loop, solver.fit_batch(sig, TES, x0, lo, hi, model=model, ftol=ftol,
+                                              gtol=gtol), f"{model} {tol} fit_batch")
+    assert graphs.CAPTURES == captures + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", sorted(BOUNDS))
+def test_fit_batch_stop_between_host_reads_on_card(card, model):
+    lo, hi = BOUNDS[model]
+    sig, x0, kw, t_stop = _stop_between_reads(model, card)
+    replays = graphs.REPLAYS
+    graph = solver._fit_batch_steps(sig, TES, x0, lo, hi, graph=True, **kw)
+    every = solver._CHECK_EVERY
+    assert graphs.REPLAYS - replays == -(-t_stop // every) * every - 1
+    _assert_fits_equal(solver._fit_batch_loop(sig, TES, x0, lo, hi, **kw), graph, model)
 
 
 @pytest.mark.cuda
