@@ -102,6 +102,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from fetal_t2mapping_tpu_torch import build, graphs
 from fetal_t2mapping_tpu_torch import config as C
@@ -898,23 +899,16 @@ def phase6_headline3():
     return times, worst, bounds
 
 
-def _write_session3(root, n_side, seed, tes, k_range, t2_range):
-    """A 240^3 session like _write_session's, with Rician noise: the
-    magnitude of the signal plus complex Gaussian noise of sigma 8."""
-    rng = np.random.default_rng(seed)
-    shape = (n_side,) * 3
-    k = rng.uniform(*k_range, shape).astype(np.float32)
-    t2 = rng.uniform(*t2_range, shape).astype(np.float32)
-    mask = session_mask(n_side)
+def _write_echo_tree(root, echoes, mask, tes):
+    """One session's tree as the pipeline reads it: the echoes as recons
+    and ``mask`` as each echo's mask under root/projects/, the metadata
+    CSV root/dicom/logs/smoke.csv. Returns (bids, logs)."""
     bids = os.path.join(root, "projects/")
     logs = os.path.join(root, "dicom/logs/")
     os.makedirs(logs)
     rows, writes = [], []
     mask_vol = Volume(mask.astype(np.uint8))
-    for te in tes:
-        a = k * np.exp(-te / t2)
-        sig = np.hypot(a + rng.normal(0, NOISE, shape).astype(np.float32),
-                       rng.normal(0, NOISE, shape).astype(np.float32)).astype(np.float32)
+    for te, sig in zip(tes, echoes):
         acq = {"prj": "prj-smoke", "sub": "sub-01", "ses": "ses-01",
                "run": f"run-{te}", "EchoTime": te / 1000.0, "CoilString": "Body"}
         writes.append((get_img_path(bids, acq, C.RECON_DIRNAME), Volume(sig)))
@@ -927,6 +921,23 @@ def _write_session3(root, n_side, seed, tes, k_range, t2_range):
         w = csv.DictWriter(f, fieldnames=list(rows[0]))
         w.writeheader()
         w.writerows(rows)
+    return bids, logs
+
+
+def _write_session3(root, n_side, seed, tes, k_range, t2_range):
+    """A 240^3 session like _write_session's, with Rician noise: the
+    magnitude of the signal plus complex Gaussian noise of sigma 8."""
+    rng = np.random.default_rng(seed)
+    shape = (n_side,) * 3
+    k = rng.uniform(*k_range, shape).astype(np.float32)
+    t2 = rng.uniform(*t2_range, shape).astype(np.float32)
+    mask = session_mask(n_side)
+    echoes = []
+    for te in tes:
+        a = k * np.exp(-te / t2)
+        echoes.append(np.hypot(a + rng.normal(0, NOISE, shape).astype(np.float32),
+                               rng.normal(0, NOISE, shape).astype(np.float32)).astype(np.float32))
+    bids, logs = _write_echo_tree(root, echoes, mask, tes)
     return bids, logs, mask, t2
 
 
@@ -1289,52 +1300,92 @@ def guess_outside(model, a, b, ident):
     return ident & ~((rel_x <= bx) & (rel_f <= bf))
 
 
-def guess_bands(model, fit, echoes, tes, ident, what, label="guess start", gated=True):
+# the ATen ops whose results the card rounds differently from the CPU for
+# the same inputs, as the op log of phase 10's no-prior fit shows (the
+# reductions over the echoes, in another association order, the mean a
+# multiply by 1/T; the float32 exponential): every other op of that fit
+# gives the same bits on both
+ROUNDING_OPS = ("aten.sum.dim_IntList", "aten.mean.dim", "aten.exp.default")
+
+
+def guess_bands(model, fit, echoes, tes, ident, what, label="guess start", gated=True,
+                per_voxel=False, allowed=0, show=8):
     """fit(echoes, device) on the card against the CPU: the convergence
     rates within 0.01, and the bands on every identifiable voxel both
     converged (gaussian) or, for the 3-parameter models, on every such
-    voxel but those with a witness: the float64 objectives at the two
-    answers within each other's objective band (two equally good minima),
-    or rounding-sensitive (one side's own answer leaves the bands when the
-    echoes move by one float32 ulp, up or down). n_overflow equal, or, where
-    one side's own count moves under such a change, within 0.01 of the
-    voxels. The one-ulp fits run only where a voxel is outside the bands
-    or the counts differ. With ``gated=False`` the voxels outside the
-    bands are reported, not gated (the rates and counts still are).
+    voxel but those with a witness:
+    (a) equally good: the float64 objectives at the two answers lie within
+        each other's objective band (two equally good minima);
+    (b) rounding-sensitive: one side's own answer leaves the bands when the
+        echoes move by one float32 ulp, up or down;
+    (c) card-rounded (``per_voxel`` only): the CPU's fit of the voxel, rerun
+        with the ``ROUNDING_OPS`` evaluated on the card (``OnCard``: their
+        CPU arguments copied there, the card's results copied back; every
+        other op the CPU's), lands in the bands of the card's answer.
+        Where the float32 objective cannot resolve the descent (a start
+        near a saddle on the sigma bound), the accept test of the first
+        steps turns on those ops' bits.
+    n_overflow equal, or, where one side's own count moves under a one-ulp
+    change, within 0.01 of the voxels. The one-ulp fits and (c) run only
+    where a voxel is outside the bands or the counts differ. ``per_voxel``
+    says a voxel's answer does not depend on the rest of the batch (the
+    no-prior multistart), so those fits run on the voxels that need them
+    alone, as echoes of shape (m, 1, 1), their own answers refitted the
+    same way. With ``gated=False`` the voxels outside the bands are
+    reported, not gated (the rates and counts still are); a 3-parameter
+    model passes with at most ``allowed`` of them without a witness.
     Returns the summary text, with the witness of each voxel outside the
-    bands (the first 8) and those without one."""
+    bands (the first ``show``; None: all) and those without one."""
     a, b = (guess_cols(fit(echoes, dev)) for dev in ("cuda", "cpu"))
     ident = ident.ravel()
     both = ident & a[2] & b[2]
     dconv = abs(float(a[2].mean()) - float(b[2].mean()))
     out = np.flatnonzero(guess_outside(model, a, b, both))
-    sig = np.stack([e.ravel() for e in echoes], axis=1).astype(np.float64)
+    sig = np.stack([e.ravel() for e in echoes], axis=1)
     objective, te = _objective(model), np.asarray(tes, np.float64)
-    f64 = np.array([[objective(x[i].astype(np.float64), te, sig[i]) for x in (a[0], b[0])]
-                    for i in out]).reshape(-1, 2)
+    f64 = np.array([[objective(x[i].astype(np.float64), te, sig[i].astype(np.float64))
+                     for x in (a[0], b[0])] for i in out]).reshape(-1, 2)
     equal = np.abs(f64[:, 0] - f64[:, 1]) <= BANDS[model][1] * np.maximum(
         np.abs(f64).min(axis=1), 1.0)
     sensitive, counts, moved = np.zeros(ident.size, bool), {}, False
-    for own, dev in ((a, "cuda"), (b, "cpu")) if out.size or a[3] != b[3] else ():
+    card_rounded = np.zeros(ident.size, bool)
+    if per_voxel and out.size:
+        sub = [c[:, None, None] for c in sig[out].T]
+        for dev in ("cuda", "cpu"):
+            own = guess_cols(fit(sub, dev))
+            for towards in (np.inf, 0.0):
+                other = guess_cols(fit([np.nextafter(e, np.float32(towards)) for e in sub], dev))
+                sensitive[out] |= guess_outside(model, other, own, np.ones(out.size, bool))
+        rest = out[~equal & ~sensitive[out]]
+        if rest.size:
+            with OnCard(ROUNDING_OPS):
+                r = guess_cols(fit([c[:, None, None] for c in sig[rest].T], "cpu"))
+            card_rounded[rest] = ~guess_outside(model, r, (a[0][rest], a[1][rest]),
+                                                np.ones(rest.size, bool))
+    for own, dev in ((a, "cuda"), (b, "cpu")) if (
+            out.size and not per_voxel) or a[3] != b[3] else ():
         for towards, way in ((np.inf, "up"), (0.0, "down")):
             other = guess_cols(fit([np.nextafter(e, np.float32(towards)) for e in echoes], dev))
             sensitive |= guess_outside(model, other, own, ident)
             counts[f"{dev} {way}"] = other[3]
             moved |= other[3] != own[3]
+    kinds = [[k for k, on in (("equally good", eq), ("rounding-sensitive", sensitive[i]),
+                              ("card-rounded", card_rounded[i])) if on]
+             for i, eq in zip(out, equal)]
     witness = "; ".join(
-        f"voxel {i}: float64 objective card {f[0]:.6g} / CPU {f[1]:.6g}, "
-        f"{'equally good' if eq else ''}{'; ' if eq and sensitive[i] else ''}"
-        f"{'rounding-sensitive' if sensitive[i] else ''}"
-        for i, f, eq in list(zip(out, f64, equal))[:8])
-    unexplained = out[~equal & ~sensitive[out]]
+        f"voxel {i}: card {a[0][i].tolist()} / CPU {b[0][i].tolist()}, float64 objective "
+        f"card {f[0]:.6g} / CPU {f[1]:.6g}, {', '.join(k) or 'no witness'}"
+        for i, f, k in list(zip(out, f64, kinds))[:show])
+    unexplained = out[~equal & ~sensitive[out] & ~card_rounded[out]]
     ovf_ok = a[3] == b[3] or (moved and abs(a[3] - b[3]) <= 0.01 * ident.size)
     text = (f"{what}: {out.size} of {int(both.sum())} outside the bands ({int(equal.sum())} "
             f"equally good minima, {int(sensitive[out].sum())} rounding-sensitive"
+            f"{f', {int(card_rounded[out].sum())} card-rounded' if per_voxel else ''}"
             f"{': ' + witness if witness else ''}), dconv {dconv:.4f}, n_overflow card "
             f"{a[3]} / CPU {b[3]} (echoes one ulp up or down: {counts})")
     text += f"; without a witness: {unexplained.size} {unexplained[:8].tolist()}"
     gate(both.sum() >= 16 and dconv <= 0.01 and ovf_ok
-         and (not gated or (out.size == 0 if model == "gaussian" else unexplained.size == 0)),
+         and (not gated or (out.size == 0 if model == "gaussian" else unexplained.size <= allowed)),
          f"{model} {label}, {text}")
     return text
 
@@ -1353,15 +1404,15 @@ def peak_mib(dev: torch.device) -> float:
     return torch.cuda.max_memory_allocated(dev) / 2 ** 20 if dev.type == "cuda" else math.nan
 
 
-def stack_graph_vs_eager(stack, cfg, device="cuda"):
+def stack_graph_vs_eager(stack, cfg, device="cuda", again=True):
     """fit_stack on the card with its batch solver as the replayed graph,
-    then with the eager loop (a host read every iteration), then graphed
-    again, gated bitwise: (output, (first, second) graphed s, eager s,
-    (captures, replays, host reads) of a graphed call, (graphed, eager)
-    peak MiB)."""
+    then with the eager loop (a host read every iteration), then (with
+    ``again``) graphed again, gated bitwise: (output, (first, second or
+    nan) graphed s, eager s, (captures, replays, host reads) of a graphed
+    call, (graphed, eager) peak MiB)."""
     dev = torch.device(device)
     runs = []
-    for route in ("graph", "eager", "graph"):
+    for route in ("graph", "eager", "graph")[:3 if again else 2]:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         before = graph_counts()
@@ -1373,7 +1424,8 @@ def stack_graph_vs_eager(stack, cfg, device="cuda"):
         runs.append((out, wall, counts_since(before), peak_mib(dev)))
     gate(all(same_maps(runs[0][0], r[0]) for r in runs[1:]),
          f"{cfg.model} fit_stack: the graphed batch solver differs from the eager loop")
-    (out, g_s, counts, g_mib), (_, e_s, _, e_mib), (_, g2_s, _, _) = runs
+    (out, g_s, counts, g_mib), (_, e_s, _, e_mib) = runs[:2]
+    g2_s = runs[2][1] if again else math.nan
     return out, (g_s, g2_s), e_s, counts, (g_mib, e_mib)
 
 
@@ -1409,7 +1461,7 @@ def phase10_guess_start():
     print(f"phase 10 guess start (fit_stack, loglinear_init=False, two-phase solver, "
           f"{GUESS_SHAPE[0]}x{GUESS_SHAPE[1]}x{GUESS_SHAPE[2]} on cuda):{text} "
           f"{card_name_and_power_limit()}", flush=True)
-    phase10_no_prior()
+    phase10_cli_sessions(phase10_no_prior())
 
 
 def session_mask(n: int) -> np.ndarray:
@@ -1419,41 +1471,492 @@ def session_mask(n: int) -> np.ndarray:
     return (zz / 0.75) ** 2 + (yy / 0.85) ** 2 + (xx / 0.65) ** 2 <= 1.0
 
 
-def phase10_no_prior(n: int = 240, device: str = "cuda"):
+def no_prior_sample(echoes, candidates, n_sample=32768, seed=29):
+    """Phase 10's wide sample: ``n_sample`` voxels (a multiple of 1024)
+    drawn without replacement, by a generator seeded with ``seed``, from
+    the flat indices ``candidates``, in flat order, as echoes of shape
+    (n_sample / 1024, 32, 32)."""
+    pick = np.sort(np.random.default_rng(seed).choice(candidates, n_sample, replace=False))
+    shape = (n_sample // 1024, 32, 32)
+    return [np.ascontiguousarray(e.ravel()[pick].reshape(shape)) for e in echoes]
+
+
+def phase10_no_prior(n: int = 240, device: str = "cuda", n_sample: int = 32768):
     """The no-prior 3-parameter fit (fit_stack with prior=False:
     fit_batch_multistart over the log-linear, grid and guess starts) per
     model at the 240^3 session's mask (bench.py:438-440, ~3.0M voxels x 3
     starts): s with the batch solver graphed and eager (bitwise), peak MiB
-    of each; then card against CPU on the first 16^3 voxels (guess_bands:
-    the convergence rates gated, the voxels outside the bands reported —
-    the card's multistart can end in another local minimum than the
-    CPU's where no one-ulp witness explains it)."""
-    text = ""
-    mask = Volume(session_mask(n).astype(np.uint8))
+    of each; then card against CPU (guess_bands, every witness, the voxels
+    alone refitted) on the first 16^3 voxels, no voxel outside the bands
+    without a witness, and on ``n_sample`` voxels drawn from the mask's
+    identifiable ones (no_prior_sample), at most 1e-4 of them without a
+    witness (the JAX bench's unconverged-identifiable limit), every voxel
+    outside the bands printed with its witness, and the sample's CPU
+    seconds. Returns {model: (echoes, the graphed fit_stack output)} for
+    phase10_cli_sessions."""
+    text, fits = "", {}
+    inside = session_mask(n)
+    mask = Volume(inside.astype(np.uint8))
     for model in ("gaussian_rician", "rician"):
         low_field, tes = GUESS_MODELS[model][:2]
         cfg = C.fit_config(model, low_field, prior=False)
         echoes, ident = guess_echoes(model, seed=23, shape=(n,) * 3)
         stack = EchoStack.from_volumes([Volume(e) for e in echoes], [mask] * len(tes), tes)
-        out, g_s, e_s, counts, mib = stack_graph_vs_eager(stack, cfg, device)
-        inside = mask.data > 0
+        out, g_s, e_s, counts, mib = stack_graph_vs_eager(stack, cfg, device, again=False)
         for name in ("t2", "k", "sigma", "fun"):
             data = getattr(out, name).data
             gate(bool(np.isfinite(data[inside]).all()), f"{model} no prior: non-finite {name}")
-        sub = [e[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB] for e in echoes]
-        bands = guess_bands(model, lambda e, dev: fit_stack(fully_masked(e, tes), cfg, device=dev),
-                            sub, tes, ident[:GUESS_SUB, :GUESS_SUB, :GUESS_SUB],
-                            f"card vs CPU on {GUESS_SUB ** 3} voxels (reported, not gated)",
-                            label="no prior", gated=False)
-        text += (f" {model}: {out.n_voxels} voxels x 3 starts, {g_s[0]:.3f} s graphed, "
-                 f"{g_s[1]:.3f} s a second time (fit_stack "
+        fits[model] = (echoes, out)
+        seconds = {"cuda": 0.0, "cpu": 0.0}
+
+        def fit(e, dev, tes=tes, cfg=cfg, seconds=seconds):
+            t0 = time.perf_counter()
+            o = fit_stack(fully_masked(e, tes), cfg, device=dev)
+            seconds[dev] += time.perf_counter() - t0
+            return o
+
+        b = (slice(0, GUESS_SUB),) * 3
+        block = guess_bands(model, fit, [e[b] for e in echoes], tes, ident[b],
+                            f"card vs CPU on the first {GUESS_SUB ** 3} voxels", label="no prior",
+                            per_voxel=True, show=None)
+        seconds.update(cuda=0.0, cpu=0.0)
+        sample = no_prior_sample(echoes, np.flatnonzero(inside & ident), n_sample)
+        wide = guess_bands(model, fit, sample, tes, np.ones(n_sample, bool),
+                           f"card vs CPU on {n_sample} voxels drawn from the mask's identifiable "
+                           f"ones", label="no prior sample", per_voxel=True,
+                           allowed=int(1e-4 * n_sample), show=None)
+        text += (f" {model}: {out.n_voxels} voxels x 3 starts, {g_s[0]:.3f} s graphed (fit_stack "
                  f"{out.fit_seconds:.3f} s; graphs captured / replayed / host reads {counts}), "
                  f"{e_s:.3f} s eager, bitwise equal; peak {mib[0]:.0f} MiB graphed, {mib[1]:.0f} "
                  f"MiB eager; converged {float((out.converged.data[inside] > 0.5).mean()):.5f}; "
-                 f"{bands};")
+                 f"{block}; {wide} (the sample's fits: card {seconds['cuda']:.2f} s, CPU "
+                 f"{seconds['cpu']:.2f} s);")
     card = card_name_and_power_limit() if device == "cuda" else device
     print(f"phase 10 no prior (fit_stack prior=False, fit_batch_multistart, {n}^3 session mask "
           f"on {device}):{text} {card}", flush=True)
+    return fits
+
+
+# t2mapping's CLI module run as __main__ in this fresh process (what
+# ``python -m`` does), then one JSON line: its exit code, the process's
+# seconds from here to the end, the profiler's stages and the kernel
+# launches counted in the process
+_CLI_RUN = """
+import json, runpy, sys, time
+t0 = time.perf_counter()
+from fetal_t2mapping_tpu_torch.models import fused_fit
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
+sys.argv = ["fetal_t2mapping_tpu_torch.cli.t2mapping"] + sys.argv[1:]
+try:
+    runpy.run_module("fetal_t2mapping_tpu_torch.cli.t2mapping", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as exc:
+    rc = exc.code
+print(json.dumps({"rc": rc, "seconds": time.perf_counter() - t0,
+                  "stages": {k: v["seconds"] for k, v in profiler.as_dict().items()},
+                  "launches": {name: getattr(fused_fit, name) for name in
+                               ("KERNEL_LAUNCHES", "GR_VARPRO_LAUNCHES", "FIT3_LAUNCHES",
+                                "FIT3_CONT_LAUNCHES")}}))
+"""
+
+
+def guess_truth(model, seed, shape):
+    """The true T2 of ``guess_echoes(model, seed, shape)`` (its second draw)."""
+    _, _, k_range, t2_range = GUESS_MODELS[model]
+    rng = np.random.default_rng(seed)
+    rng.uniform(*k_range, shape)
+    return rng.uniform(*t2_range, shape).astype(np.float32)
+
+
+def phase10_cli_sessions(fits, n: int = 240, device: str = "cuda"):
+    """One 240^3 --no_prior session per model through ``python -m
+    fetal_t2mapping_tpu_torch.cli.t2mapping`` in a fresh process each
+    (``_CLI_RUN``), on a tree written as phase 7 writes its sessions
+    (``_write_echo_tree``) from phase 10's seed-23 echoes and the session
+    mask; the gaussian session fits the gaussian_rician tree (the same
+    low-field TEs). Gates: the maps finite in the mask, the median relative
+    T2 error against the truth <= 5e-2, gauss_fit.cu launched once in the
+    gaussian session, and every map (t2, k, sigma, res) bitwise the same
+    session's fit_stack(prior=False) in this process (phase 10's for the
+    3-parameter models). Prints each process's wall seconds and its
+    t2map.fit stage."""
+    inside = session_mask(n)
+    mask = Volume(inside.astype(np.uint8))
+    rows = []
+    for tree_model, models in (("gaussian_rician", ("gaussian", "gaussian_rician")),
+                               ("rician", ("rician",))):
+        low_field, tes = GUESS_MODELS[tree_model][:2]
+        echoes, out3 = fits[tree_model]
+        t2_true = guess_truth(tree_model, 23, (n,) * 3)
+        with tempfile.TemporaryDirectory(prefix="ft2_smoke_np_") as root:
+            t0 = time.perf_counter()
+            _write_echo_tree(root, echoes, inside, tes)
+            tree_s = time.perf_counter() - t0
+            for model in models:
+                if model == tree_model:
+                    out = out3
+                else:
+                    stack = EchoStack.from_volumes([Volume(e) for e in echoes],
+                                                   [mask] * len(tes), tes)
+                    out = fit_stack(stack, C.fit_config(model, low_field, prior=False),
+                                    device=device)
+                argv = ["--path", root, "--csv", "smoke.csv", "--in_vivo", f"--{model}",
+                        "--lf" if low_field else "--hf", "--sim", "np", "--no_prior",
+                        "--TEs", *map(str, tes), "--device", device]
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-c", _CLI_RUN, *argv], cwd=REPO,
+                                      capture_output=True, text=True, timeout=900)
+                wall = time.perf_counter() - t0
+                gate(proc.returncode == 0, f"{model} --no_prior CLI failed ({proc.returncode}): "
+                                           f"{proc.stderr[-4000:]}")
+                res = json.loads(proc.stdout.strip().splitlines()[-1])
+                gate(res["rc"] in (0, None), f"{model} --no_prior CLI exited {res['rc']}")
+                for name in ("t2", "k", "sigma", "res"):
+                    found = [os.path.join(d, f) for d, _, files in os.walk(root) for f in files
+                             if f.endswith(f"_sim-np_{name}map_ada-{model}.nii.gz")]
+                    gate(len(found) == 1, f"{model} --no_prior: {len(found)} {name} maps")
+                    data = np.ascontiguousarray(nifti.read(found[0]).data)
+                    gate(bool(np.isfinite(data[inside]).all()),
+                         f"{model} --no_prior CLI: non-finite {name}")
+                    gate(_same(data, np.ascontiguousarray(getattr(out, name).data)),
+                         f"{model} --no_prior CLI: map {name} differs from fit_stack(prior=False)")
+                    if name == "t2":
+                        med = float(np.median(np.abs(data[inside] - t2_true[inside])
+                                              / t2_true[inside]))
+                gate(med <= 5e-2, f"{model} --no_prior CLI: median rel T2 err {med:.3e} > 5e-2")
+                launches = res["launches"]
+                gate(model != "gaussian" or device != "cuda" or launches["KERNEL_LAUNCHES"] == 1,
+                     f"gaussian --no_prior CLI: gauss_fit.cu launches {launches}")
+                rows.append(f"{model} ({tree_model} tree, written in {tree_s:.1f} s): process "
+                            f"{wall:.2f} s (script {res['seconds']:.2f} s, t2map.fit "
+                            f"{res['stages'].get('t2map.fit', math.nan):.3f} s, t2map.fit.traces "
+                            f"{res['stages'].get('t2map.fit.traces', math.nan):.3f} s), median rel "
+                            f"T2 err {med:.3e}, launches {launches}, maps bitwise "
+                            f"fit_stack(prior=False)")
+    card = card_name_and_power_limit() if device == "cuda" else device
+    print(f"phase 10 --no_prior CLI sessions ({n}^3 session mask, python -m "
+          f"fetal_t2mapping_tpu_torch.cli.t2mapping in a fresh process each): "
+          f"{'; '.join(rows)} ({card})", flush=True)
+
+
+# ------------------------------------------------ the no-prior multistart, step by step
+def no_prior_block(model, seed=23, n=240):
+    """The first GUESS_SUB^3 block of phase 10's no-prior data (``guess_echoes``
+    at n^3): (echoes, identifiable voxels, TEs)."""
+    echoes, ident = guess_echoes(model, seed=seed, shape=(n,) * 3)
+    b = (slice(0, GUESS_SUB),) * 3
+    return [np.ascontiguousarray(e[b]) for e in echoes], ident[b], GUESS_MODELS[model][1]
+
+
+class OpLog(TorchDispatchMode):
+    """Records every arithmetic ATen op run under it: (name, input tensors,
+    output tensors), tensors as host numpy copies (None where one cannot
+    be copied). Copies, detaches and views (``OpLog.SKIP``) are not
+    recorded: a copy to the host dispatches an op on the card and none on
+    the CPU, and none of them changes a bit."""
+
+    SKIP = frozenset(f"aten.{n}.default" for n in (
+        "_to_copy", "detach", "lift_fresh", "alias", "clone", "_local_scalar_dense", "view",
+        "_unsafe_view", "expand", "unsqueeze", "squeeze", "permute", "t", "transpose",
+        "as_strided", "copy_"))
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if str(func) in self.SKIP:
+            return out
+
+        def host(tree):
+            leaves = []
+            for t in torch.utils._pytree.tree_leaves(tree):
+                if isinstance(t, torch.Tensor):
+                    try:
+                        leaves.append(t.detach().cpu().numpy().copy())
+                    except (RuntimeError, TypeError):
+                        leaves.append(None)
+            return leaves
+
+        self.ops.append((str(func), host((args, kwargs)), host(out)))
+        return out
+
+
+class OnCard(TorchDispatchMode):
+    """Runs the ATen ops named in ``names`` on the card: their CPU tensor
+    arguments are copied there and the results copied back, so a CPU
+    computation takes the card's rounding at those ops alone."""
+
+    def __init__(self, names, device="cuda"):
+        super().__init__()
+        self.names, self.device = set(names), torch.device(device)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if str(func) not in self.names:
+            return func(*args, **kwargs)
+        tm = torch.utils._pytree.tree_map
+        move = lambda d: lambda t: t.to(d) if isinstance(t, torch.Tensor) else t  # noqa: E731
+        out = func(*tm(move(self.device), args), **tm(move(self.device), kwargs))
+        return tm(move(torch.device("cpu")), out)
+
+
+def multistart_steps(batch, tes, cfg, device):
+    """fit_stack's no-prior 3-parameter fit of the (N, T) ``batch`` on
+    ``device``, as its eager loop (``solver._fit_batch_loop`` over the
+    three starts, then the argmin), recording each iteration: the state
+    before the step (x, f, lam, conv), g and H, the trial point x_new and
+    its objective f_new, rows start-major (row s * N + i). Returns a dict:
+    x0s (S, N, P), steps (a list of dicts of numpy arrays), x (S, N, P),
+    f (S, N), best (N,)."""
+    from fetal_t2mapping_tpu_torch.models import solver, t2map
+    from fetal_t2mapping_tpu_torch.models.init import grid_init, loglinear_init
+    from fetal_t2mapping_tpu_torch.models.signal import make_objective, make_value_grad_hess
+
+    dev = torch.device(device)
+    s = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(dev)
+    te = torch.from_numpy(np.asarray(tes, np.float32)).to(dev)
+    lo, hi = (torch.from_numpy(b).to(dev) for b in t2map._bounds_for(cfg, batch))
+    x0s = torch.stack([loglinear_init(s, te, lo, hi), grid_init(s, te, lo, hi),
+                       t2map._guess_start(cfg, lo, hi)])
+    n_s, n, p = x0s.shape
+    obj0, fgh0 = make_objective(cfg.model), make_value_grad_hess(cfg.model)
+    seen = {}
+
+    def fgh(x, te_, s_):
+        out = fgh0(x, te_, s_)
+        seen.update(g=out[1], H=out[2])
+        return out
+
+    def obj(x, te_, s_):
+        f_new = obj0(x, te_, s_)
+        seen.update(x_new=x, f_new=f_new)
+        return f_new
+
+    rep = lambda a: a.repeat(n_s, 1)  # noqa: E731
+    sig, te, x, lo, hi, lam, conv, nit = solver._prep(rep(s), te, x0s.reshape(n_s * n, p),
+                                                      rep(lo), rep(hi))
+    f = obj0(x, te, sig)
+    steps = []
+    for _ in range(cfg.max_iters):
+        if bool(conv.all()):
+            break
+        state = dict(x=x, f=f, lam=lam, conv=conv)
+        x, f, lam, conv, nit, _ = solver._step(fgh, obj, x, f, lam, conv, nit, te, sig, lo, hi,
+                                               cfg.ftol, cfg.gtol)
+        steps.append({k: v.detach().cpu().numpy() for k, v in {**state, **seen}.items()})
+    fun = f.reshape(n_s, n)
+    return dict(x0s=x0s.cpu().numpy(), steps=steps, x=x.reshape(n_s, n, p).cpu().numpy(),
+                f=fun.cpu().numpy(), best=torch.argmin(fun, dim=0).cpu().numpy())
+
+
+def _bits(a):
+    return None if a is None else np.ascontiguousarray(a).view(np.uint8)
+
+
+def _same(a, b) -> bool:
+    return (a is None and b is None) or (
+        a is not None and b is not None and a.shape == b.shape and a.dtype == b.dtype
+        and np.array_equal(_bits(a), _bits(b)))
+
+
+def rounding_ops(card_ops, cpu_ops):
+    """Op by op over two OpLog records of one computation: the first index
+    whose op names differ (or None), and [(index, name)] of the ops whose
+    inputs have the same bits on both sides and whose outputs do not."""
+    split = None
+    ops = []
+    for i, (a, b) in enumerate(zip(card_ops, cpu_ops)):
+        if a[0] != b[0]:
+            split = i
+            break
+        if all(_same(x, y) for x, y in zip(a[1], b[1])) and len(a[1]) == len(b[1]) and not all(
+                _same(x, y) for x, y in zip(a[2], b[2])):
+            ops.append((i, a[0]))
+    return split, ops
+
+
+def branches(step, lo, hi):
+    """(free mask, accept) of one recorded step: the KKT-free coordinates
+    (solver._step's rule) and whether the trial point was taken."""
+    x, g = step["x"], step["g"]
+    tol_b = 1e-8 * np.maximum(hi - lo, 1.0)
+    free = ~(((x <= lo + tol_b) & (g > 0)) | ((x >= hi - tol_b) & (g < 0)))
+    return free, step["f_new"] <= step["f"]
+
+
+# the exponents recompute_on_cpu tries for pow's recorded calls
+POW_EXPONENTS = (2, 1, 0, 3, -1, -2, 0.5)
+
+
+def recompute_on_cpu(ops) -> dict:
+    """Each op of a card's ``OpLog`` record that can be redone from its
+    recorded tensors alone, redone on the CPU from the card's own inputs:
+    {name: (calls redone, calls whose CPU bits differ from the card's)}.
+    The unary ops, the sum and the mean (the reduced dimension read off
+    the shapes), pow (an exponent in POW_EXPONENTS gives the card's bits,
+    else the call counts as differing) and the two-tensor arithmetic."""
+    unary = {f"aten.{n}.default": getattr(torch, n) for n in ("exp", "log", "sqrt", "abs", "neg")}
+    binary = {f"aten.{n}.Tensor": getattr(torch, n) for n in ("mul", "add", "sub", "div")}
+    reductions = {"aten.sum.dim_IntList": torch.sum, "aten.mean.dim": torch.mean}
+    counts = {}
+    for name, ins, outs in ops:
+        if not ins or not outs or ins[0] is None or outs[0] is None:
+            continue
+        x, want = torch.from_numpy(ins[0]), outs[0]
+        if name in unary:
+            got = [unary[name](x)]
+        elif name in binary and len(ins) >= 2 and ins[1] is not None:
+            got = [binary[name](x, torch.from_numpy(ins[1]))]
+        elif name in reductions:
+            got = [reductions[name](x, dim=d, keepdim=k) for k in (True, False)
+                   for d in range(x.dim())]
+        elif name == "aten.pow.Tensor_Scalar":
+            got = [torch.pow(x, e) for e in POW_EXPONENTS]
+        else:
+            continue
+        same = any(tuple(g.shape) == want.shape and _same(g.numpy(), want) for g in got)
+        done, differ = counts.get(name, (0, 0))
+        counts[name] = (done + 1, differ + (not same))
+    return counts
+
+
+
+def card_bits(ops) -> dict:
+    """The card's results at the ``ROUNDING_OPS`` of an ``OpLog`` record, as
+    arrays for an .npz: the exponential per element (exp_in / exp_out, the
+    float32 bits of each distinct input and its result), each reduction
+    per call (red_kind 0 sum, 1 mean; red_in_shape / red_out_shape padded
+    with -1 to 4 dimensions; red_in / red_out the calls' values
+    concatenated)."""
+    exp, red = {}, []
+    for name, ins, outs in ops:
+        if name == "aten.exp.default":
+            exp.update(zip(ins[0].ravel().view(np.int32).tolist(),
+                           outs[0].ravel().view(np.int32).tolist()))
+        elif name in ROUNDING_OPS:
+            red.append((ROUNDING_OPS.index(name), ins[0], outs[0]))
+    pad = lambda shape: list(shape) + [-1] * (4 - len(shape))  # noqa: E731
+    return dict(exp_in=np.array(list(exp), np.int32), exp_out=np.array(list(exp.values()), np.int32),
+                red_kind=np.array([k for k, _, _ in red], np.int8),
+                red_in_shape=np.array([pad(i.shape) for _, i, _ in red], np.int32),
+                red_out_shape=np.array([pad(o.shape) for _, _, o in red], np.int32),
+                red_in=np.concatenate([i.ravel() for _, i, _ in red]).astype(np.float32),
+                red_out=np.concatenate([o.ravel() for _, _, o in red]).astype(np.float32))
+
+
+def _step_table(a, b, j, n, lo, hi, last=None) -> list:
+    """Per start of voxel j of two ``multistart_steps`` records (card a, CPU
+    b): the starts bit for bit, the first iteration whose state (x, f, lam,
+    conv) differs and the first whose branch (KKT free set, accept,
+    converged) differs, the ends; with ``last``, every iteration's state,
+    g, H, trial point and branch up to two past the first branch."""
+    lines = []
+    for s in range(3):
+        row = s * n + j
+        first_state = first_branch = None
+        for it in range(min(len(a["steps"]), len(b["steps"]))):
+            sa, sb = ({k: w[row] for k, w in r["steps"][it].items()} for r in (a, b))
+            if first_state is None and not all(_same(sa[k], sb[k])
+                                               for k in ("x", "f", "lam", "conv")):
+                first_state = it
+            (fa, aa), (fb, ab) = branches(sa, lo[row], hi[row]), branches(sb, lo[row], hi[row])
+            if not (np.array_equal(fa, fb) and aa == ab and sa["conv"] == sb["conv"]):
+                first_branch = it
+                break
+        lines.append(f"start {s}: x0 card {a['x0s'][s, j].tolist()} / CPU {b['x0s'][s, j].tolist()}"
+                     f" ({'bitwise equal' if _same(a['x0s'][s, j], b['x0s'][s, j]) else 'differ'}); "
+                     f"state first differs at iteration {first_state}, branch at {first_branch}; "
+                     f"end card {a['x'][s, j].tolist()} f {a['f'][s, j]:.6g} / CPU "
+                     f"{b['x'][s, j].tolist()} f {b['f'][s, j]:.6g}")
+        for it in range(min(len(a["steps"]), len(b["steps"]), (first_branch or 0) + 3)
+                        if last else 0):
+            for side, r in (("card", a), ("CPU", b)):
+                st = {k: w[row] for k, w in r["steps"][it].items()}
+                free, acc = branches(st, lo[row], hi[row])
+                lines.append(f"  it {it} {side}: x {st['x'].tolist()} f {st['f']!r} g "
+                             f"{st['g'].tolist()} H {st['H'].ravel().tolist()} lam {st['lam']!r} "
+                             f"free {free.astype(int).tolist()} x_new {st['x_new'].tolist()} "
+                             f"f_new {st['f_new']!r} accept {bool(acc)} conv {bool(st['conv'])}")
+    return lines
+
+
+def localise_no_prior(model="gaussian_rician", voxel=127, out_dir="tests/data", card="cuda"):
+    """Where the card's and the CPU's no-prior multistart part on phase 10's
+    first 16^3 block (seed 23). fit_stack on the card (graph and eager loop,
+    gated bitwise) and on the CPU; the voxels outside the bands and
+    ``voxel`` refitted through the recorded eager loop on both sides
+    (``multistart_steps``, gated bitwise against fit_stack): per voxel the
+    winning start on each side and ``_step_table`` (``voxel``'s with every
+    iteration up to the branch). ``voxel`` alone under ``OpLog`` on both
+    sides: the first ops whose inputs have the same bits and whose outputs
+    do not (``rounding_ops``), the card's ops redone on the CPU from the
+    card's inputs (``recompute_on_cpu``), and the card's results at the
+    ``ROUNDING_OPS`` written to ``out_dir/no_prior_card_bits_<model>_<voxel>
+    .npz`` (``card_bits``; the test data of tests/test_torch_no_prior.py).
+    Last, the CPU's fits of those voxels with the ``ROUNDING_OPS`` on the
+    card (``OnCard``, guess_bands' third witness): the voxels that then
+    give the card's answer bit for bit, and those in its bands.
+    ``card="cpu"`` rehearses it on the CPU alone."""
+    from fetal_t2mapping_tpu_torch.models import t2map
+
+    os.makedirs(out_dir, exist_ok=True)
+    echoes, ident, tes = no_prior_block(model)
+    cfg = C.fit_config(model, GUESS_MODELS[model][0], prior=False)
+    stack = fully_masked(echoes, tes)
+    with eager_loops("fit_batch"):
+        eager = guess_cols(fit_stack(stack, cfg, device=card))
+    fits = {"cuda": guess_cols(fit_stack(stack, cfg, device=card)),
+            "cpu": guess_cols(fit_stack(stack, cfg, device="cpu"))}
+    gate(all(_same(x, y) for x, y in zip(fits["cuda"][:3], eager[:3])),
+         f"{model} block: graph differs from eager")
+    out = np.flatnonzero(guess_outside(model, fits["cuda"], fits["cpu"],
+                                       ident.ravel() & fits["cuda"][2] & fits["cpu"][2]))
+    vox = sorted(set(out.tolist()) | {voxel})
+    n = len(vox)
+    batch = np.stack([e.ravel() for e in echoes], axis=1)[vox]
+    runs = {"cuda": multistart_steps(batch, tes, cfg, card),
+            "cpu": multistart_steps(batch, tes, cfg, "cpu")}
+    best = {dev: (r["x"][r["best"], np.arange(n)], r["f"][r["best"], np.arange(n)])
+            for dev, r in runs.items()}
+    same = {dev: sum(_same(best[dev][0][j], fits[dev][0][v]) for j, v in enumerate(vox))
+            for dev in runs}
+    gate(all(k == n for k in same.values()), f"recorded loop differs from fit_stack: {same}")
+    print(f"localise {model}: {out.size} voxels of the block outside the bands {out.tolist()}, "
+          f"each recorded loop bitwise its fit_stack", flush=True)
+    lo, hi = (np.tile(t, (3, 1)) for t in t2map._bounds_for(cfg, batch))
+    a, b = runs["cuda"], runs["cpu"]
+    for j, v in enumerate(vox):
+        head = (f"voxel {v} signal {batch[j].tolist()}: winner card {a['best'][j]} "
+                f"f {best['cuda'][1][j]:.6g} / CPU {b['best'][j]} f {best['cpu'][1][j]:.6g}")
+        print("localise " + "\n  ".join([head] + _step_table(a, b, j, n, lo, hi, v == voxel)),
+              flush=True)
+    one = {}
+    for dev, where in (("cuda", card), ("cpu", "cpu")):
+        with OpLog() as log:
+            multistart_steps(batch[[vox.index(voxel)]], tes, cfg, where)
+        one[dev] = log.ops
+    split, rops = rounding_ops(one["cuda"], one["cpu"])
+    print(f"localise {model} voxel {voxel} alone: {len(one['cuda'])} card / {len(one['cpu'])} CPU "
+          f"ops, names part at {split}; the first ops with equal inputs and other outputs: "
+          f"{[r for r in rops if 'zerotensor' not in r[1]][:4]}; the card's ops redone on the "
+          f"CPU from the card's inputs (calls, calls with other bits): "
+          f"{recompute_on_cpu(one['cuda'])}; the CPU's own: {recompute_on_cpu(one['cpu'])}",
+          flush=True)
+    j = vox.index(voxel)
+    np.savez_compressed(os.path.join(out_dir, f"no_prior_card_bits_{model}_{voxel}.npz"),
+                        signal=batch[[j]], tes=np.asarray(tes, np.float32),
+                        card_x=best["cuda"][0][j], card_f=best["cuda"][1][j],
+                        **card_bits(one["cuda"]))
+    with OnCard(ROUNDING_OPS, card):
+        r = multistart_steps(batch, tes, cfg, "cpu")
+    xb, fb = r["x"][r["best"], np.arange(n)], r["f"][r["best"], np.arange(n)]
+    inb = ~guess_outside(model, (xb, fb), best["cuda"], np.ones(n, bool))
+    print(f"localise {model}: the CPU with {ROUNDING_OPS} on the card gives the card's answer "
+          f"bitwise on {[v for i, v in enumerate(vox) if _same(xb[i], best['cuda'][0][i])]}, in "
+          f"its bands on {[v for i, v in enumerate(vox) if inb[i]]} of {vox}", flush=True)
 
 
 # ------------------------------------------------ stage 2: registration and the session
@@ -1966,34 +2469,67 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
 
 
-def stage2_loops(recon: np.ndarray, device: str) -> str:
+class make_room_log:
+    """Within the block, each call of ``graphs._make_room`` (before every
+    capture) is logged: (cached MiB, free MiB, whether it emptied the
+    allocator's cache)."""
+
+    def __enter__(self):
+        self.calls, self._orig = [], graphs._make_room
+
+        def logged(device):
+            cached = (torch.cuda.memory_reserved(device)
+                      - torch.cuda.memory_allocated(device)) / 2 ** 20
+            free = torch.cuda.mem_get_info(device)[0] / 2 ** 20
+            before = torch.cuda.memory_reserved(device)
+            self._orig(device)
+            self.calls.append((round(cached), round(free),
+                               torch.cuda.memory_reserved(device) < before))
+
+        graphs._make_room = logged
+        return self
+
+    def __exit__(self, *exc):
+        graphs._make_room = self._orig
+        return False
+
+
+def stage2_loops(recon: np.ndarray, device: str, reps: int = 3) -> str:
     """tv_denoise_slices, fill_holes (the recon above its mean) and
     build_slice_mask on one of the session's recons, each as its replayed
     graph and then as its eager loop on the same device, gated bitwise: ms
-    of one call each, and the graphed call's graphs captured / replayed /
-    host reads."""
+    of each call (TV once each way, the two fills ``reps`` times each way,
+    one after another in this process), the graphed calls' graphs captured
+    / replayed / host reads, and for each capture whether
+    ``graphs._make_room`` emptied the allocator's cache before it (cached
+    and free MiB)."""
     from fetal_t2mapping_tpu_torch.ops import morphology, tv
 
     rec = torch.from_numpy(np.ascontiguousarray(recon, np.float32)).to(device)
     above = rec > rec.mean()
-    calls = {"tv_denoise_slices": ("tv", lambda: tv.tv_denoise_slices(rec)),
-             "fill_holes": ("fill", lambda: morphology.fill_holes(above)),
-             "build_slice_mask": ("fill", lambda: morphology.build_slice_mask(rec))}
+    calls = {"tv_denoise_slices": ("tv", lambda: tv.tv_denoise_slices(rec), 1),
+             "fill_holes": ("fill", lambda: morphology.fill_holes(above), reps),
+             "build_slice_mask": ("fill", lambda: morphology.build_slice_mask(rec), reps)}
     parts = []
-    for name, (loop, fn) in calls.items():
+    for name, (loop, fn, n_calls) in calls.items():
         res = {}
         for route in ("graph", "eager"):
-            with eager_loops(*((loop,) if route == "eager" else ())):
-                _sync()
-                before = graph_counts()
-                t0 = time.perf_counter()
-                out = fn()
-                _sync()
-                res[route] = (out, (time.perf_counter() - t0) * 1e3, counts_since(before))
-        gate(same_bits(res["graph"][0], res["eager"][0]),
+            with eager_loops(*((loop,) if route == "eager" else ())), make_room_log() as room:
+                runs = []
+                for _ in range(n_calls):
+                    _sync()
+                    before = graph_counts()
+                    t0 = time.perf_counter()
+                    out = fn()
+                    _sync()
+                    runs.append((out, (time.perf_counter() - t0) * 1e3, counts_since(before)))
+            res[route] = (runs, room.calls)
+        gate(all(same_bits(r[0], res["graph"][0][0][0]) for rt in res.values() for r in rt[0]),
              f"{name}: the graphed loop differs from the eager loop on {device}")
-        parts.append(f"{name} {res['graph'][1]:.1f} ms graphed (graphs captured / replayed / host "
-                     f"reads {res['graph'][2]}), {res['eager'][1]:.1f} ms eager, bitwise equal")
+        ms = {rt: " / ".join(f"{r[1]:.1f}" for r in res[rt][0]) for rt in res}
+        parts.append(f"{name} {ms['graph']} ms graphed (graphs captured / replayed / host reads "
+                     f"{[r[2] for r in res['graph'][0]]}; before each capture cached / free MiB, "
+                     f"cache emptied: {res['graph'][1]}), {ms['eager']} ms eager, bitwise equal")
     card = card_name_and_power_limit() if torch.device(device).type == "cuda" else device
     return "; ".join(parts) + f" ({card})"
 

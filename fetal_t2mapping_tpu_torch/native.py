@@ -1,7 +1,9 @@
 """Native gzip file I/O for ``core.nifti``: ctypes bindings of
 ``csrc/gzio_host.cpp`` (zlib ``gzread``/``gzwrite``, a ``std::thread``
 batch reader), with the names and contracts of the JAX package's
-``native`` module (``read_file``, ``read_batch``, ``write_file``).
+``native`` module (``read_file``, ``read_batch``, ``write_file``), and
+that module's two DICOM entries, ``jpegll_decode`` and ``dicom_probe``,
+re-exported from ``build`` (bindings of ``csrc/dicom_host.cpp``).
 
 The library is built by ``build.build_gzio_lib`` at first use; a failed
 build raises, it does not fall back to the stdlib. ``FT2_DISABLE_NATIVE``
@@ -16,6 +18,7 @@ import os
 from typing import List, Sequence
 
 from . import build
+from .build import dicom_probe, jpegll_decode  # noqa: F401  (the JAX package's names)
 
 
 def available() -> bool:

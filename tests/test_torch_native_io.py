@@ -233,3 +233,32 @@ def test_gzip_level_env_on_both_routes(tmp_path, route):
     for p in paths.values():
         np.testing.assert_array_equal(nifti.read(p).data, want.astype(np.int16))
         np.testing.assert_array_equal(np.asarray(ref_nifti.read(p).data), want.astype(np.int16))
+
+
+def test_dicom_entries_resolve_as_in_the_reference(tmp_path):
+    """``native.jpegll_decode`` and ``native.dicom_probe`` resolve as the
+    JAX package's ``native.<name>`` do (re-exports of the host library's
+    bindings in ``build``), and every function of the reference's
+    ``native`` has a namesake; the two decode and probe as the reference's
+    where its library loads."""
+    import inspect
+
+    from fetal_t2mapping_tpu import native as ref_native
+    from fetal_t2mapping_tpu_torch.utils import jpegll
+
+    assert native.jpegll_decode is build.jpegll_decode
+    assert native.dicom_probe is build.dicom_probe
+    ref_names = {n for n, f in vars(ref_native).items() if not n.startswith("_")
+                 and inspect.isfunction(f) and f.__module__ == ref_native.__name__}
+    assert ref_names and all(callable(getattr(native, n, None)) for n in ref_names), ref_names
+    img = (np.arange(96, dtype=np.uint16).reshape(8, 12) * 613) % 4096
+    stream = jpegll.encode(img)
+    np.testing.assert_array_equal(native.jpegll_decode(stream), img)
+    dcm, other = tmp_path / "a.dcm", tmp_path / "b.txt"
+    dcm.write_bytes(bytes(128) + b"DICM" + bytes(16))
+    other.write_bytes(b"not a dicom file at all" * 8)
+    paths = [str(dcm), str(other), str(tmp_path / "missing.dcm")]
+    assert native.dicom_probe(paths) == [1, 0, -1]
+    if ref_native.available():
+        np.testing.assert_array_equal(ref_native.jpegll_decode(stream), img)
+        assert ref_native.dicom_probe(paths) == [1, 0, -1]

@@ -194,6 +194,7 @@ def trees3(tmp_path_factory):
     ("--gaussian_rician", "gaussian_rician", True),
     ("--rician", "rician", True),
     ("--gaussian_rician", "gaussian_rician", False),
+    ("--rician", "rician", False),
 ])
 def test_cli_3param_maps_match_reference(trees3, flag, model, prior):
     """The CLI with a 3-parameter noise model against the reference
