@@ -414,7 +414,7 @@ def phase2_parity() -> float:
     """Kernel vs plain version at 1,048,576 voxels, 3 and 6 TEs, prior and
     no_prior. Returns the largest absolute (k, T2) difference."""
     worst_abs, lines = 0.0, ""
-    before = fused_fit.KERNEL_LAUNCHES
+    before = profiler.counter("gauss_fit.launches")
     for tes in (TES3, TES6):
         sig, _, _, ident = make_data(1 << 20, tes, seed=5)
         s = torch.from_numpy(sig).cuda()
@@ -422,7 +422,7 @@ def phase2_parity() -> float:
             text, diff = compare(s, tes, ident, no_prior)
             lines += text
             worst_abs = max(worst_abs, diff)
-    gate(fused_fit.KERNEL_LAUNCHES == before + 4, "kernel launches did not advance")
+    gate(profiler.counter("gauss_fit.launches") == before + 4, "kernel launches did not advance")
     print(f"phase 2 kernel vs plain (identifiable voxels):{lines} max abs "
           f"diff {worst_abs:.3e}", flush=True)
     return worst_abs
@@ -510,15 +510,15 @@ def phase4_main_path(make_plots: bool):
         rows = set_metadata(logs, ["smoke.csv"], low_field=True)
         cfg = C.fit_config("gaussian", low_field=True)
         profiler.reset()
-        fused_fit.KERNEL_LAUNCHES = 0
-        replays0 = graphs.REPLAYS
+        launches0 = profiler.counter("gauss_fit.launches")
+        replays0 = profiler.counter("graphs.replays")
         t0 = time.perf_counter()
         summaries = process_t2maps(rows, bids, list(TES_SESSION), cfg, phantom=False,
                                    low_field=True, sim="smoke", make_plots=make_plots,
                                    device="cuda")
         session_s = time.perf_counter() - t0
-        launches = fused_fit.KERNEL_LAUNCHES
-        trace_replays = graphs.REPLAYS - replays0
+        launches = profiler.counter("gauss_fit.launches") - launches0
+        trace_replays = profiler.counter("graphs.replays") - replays0
         gate(launches > 0, "the main path launched no fit kernel")
         gate(trace_replays >= cfg.max_iters - 1,
              f"the session's traces ran {trace_replays} graph replays < {cfg.max_iters - 1}")
@@ -944,12 +944,19 @@ def _write_session3(root, n_side, seed, tes, k_range, t2_range):
 SESSIONS3 = {
     # model: (low field, TEs, k range, T2 range, kernels its main path must launch)
     "gaussian_rician": (True, (114, 202, 299), (600.0, 5000.0), (20.0, 500.0),
-                        ("GR_VARPRO_LAUNCHES",)),
+                        ("gr_varpro_fit.launches",)),
     # the high-field row: the low-field rician row caps k at 900 (config.py:136-137)
     "rician": (False, (115, 202, 299), (900.0, 5000.0), (30.0, 500.0),
-               ("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES")),
+               ("fit3.launches", "fit3_cont.launches")),
 }
-COUNTERS = ("KERNEL_LAUNCHES", "GR_VARPRO_LAUNCHES", "FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES")
+#: the fit kernels' launch counters in ``utils.profiling.profiler``
+COUNTERS = ("gauss_fit.launches", "gr_varpro_fit.launches", "fit3.launches",
+            "fit3_cont.launches")
+
+
+def launches_since(before=None):
+    """Each of COUNTERS now (``before`` None), or its launches since ``before``."""
+    return {c: profiler.counter(c) - (0 if before is None else before[c]) for c in COUNTERS}
 
 
 def dynamo_import_s() -> float:
@@ -978,16 +985,15 @@ def phase7_sessions3(make_plots: bool):
             rows = set_metadata(logs, ["smoke.csv"], low_field=low_field)
             cfg = C.fit_config(model, low_field=low_field)
             profiler.reset()
-            for name in COUNTERS:
-                setattr(fused_fit, name, 0)
-            replays0 = graphs.REPLAYS
+            counts0 = launches_since()
+            replays0 = profiler.counter("graphs.replays")
             t0 = time.perf_counter()
             summaries = process_t2maps(rows, bids, list(tes), cfg, phantom=False,
                                        low_field=low_field, sim="smoke3",
                                        make_plots=make_plots, device="cuda")
             session_s = time.perf_counter() - t0
-            counts = {name: getattr(fused_fit, name) for name in COUNTERS}
-            trace_replays = graphs.REPLAYS - replays0
+            counts = launches_since(counts0)
+            trace_replays = profiler.counter("graphs.replays") - replays0
             gate(trace_replays >= cfg.max_iters - 1,
                  f"{model} session: {trace_replays} trace-graph replays < {cfg.max_iters - 1}")
             for name in needed:
@@ -1192,12 +1198,12 @@ def phase9_segmentation():
         try:
             profiler.reset()
             torch.cuda.reset_peak_memory_stats()
-            conv_s2d.CONV_S2D_LAUNCHES = 0
+            launches0 = profiler.counter("conv_s2d.launches")
             t0 = time.perf_counter()
             with profiler.stage("recon.synthseg"):
                 run_segmentation([acq], bids, SynthSegRunner(mode="torch"))
             stage_s = time.perf_counter() - t0
-            launches = conv_s2d.CONV_S2D_LAUNCHES
+            launches = profiler.counter("conv_s2d.launches") - launches0
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -1544,7 +1550,6 @@ def phase10_no_prior(n: int = 240, device: str = "cuda", n_sample: int = 32768):
 _CLI_RUN = """
 import json, runpy, sys, time
 t0 = time.perf_counter()
-from fetal_t2mapping_tpu_torch.models import fused_fit
 from fetal_t2mapping_tpu_torch.utils.profiling import profiler
 sys.argv = ["fetal_t2mapping_tpu_torch.cli.t2mapping"] + sys.argv[1:]
 try:
@@ -1555,9 +1560,9 @@ except SystemExit as exc:
     rc = exc.code
 print(json.dumps({"rc": rc, "seconds": time.perf_counter() - t0,
                   "stages": {k: v["seconds"] for k, v in profiler.as_dict().items()},
-                  "launches": {name: getattr(fused_fit, name) for name in
-                               ("KERNEL_LAUNCHES", "GR_VARPRO_LAUNCHES", "FIT3_LAUNCHES",
-                                "FIT3_CONT_LAUNCHES")}}))
+                  "launches": {name: profiler.counter(name) for name in
+                               ("gauss_fit.launches", "gr_varpro_fit.launches",
+                                "fit3.launches", "fit3_cont.launches")}}))
 """
 
 
@@ -1626,7 +1631,7 @@ def phase10_cli_sessions(fits, n: int = 240, device: str = "cuda"):
                                               / t2_true[inside]))
                 gate(med <= 5e-2, f"{model} --no_prior CLI: median rel T2 err {med:.3e} > 5e-2")
                 launches = res["launches"]
-                gate(model != "gaussian" or device != "cuda" or launches["KERNEL_LAUNCHES"] == 1,
+                gate(model != "gaussian" or device != "cuda" or launches["gauss_fit.launches"] == 1,
                      f"gaussian --no_prior CLI: gauss_fit.cu launches {launches}")
                 rows.append(f"{model} ({tree_model} tree, written in {tree_s:.1f} s): process "
                             f"{wall:.2f} s (script {res['seconds']:.2f} s, t2map.fit "
@@ -2070,7 +2075,8 @@ class eager_loops:
 
 def graph_counts():
     """(graphs captured, replayed, stop flags read) so far in this process."""
-    return graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS
+    return (profiler.counter("graphs.captures"), profiler.counter("graphs.replays"),
+            profiler.counter("host_reads"))
 
 
 def counts_since(before):
@@ -2152,9 +2158,9 @@ def phase11_registration(n: int = 192, device: str = "cuda"):
     def rigid():
         return registration.register_rigid(fixed, moving, metric="ncc", device=device)
 
-    c0, r0 = graphs.CAPTURES, graphs.REPLAYS
+    c0, r0, _ = graph_counts()
     rigid_ms, res = timed_solves(rigid)
-    per_solve = ((graphs.CAPTURES - c0) / 4, (graphs.REPLAYS - r0) / 4)   # the warm solve + 3
+    per_solve = tuple(d / 4 for d in counts_since((c0, r0, 0))[:2])   # the warm solve + 3
     rot, tr = pose_error(T1, res.matrix, center)
     gate(rot < 0.01 and tr < 0.5, f"{n}^3 rigid recovery {rot:.4f} rad / {tr:.3f} mm "
                                   "(gates 0.01 rad, 0.5 mm)")
@@ -2405,7 +2411,7 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
         setup_s = time.perf_counter() - t0
         rows = set_metadata(logs, ["smoke.csv"], low_field=True)
         profiler.reset()
-        fused_fit.KERNEL_LAUNCHES = 0
+        launches0 = profiler.counter("gauss_fit.launches")
         before = graph_counts()
         t0 = time.perf_counter()
         process_qmri(bids, rows, in_vivo=True, low_field=True,
@@ -2418,7 +2424,7 @@ def phase12_session(n: int = SESSION_N, device: str = "cuda"):
         summaries = process_t2maps(rows, bids, list(SESSION_TES), C.fit_config("gaussian", True),
                                    low_field=True, sim="smoke", make_plots=False, device=device)
         stage3_s = time.perf_counter() - t0
-        launches = fused_fit.KERNEL_LAUNCHES
+        launches = profiler.counter("gauss_fit.launches") - launches0
         gate(launches > 0, "the chained stage-3 run launched no gauss_fit kernel")
         gate(any("skipping atlas labels" in m for m in records.messages),
              "the atlas step did not warn and skip")
@@ -2544,14 +2550,14 @@ SERVING_MASKS = {"5%": 0.613, "22%": 1.0, "50%": 1.329}
 # the kernels one request launches
 SERVING_FITS = {
     "gaussian": dict(model="gaussian", lo=LO, hi=HI, guess=None, ftol=1e-9, gtol=0.0,
-                     varpro3=None, kernels=("KERNEL_LAUNCHES",)),
+                     varpro3=None, kernels=("gauss_fit.launches",)),
     "gaussian_rician": dict(model="gaussian_rician", lo=LO3, hi=HI3, guess=GUESS3, varpro3=True,
-                            kernels=("GR_VARPRO_LAUNCHES",), **TOL3),
+                            kernels=("gr_varpro_fit.launches",), **TOL3),
     "gaussian_rician multistart": dict(model="gaussian_rician", lo=LO3, hi=HI3, guess=GUESS3,
-                                       varpro3=False, kernels=("FIT3_LAUNCHES",
-                                                               "FIT3_CONT_LAUNCHES"), **TOL3),
+                                       varpro3=False, kernels=("fit3.launches",
+                                                               "fit3_cont.launches"), **TOL3),
     "rician": dict(model="rician", lo=LO3, hi=HI3, guess=GUESS3, varpro3=None,
-                   kernels=("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES"), **TOL3),
+                   kernels=("fit3.launches", "fit3_cont.launches"), **TOL3),
 }
 LAYOUTS = {"dense": dict(compact=False), "block": dict(compact=True),
            "voxel": dict(compact=True, block=1)}
@@ -2655,11 +2661,10 @@ def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
                 gate(med_rel <= 5e-2, f"serving {fit_name}: median rel T2 err {med_rel:.3e} > 5e-2")
                 if model == "gaussian":
                     gate(conv >= 0.98, f"serving gaussian: converged {conv:.5f} < 0.98")
-                for c in COUNTERS:
-                    setattr(fused_fit, c, 0)
+                counts0 = launches_since()
                 volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac, **kw)
                 _sync()
-                counts = {c: getattr(fused_fit, c) for c in COUNTERS}
+                counts = launches_since(counts0)
                 for c in COUNTERS:
                     # the plain versions (device "cpu", a rehearsal) count nothing
                     want = int(c in fit["kernels"] and device == "cuda")
@@ -3186,12 +3191,12 @@ def phase15_ingest_chain(n: int = SESSION_N, device: str = "cuda", workers: int 
                                        "--synthseg", "fake", "--device", device])
         stage2_s = time.perf_counter() - t0
         gate(rc == 0, f"qmri_reconstruction returned {rc}")
-        fused_fit.KERNEL_LAUNCHES = 0
+        launches0 = profiler.counter("gauss_fit.launches")
         t0 = time.perf_counter()
         rc = t2mapping.main(["--path", root, "--csv", csv_name, "--in_vivo", "--gaussian",
                              "--lf", "--sim", "chain", "--device", device])
         stage3_s = time.perf_counter() - t0
-        launches = fused_fit.KERNEL_LAUNCHES
+        launches = profiler.counter("gauss_fit.launches") - launches0
         stages = session_stages()
         gate(rc == 0, f"t2mapping returned {rc}")
         gate((launches > 0) == (torch.device(device).type == "cuda"),
@@ -3298,7 +3303,8 @@ pending = volcache.n_pending()
 h = handles[0] if handles else None
 print(json.dumps({"rc": rc, "import_s": import_s, "main_s": main_s, "pending": pending,
                   "stages": profiler.as_dict(), "report": profiler.report(),
-                  "graphs": [graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS],
+                  "graphs": [profiler.counter("graphs.captures"),
+                             profiler.counter("graphs.replays"), profiler.counter("host_reads")],
                   "prewarm": None if h is None else {
                       "steps": h.steps, "seconds": h.seconds, "done": h.done,
                       "error": None if h.error is None else repr(h.error)}}))
@@ -3488,12 +3494,12 @@ def phase16_io_layer(n: int = SESSION_N, device: str = "cuda"):
                 invivo_gates(os.path.join(tmp, key, "projects/"), rows, fields, n, None)
 
         profiler.reset()
-        fused_fit.KERNEL_LAUNCHES = 0
+        launches0 = profiler.counter("gauss_fit.launches")
         t0 = time.perf_counter()
         rc = t2mapping.main(["--path", os.path.join(tmp, "b"), "--csv", "smoke.csv", "--in_vivo",
                              "--gaussian", "--lf", "--sim", "io", "--device", device])
         stage3_s = time.perf_counter() - t0
-        launches = fused_fit.KERNEL_LAUNCHES
+        launches = profiler.counter("gauss_fit.launches") - launches0
         gate(rc == 0 and volcache.n_pending() == 0,
              f"t2mapping returned {rc}, {volcache.n_pending()} writes pending")
         gate((launches > 0) == (torch.device(device).type == "cuda"),
@@ -3614,14 +3620,12 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
             sig = make_data3(n_fit, tes, seed=0)[0]
         s = torch.from_numpy(sig).to(dev)
         kw = dict(model=model, guess=guess, max_iters=60, **tol)
-        for c in COUNTERS:
-            setattr(fused_fit, c, 0)
+        counts0 = launches_since()
         single = fused_fit.fit_fused(s, tes, lo, hi, device=dev, **kw)
-        launches_single = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
-        for c in COUNTERS:
-            setattr(fused_fit, c, 0)
+        launches_single = {c: n for c, n in launches_since(counts0).items() if n}
+        counts0 = launches_since()
         sharded = fit_fused_sharded(s, tes, lo, hi, mesh, **kw)
-        launches_sharded = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+        launches_sharded = {c: n for c, n in launches_since(counts0).items() if n}
         gate(bool(launches_single) and bool(launches_sharded) or not cuda,
              f"{model}: no fit kernel launched ({launches_single}, {launches_sharded})")
         gate(same(single, sharded), f"(a) {model}: fit_fused_sharded differs from fit_fused")
@@ -3631,11 +3635,10 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
             .converged.cpu().numpy()
         tp_rows = {}
         for label, frac in (("default", None), ("starved", starved_frac)):
-            for c in COUNTERS:
-                setattr(fused_fit, c, 0)
+            counts0 = launches_since()
             tp = fused_fit.fit_fused(s, tes, lo, hi, device=dev, strategy="twophase",
                                      tail_frac=frac, **kw)
-            launches_tp = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+            launches_tp = {c: n for c, n in launches_since(counts0).items() if n}
             gate(bool(launches_tp) or not cuda, f"(b) {model} {label}: no fit kernel launched")
             over = host_overflow(conv1, tail_block,
                                  fused_fit.resolve_tail_frac(frac, tail_block), 2)
@@ -3682,12 +3685,13 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
         cfg = C.fit_config("gaussian", low_field=True)
         maps = {}
         for sim, m_ in (("single", None), ("mesh", mesh)):
-            fused_fit.KERNEL_LAUNCHES = 0
+            launches0 = profiler.counter("gauss_fit.launches")
             t0 = time.perf_counter()
             summ = process_t2maps(rows_md, bids, list(TES_SESSION), cfg, sim=sim,
                                   make_plots=False, mesh=m_, device=dev)
             maps[sim] = ({k: np.asarray(nifti.read(p).data) for k, p in summ[0]["maps"].items()},
-                         time.perf_counter() - t0, fused_fit.KERNEL_LAUNCHES)
+                         time.perf_counter() - t0,
+                         profiler.counter("gauss_fit.launches") - launches0)
         for k, v in maps["single"][0].items():
             gate(np.array_equal(v, maps["mesh"][0][k], equal_nan=True),
                  f"(c) process_t2maps(mesh=) map {k} differs from the single-device map")
@@ -3733,7 +3737,7 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
     vol = brain_volume(n_seg, seed=21)
     seg = {}
     for name, m_ in (("single", None), ("mesh", mesh)):
-        conv_s2d.CONV_S2D_LAUNCHES = 0
+        launches0 = profiler.counter("conv_s2d.launches")
         for _ in range(2):          # the second call is timed: weights on the card
             _sync()
             t0 = time.perf_counter()
@@ -3743,7 +3747,8 @@ def phase17_mesh(device: str = "cuda", n_fit: int = N_HEADLINE3, n_session: int 
     gate(np.array_equal(seg["single"], seg["mesh"]),
          f"(e) segment_volume(mesh=) labels differ from unsharded on "
          f"{int((seg['single'] != seg['mesh']).sum())} voxels")
-    gate(conv_s2d.CONV_S2D_LAUNCHES == 0, "(e) the mesh forward launched conv_s2d")
+    gate(profiler.counter("conv_s2d.launches") == launches0,
+         "(e) the mesh forward launched conv_s2d")
 
     # (f) more devices than are visible
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -3900,11 +3905,10 @@ def phase18a_serving_mesh(n: int = SERVING_N, device: str = "cuda"):
             call_kw = dict(kw, mask_frac=mask_frac, **lk)
             single, peak_s = _peak_mib(lambda: volume_fit.fit_volume(
                 sig, mask, TES3, lo, hi, device=dev, **call_kw), dev)
-            for c in COUNTERS:
-                setattr(fused_fit, c, 0)
+            counts0 = launches_since()
             meshed, peak_m = _peak_mib(lambda: volume_fit.fit_volume(
                 sig, mask, TES3, lo, hi, mesh=mesh, **call_kw), dev)
-            counts = {c: getattr(fused_fit, c) for c in COUNTERS if getattr(fused_fit, c)}
+            counts = {c: n for c, n in launches_since(counts0).items() if n}
             want = {c: mesh.size for c in fit["kernels"]} if cuda else {}
             gate(counts == want, f"(a) {fit_name} {lay}: launches per mesh request {counts}, "
                  f"expected {want}")
@@ -4059,12 +4063,13 @@ def phase18d_examples(device: str = "cuda", unet_n: int = 160):
          and bool(gm.between(130, 160).all()) and 850 < csf.mean() < 950
          and len(gm_rois) == 36 and bool(gm_rois["mean"].between(120, 170).all()),
          "(d) invivo_analysis table off its truth")
-    conv_s2d.CONV_S2D_LAUNCHES = 0
+    launches0 = profiler.counter("conv_s2d.launches")
     prof = run("profile_unet", lambda: profile_unet.main(unet_n, reps=3, device=device))
     names = [row["name"] for row in prof["rows"]]
     if dev.type == "cuda":
-        gate(conv_s2d.CONV_S2D_LAUNCHES > 0 and any("conv_s2d" in nm for nm in names),
-             f"(d) profile_unet: conv_s2d launches {conv_s2d.CONV_S2D_LAUNCHES}, not in the "
+        launches = profiler.counter("conv_s2d.launches") - launches0
+        gate(launches > 0 and any("conv_s2d" in nm for nm in names),
+             f"(d) profile_unet: conv_s2d launches {launches}, not in the "
              f"table's {len(names)} ops")
     gate(len(names) > 0, "(d) profile_unet: empty table")
     top = ", ".join(f"{row['name'][:40]} {row['ms']:.2f} ms" for row in prof["rows"][:3])
@@ -4135,9 +4140,9 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": g_bound[0], "bound_by": g_bound[1],
         "library_ms": None}]
     for name, source, replaces, session, counter in (
-            ("gr_varpro", "gr_varpro_fit.cu", 537, "gaussian_rician", "GR_VARPRO_LAUNCHES"),
-            ("fit3", "fit3.cu", 848, "rician", "FIT3_LAUNCHES"),
-            ("fit3_cont", "fit3.cu", 887, "rician", "FIT3_CONT_LAUNCHES")):
+            ("gr_varpro", "gr_varpro_fit.cu", 537, "gaussian_rician", "gr_varpro_fit.launches"),
+            ("fit3", "fit3.cu", 848, "rician", "fit3.launches"),
+            ("fit3_cont", "fit3.cu", 887, "rician", "fit3_cont.launches")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"fetal_t2mapping_tpu_torch/csrc/{source}",

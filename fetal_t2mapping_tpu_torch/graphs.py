@@ -22,34 +22,24 @@ meanwhile. A capture or replay that fails raises: no caller falls back to
 the eager loop. ``stepper`` wraps a step as one call per iteration, the
 graph's or the eager step's.
 
-``CAPTURES`` and ``REPLAYS`` count this process's captures and replays,
-``HOST_READS`` the stop flags that the graphed loops read (``read``).
+The counters ``graphs.captures`` and ``graphs.replays`` of
+``utils.profiling.profiler`` count this process's captures and replays;
+the stop flags that the graphed loops read (``read``) count in its
+``host_reads``.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Callable
 
 import torch
 
-#: graphs captured and replayed, and stop flags read, in this process (each
-#: counted where it happens)
-CAPTURES = 0
-REPLAYS = 0
-HOST_READS = 0
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(counter: str) -> None:
-    with _COUNT_LOCK:
-        globals()[counter] += 1
+from .utils.profiling import profiler
 
 
 def read(flag: torch.Tensor) -> bool:
     """``bool(flag)`` of a device flag: the host waits for the device."""
-    _count("HOST_READS")
-    return bool(flag)
+    return bool(profiler.host_read(flag))
 
 
 class StepGraph:
@@ -62,7 +52,7 @@ class StepGraph:
 
     def __call__(self) -> None:
         self._graph.replay()
-        _count("REPLAYS")
+        profiler.count("graphs.replays")
 
 
 def _make_room(device: torch.device) -> None:
@@ -105,7 +95,7 @@ def capture(step: Callable[[], None], warm_up: Callable[[], None],
             raise
         graph.capture_end()
     caller.wait_stream(side)
-    _count("CAPTURES")
+    profiler.count("graphs.captures")
     return StepGraph(graph)
 
 

@@ -36,10 +36,7 @@ import numpy as np
 import torch
 
 from .. import build
-
-#: launches of csrc/conv_s2d.cu in this process (the wrapper adds one per
-#: launch; the plain version never touches it)
-CONV_S2D_LAUNCHES = 0
+from ..utils.profiling import profiler
 
 _ACTIVATIONS = ("elu", None)
 #: the bf16 kernel's tile: out-form voxels along x and y (one z-plane),
@@ -206,7 +203,6 @@ def _check_geometry(lib) -> None:
 def _conv_s2d_cuda(x_inform, w_packed, bias, residual, *, activation, compute_dtype,
                    shape):
     """Launch csrc/conv_s2d.cu on x_inform's device and current stream."""
-    global CONV_S2D_LAUNCHES
     qz, qy, qx, c, c_out = shape
     check_kernel_args(c, c_out, compute_dtype)
     dev = x_inform.device
@@ -237,5 +233,5 @@ def _conv_s2d_cuda(x_inform, w_packed, bias, residual, *, activation, compute_dt
         else:
             err = lib.ft2_conv_s2d_f32(*ptrs, qz, qy, qx, c, c_out, elu, build.stream(dev))
     build.check_launch(err, "conv_s2d")
-    CONV_S2D_LAUNCHES += 1
+    profiler.count("conv_s2d.launches")
     return out

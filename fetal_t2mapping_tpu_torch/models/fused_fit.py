@@ -17,6 +17,10 @@ version.
 | 3-start multistart | ``csrc/fit3.cu`` ``ft2_fit3_multistart`` | ``_fit3_plain`` | ``_kernel3_body`` |
 | multistart continuation | ``csrc/fit3.cu`` ``ft2_fit3_cont`` | ``_fit3_cont_plain`` | ``_kernel3_cont_body`` |
 
+Each fit pass records a ``fit_fused.launch`` span (attribute ``kernel``)
+and each CUDA launch a count in ``<kernel>.launches``, both in
+``utils.profiling.profiler``.
+
 Kernels and plain versions follow the reference op for op — the same
 left-to-right sums over echoes, the same float32 constants (every
 expression the reference evaluates between Python floats is computed here
@@ -36,7 +40,6 @@ from __future__ import annotations
 
 import math
 import os
-import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -44,6 +47,7 @@ import torch
 
 from .. import build
 from ..device import resolve_device
+from ..utils.profiling import profiler
 from .fgh import FGH, N_PARAMS, VALUE_E, cdiv, rdiv
 from .solver import FitResult
 
@@ -66,22 +70,6 @@ _MODEL_ID = {"gaussian_rician": 0, "rician": 1}   # fit3.cu's model switch
 # (pallas_fit._PREFIX3_DEFAULT). 0 disables pruning.
 _PREFIX3_DEFAULT = 4
 _VARPRO3_DEFAULT = 1
-
-#: launches of each CUDA kernel in this process (each wrapper adds one per
-#: launch; the plain versions never touch them)
-KERNEL_LAUNCHES = 0          # gauss_fit
-GR_VARPRO_LAUNCHES = 0       # gr_varpro_fit
-FIT3_LAUNCHES = 0            # fit3 multistart
-FIT3_CONT_LAUNCHES = 0       # fit3 continuation
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(counter: str) -> None:
-    """Add one launch to the module counter ``counter``, under a lock:
-    the shards of ``parallel.mesh`` launch from threads of their own."""
-    with _COUNT_LOCK:
-        globals()[counter] += 1
-
 
 def validate_fused_args(model, te, lo, hi, guess, no_prior):
     """Validate + normalize static fused-fit arguments (the JAX package's
@@ -958,7 +946,7 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
             conv.data_ptr(), nit.data_ptr(), rows.data_ptr(), counters.data_ptr(),
             build.stream(dev))
     build.check_launch(err, "gauss_fit")
-    _count("KERNEL_LAUNCHES")
+    profiler.count("gauss_fit.launches")
     return out[0], out[1], out[2], conv.view(torch.bool), nit
 
 
@@ -981,7 +969,7 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
             int(stall_iters), int(full_budget), out[0].data_ptr(),
             out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
     build.check_launch(err, "gr_varpro_fit")
-    _count("GR_VARPRO_LAUNCHES")
+    profiler.count("gr_varpro_fit.launches")
     return out[0], out[1]
 
 
@@ -999,7 +987,7 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
             int(max_iters), out[0].data_ptr(), out[1].data_ptr(), build.stream(dev))
     build.check_launch(err, "fit3")
-    _count("FIT3_LAUNCHES")
+    profiler.count("fit3.launches")
     return out[0], out[1]
 
 
@@ -1024,7 +1012,7 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
             int(max_iters), x0.data_ptr(), st0.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
     build.check_launch(err, "fit3_cont")
-    _count("FIT3_CONT_LAUNCHES")
+    profiler.count("fit3_cont.launches")
     return out[0], out[1]
 
 
@@ -1053,26 +1041,30 @@ def _pick(signal: torch.Tensor, te, cuda_fn, plain_fn):
 
 def _gauss_fit(signal: torch.Tensor, te, lo, hi, **kw):
     """The gaussian fit on ``signal``'s device (kernel or plain version)."""
-    fn, signal = _pick(signal, te, _gauss_fit_cuda, _gauss_fit_plain)
-    return fn(signal, te, lo, hi, **kw)
+    with profiler.span("fit_fused.launch", kernel="gauss_fit"):
+        fn, signal = _pick(signal, te, _gauss_fit_cuda, _gauss_fit_plain)
+        return fn(signal, te, lo, hi, **kw)
 
 
 def _gr_varpro_fit(signal: torch.Tensor, te, lo, hi, guess, **kw):
     """The gaussian_rician VARPRO fit on ``signal``'s device."""
-    fn, signal = _pick(signal, te, _gr_varpro_fit_cuda, _gr_varpro_fit_plain)
-    return fn(signal, te, lo, hi, guess, **kw)
+    with profiler.span("fit_fused.launch", kernel="gr_varpro_fit"):
+        fn, signal = _pick(signal, te, _gr_varpro_fit_cuda, _gr_varpro_fit_plain)
+        return fn(signal, te, lo, hi, guess, **kw)
 
 
 def _fit3(signal: torch.Tensor, model, te, lo, hi, guess, **kw):
     """The 3-start multistart on ``signal``'s device."""
-    fn, signal = _pick(signal, te, _fit3_cuda, _fit3_plain)
-    return fn(signal, model, te, lo, hi, guess, **kw)
+    with profiler.span("fit_fused.launch", kernel="fit3"):
+        fn, signal = _pick(signal, te, _fit3_cuda, _fit3_plain)
+        return fn(signal, model, te, lo, hi, guess, **kw)
 
 
 def _fit3_cont(signal: torch.Tensor, model, te, lo, hi, guess, x0, st0, **kw):
     """The multistart continuation on ``signal``'s device."""
-    fn, signal = _pick(signal, te, _fit3_cont_cuda, _fit3_cont_plain)
-    return fn(signal, model, te, lo, hi, guess, x0, st0, **kw)
+    with profiler.span("fit_fused.launch", kernel="fit3_cont"):
+        fn, signal = _pick(signal, te, _fit3_cont_cuda, _fit3_cont_plain)
+        return fn(signal, model, te, lo, hi, guess, x0, st0, **kw)
 
 
 def _fit3_pruned(signal: torch.Tensor, model, te, lo, hi, guess, *,
@@ -1162,7 +1154,7 @@ def _fit_twophase(signal: torch.Tensor, fit_pass, *, phase1_iters: int, max_iter
     handled = torch.cat([(conv | ~in_range).reshape(nbk, bc).all(dim=1),
                          conv.new_ones(1)])
     for _ in range(int(tail_rounds)):
-        if not bool((~handled[:nbk]).any()):
+        if not profiler.host_read((~handled[:nbk]).any()):
             break
         bidx, n_tail = _tail_partition(handled[:nbk], cap_b)
         upd = packed(*fit_pass(sig_blk[bidx].reshape(cap_b * bc, -1),
@@ -1274,13 +1266,15 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
         'single' reads nothing from the device; 'twophase' reads 4 bytes
         before each round it may run (at most ``tail_rounds`` reads).
     """
-    fit_pass, strategy, two = resolve_fused(
-        te, lo, hi, model=model, guess=guess, max_iters=max_iters, ftol=ftol, gtol=gtol,
-        no_prior=no_prior, strategy=strategy, full_budget=full_budget, prefix3=prefix3,
-        varpro3=varpro3, phase1_iters=phase1_iters, tail_frac=tail_frac,
-        tail_rounds=tail_rounds, tail_block=tail_block)
-    signal = torch.as_tensor(signal, dtype=torch.float32, device=resolve_device(device))
-    result = fit_resolved(signal, te, fit_pass, strategy, two)
-    if sync and signal.device.type == "cuda":
-        torch.cuda.current_stream(signal.device).synchronize()
-    return result
+    with profiler.request("fit_fused", model=model):
+        with profiler.span("fit_fused.resolve"):
+            fit_pass, strategy, two = resolve_fused(
+                te, lo, hi, model=model, guess=guess, max_iters=max_iters, ftol=ftol,
+                gtol=gtol, no_prior=no_prior, strategy=strategy, full_budget=full_budget,
+                prefix3=prefix3, varpro3=varpro3, phase1_iters=phase1_iters,
+                tail_frac=tail_frac, tail_rounds=tail_rounds, tail_block=tail_block)
+            signal = torch.as_tensor(signal, dtype=torch.float32, device=resolve_device(device))
+        result = fit_resolved(signal, te, fit_pass, strategy, two)
+        if sync and signal.device.type == "cuda":
+            torch.cuda.current_stream(signal.device).synchronize()
+        return result

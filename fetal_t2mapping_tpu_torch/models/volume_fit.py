@@ -27,7 +27,15 @@ the mask fraction (``resolve_compact``), at crossovers measured on an H100
 capacity are left unfitted (map 0, converged False) and their masked
 voxels counted in ``n_overflow``. Nothing here reads the device from the
 host, except the optional capacity check (one 4-byte read) and, with
-``strategy='twophase'``, the fit's rounds (one 4-byte read each).
+``strategy='twophase'``, the fit's rounds (one 4-byte read each), both
+through ``profiler.host_read``.
+
+Under a profiler a request records its spans (``utils.profiling``): the
+root ``fit_volume`` (model, layout, grid_voxels, capacity_rows), then
+``fit_volume.prepare`` (arguments, inputs to the device, ``compact``, the
+capacity check ``fit_volume.capacity_check`` with its ``host_read``, the
+filler), ``fit_volume.compact`` or ``fit_volume.dense_select``,
+``fit_fused`` and ``fit_volume.scatter``.
 
 Over a voxel mesh (``mesh=``, a ``parallel.VoxelMesh``) the partition,
 gather, filler and scatter stay on the mesh's first device, and only the
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import NO_SPAN, profiler
 from .fused_fit import (fit_fused, resolve_strategy, resolve_varpro3,
                         validate_fused_args)
 from .solver import _tail_partition
@@ -185,68 +194,75 @@ def _fit_dense(signal, sel, filler, fit_kw, mesh) -> VolumeFitResult:
     back in voxel order and the maps are masked reshapes."""
     zyx = signal.shape[:3]
     n = sel.shape[0]
-    flat = signal.reshape(n, signal.shape[3])
-    batch = _batch_buffer(n, signal.shape[3], filler, mesh)
-    torch.where(sel[:, None], flat, filler, out=batch[:n])
+    with profiler.span("fit_volume.dense_select"):
+        flat = signal.reshape(n, signal.shape[3])
+        batch = _batch_buffer(n, signal.shape[3], filler, mesh)
+        torch.where(sel[:, None], flat, filler, out=batch[:n])
     (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, n, fit_kw, mesh)
-    selz = sel.reshape(zyx)
+    with profiler.span("fit_volume.scatter"):
+        selz = sel.reshape(zyx)
 
-    def chan(v):
-        return torch.where(selz, v.reshape(zyx), 0)
+        def chan(v):
+            return torch.where(selz, v.reshape(zyx), 0)
 
-    return VolumeFitResult(
-        t2=chan(t2), k=chan(k), sigma=chan(sigma), fun=chan(fun),
-        converged=conv.reshape(zyx) & selz, n_iter=chan(nit),
-        n_masked=sel.sum(dtype=torch.int32),
-        # no capacity to overflow; the filler converges at once, so what
-        # a 'twophase' fit could not refit is masked voxels
-        n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device) + inner_overflow)
+        return VolumeFitResult(
+            t2=chan(t2), k=chan(k), sigma=chan(sigma), fun=chan(fun),
+            converged=conv.reshape(zyx) & selz, n_iter=chan(nit),
+            n_masked=sel.sum(dtype=torch.int32),
+            # no capacity to overflow; the filler converges at once, so what
+            # a 'twophase' fit could not refit is masked voxels
+            n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device)
+            + inner_overflow)
 
 
-def _fit_compact(signal, sel, filler, fit_kw, mesh, *, mask_frac: float,
+def _fit_compact(signal, sel, filler, fit_kw, mesh, *, blk_cap: int,
                  block: int) -> VolumeFitResult:
-    """Block compaction: the masked blocks (up to the static capacity) are
-    gathered in a stable order, fitted, and scattered back one block per
-    row. Buffer slots past the number of masked blocks write to a spare row
-    that is dropped, so no row is written twice with different data."""
+    """Block compaction: the masked blocks (up to the static capacity of
+    ``blk_cap`` blocks) are gathered in a stable order, fitted, and
+    scattered back one block per row. Buffer slots past the number of
+    masked blocks write to a spare row that is dropped, so no row is
+    written twice with different data."""
     zyx = signal.shape[:3]
     t_axis = signal.shape[3]
     n = prod(zyx)
     n_pad = -(-n // block) * block
     nb = n_pad // block
-    flat = signal.reshape(n, t_axis)
-    if n_pad != n:
-        flat = torch.nn.functional.pad(flat, (0, 0, 0, n_pad - n), value=1.0)
-        sel = torch.nn.functional.pad(sel, (0, n_pad - n))
-    blk_cap = _block_capacity(n, mask_frac, block)
-    # _tail_partition puts the unconverged first: masked blocks play that role
-    bidx, nb_sel = _tail_partition(~sel.reshape(nb, block).any(dim=1), blk_cap)
-    batch = flat.reshape(nb, block * t_axis)[bidx].reshape(blk_cap, block, t_axis)
-    mb = sel.reshape(nb, block)[bidx]                             # (blk_cap, block)
     rows = blk_cap * block
-    buf = _batch_buffer(rows, t_axis, filler, mesh)
-    torch.where(mb[..., None], batch, filler, out=buf[:rows].view(blk_cap, block, t_axis))
+    with profiler.span("fit_volume.compact"):
+        flat = signal.reshape(n, t_axis)
+        if n_pad != n:
+            flat = torch.nn.functional.pad(flat, (0, 0, 0, n_pad - n), value=1.0)
+            sel = torch.nn.functional.pad(sel, (0, n_pad - n))
+        # _tail_partition puts the unconverged first: masked blocks play that role
+        bidx, nb_sel = _tail_partition(~sel.reshape(nb, block).any(dim=1), blk_cap)
+        batch = flat.reshape(nb, block * t_axis)[bidx].reshape(blk_cap, block, t_axis)
+        mb = sel.reshape(nb, block)[bidx]                         # (blk_cap, block)
+        buf = _batch_buffer(rows, t_axis, filler, mesh)
+        torch.where(mb[..., None], batch, filler, out=buf[:rows].view(blk_cap, block, t_axis))
     (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(buf, rows, fit_kw, mesh)
 
-    valid_blk = torch.arange(blk_cap, device=signal.device) < nb_sel
-    keep = mb & valid_blk[:, None]
-    upd = torch.stack([t2, k, sigma, fun, conv.to(torch.float32), nit.to(torch.float32)], dim=1)
-    upd = torch.where(keep.reshape(-1, 1), upd, 0.0)
-    safe_bidx = torch.where(valid_blk, bidx, nb)                  # nb: the spare row
-    dense = torch.zeros((nb + 1, block * 6), dtype=torch.float32, device=signal.device)
-    dense.index_copy_(0, safe_bidx, upd.reshape(blk_cap, block * 6))
-    dense = dense[:nb].reshape(nb, block, 6)
+    with profiler.span("fit_volume.scatter"):
+        valid_blk = torch.arange(blk_cap, device=signal.device) < nb_sel
+        keep = mb & valid_blk[:, None]
+        upd = torch.stack([t2, k, sigma, fun, conv.to(torch.float32),
+                           nit.to(torch.float32)], dim=1)
+        upd = torch.where(keep.reshape(-1, 1), upd, 0.0)
+        safe_bidx = torch.where(valid_blk, bidx, nb)              # nb: the spare row
+        dense = torch.zeros((nb + 1, block * 6), dtype=torch.float32, device=signal.device)
+        dense.index_copy_(0, safe_bidx, upd.reshape(blk_cap, block * 6))
+        dense = dense[:nb].reshape(nb, block, 6)
 
-    def chan(c):
-        return dense[:, :, c].reshape(n_pad)[:n].reshape(zyx)
+        def chan(c):
+            return dense[:, :, c].reshape(n_pad)[:n].reshape(zyx)
 
-    n_masked = sel.sum(dtype=torch.int32)
-    return VolumeFitResult(
-        t2=chan(0), k=chan(1), sigma=chan(2), fun=chan(3),
-        converged=chan(4) > 0.5, n_iter=chan(5).to(torch.int32),
-        # masked voxels beyond the buffer, plus those the fit's own
-        # 'twophase' rounds could not refit
-        n_masked=n_masked, n_overflow=n_masked - keep.sum(dtype=torch.int32) + inner_overflow)
+        n_masked = sel.sum(dtype=torch.int32)
+        return VolumeFitResult(
+            t2=chan(0), k=chan(1), sigma=chan(2), fun=chan(3),
+            converged=chan(4) > 0.5, n_iter=chan(5).to(torch.int32),
+            # masked voxels beyond the buffer, plus those the fit's own
+            # 'twophase' rounds could not refit
+            n_masked=n_masked,
+            n_overflow=n_masked - keep.sum(dtype=torch.int32) + inner_overflow)
 
 
 def _fit_device(mesh, device) -> torch.device:
@@ -314,36 +330,45 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
         ``mesh.devices[0]``) and the () int32 counts n_masked and
         n_overflow, without waiting for the device.
     """
-    te_t, lo_t, hi_t, guess_t = validate_fused_args(model, te, lo, hi, guess, no_prior)
-    resolve_strategy(strategy)
-    if block < 1:
-        raise ValueError(f"block must be >= 1; got {block}")
-    dev = _fit_device(mesh, device)
-    signal = torch.as_tensor(signal, dtype=torch.float32, device=dev)
-    if signal.dim() != 4:
-        raise ValueError(f"signal must be (Z, Y, X, T); got {tuple(signal.shape)}")
-    mask = torch.as_tensor(mask, device=dev)
-    if tuple(mask.shape) != tuple(signal.shape[:3]):
-        raise ValueError(f"mask {tuple(mask.shape)} != volume grid {tuple(signal.shape[:3])}")
-    n = prod(signal.shape[:3])
-    compact = resolve_compact(compact, model, mask_frac, varpro3)
-    if check_capacity and compact:
-        blk_cap = _block_capacity(n, mask_frac, block)
-        n_blocks = int(_count_touched_blocks(mask, n, block))
-        if n_blocks > blk_cap:
-            warnings.warn(
-                f"mask touches {n_blocks} blocks of {block} voxels but "
-                f"mask_frac={mask_frac} caps the fit buffer at {blk_cap} "
-                f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
-                f"be left unfitted (n_overflow); raise mask_frac to "
-                f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=2)
-    fit_kw = dict(te=te_t, lo=lo_t, hi=hi_t, model=model, guess=guess_t,
-                  max_iters=max_iters, ftol=ftol, gtol=gtol, no_prior=no_prior,
-                  strategy=strategy, prefix3=prefix3, varpro3=varpro3,
-                  phase1_iters=phase1_iters, tail_frac=tail_frac)
-    sel = mask.reshape(n) > 0
-    filler = _filler(te_t, lo_t, hi_t, guess_t, dev)
-    if not compact:
-        return _fit_dense(signal, sel, filler, fit_kw, mesh)
-    return _fit_compact(signal, sel, filler, fit_kw, mesh, mask_frac=mask_frac,
-                        block=int(block))
+    with profiler.request("fit_volume", model=model) as request:
+        with profiler.span("fit_volume.prepare"):
+            te_t, lo_t, hi_t, guess_t = validate_fused_args(model, te, lo, hi, guess, no_prior)
+            resolve_strategy(strategy)
+            if block < 1:
+                raise ValueError(f"block must be >= 1; got {block}")
+            dev = _fit_device(mesh, device)
+            signal = torch.as_tensor(signal, dtype=torch.float32, device=dev)
+            if signal.dim() != 4:
+                raise ValueError(f"signal must be (Z, Y, X, T); got {tuple(signal.shape)}")
+            mask = torch.as_tensor(mask, device=dev)
+            if tuple(mask.shape) != tuple(signal.shape[:3]):
+                raise ValueError(f"mask {tuple(mask.shape)} != volume grid "
+                                 f"{tuple(signal.shape[:3])}")
+            n = prod(signal.shape[:3])
+            compact = resolve_compact(compact, model, mask_frac, varpro3)
+            blk_cap = _block_capacity(n, mask_frac, block) if compact else 0
+            if request is not NO_SPAN:
+                request.set(layout="block" if compact else "dense", grid_voxels=n,
+                            capacity_rows=blk_cap * block if compact else n)
+            if check_capacity and compact:
+                # before the mask and filler kernels below: the read waits for
+                # the device, which then runs those while the host goes on
+                with profiler.span("fit_volume.capacity_check"):
+                    n_blocks = profiler.host_read(_count_touched_blocks(mask, n, block))
+                    if n_blocks > blk_cap:
+                        warnings.warn(
+                            f"mask touches {n_blocks} blocks of {block} voxels but "
+                            f"mask_frac={mask_frac} caps the fit buffer at {blk_cap} "
+                            f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
+                            f"be left unfitted (n_overflow); raise mask_frac to "
+                            f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=2)
+            fit_kw = dict(te=te_t, lo=lo_t, hi=hi_t, model=model, guess=guess_t,
+                          max_iters=max_iters, ftol=ftol, gtol=gtol, no_prior=no_prior,
+                          strategy=strategy, prefix3=prefix3, varpro3=varpro3,
+                          phase1_iters=phase1_iters, tail_frac=tail_frac)
+            sel = mask.reshape(n) > 0
+            filler = _filler(te_t, lo_t, hi_t, guess_t, dev)
+        if not compact:
+            return _fit_dense(signal, sel, filler, fit_kw, mesh)
+        return _fit_compact(signal, sel, filler, fit_kw, mesh, blk_cap=blk_cap,
+                            block=int(block))

@@ -24,10 +24,15 @@ The registration (``recon.registration``, the fixed-image sample axis) and
 the U-Net (``labels.unet3d``, the z axis) take a mesh too; they run each
 shard on its device's current stream, in turn, and combine on the first
 device.
+
+A shard thread runs in a copy of the caller's ``contextvars`` context (a
+thread does not inherit it), so its spans (``utils.profiling``) record
+under the caller's.
 """
 
 from __future__ import annotations
 
+import contextvars
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
@@ -37,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.solver import FitResult
+from ..utils.profiling import profiler
 
 VOXEL_AXIS = "vox"
 
@@ -151,8 +157,10 @@ def run_sharded(mesh: VoxelMesh, fn: Callable, parts: Sequence, *,
             return out, s.record_event()
 
     if threads:
+        contexts = [contextvars.copy_context() for _ in range(mesh.size)]
         with ThreadPoolExecutor(max_workers=mesh.size, thread_name_prefix="ft2-shard") as ex:
-            done = [f.result() for f in [ex.submit(one, i) for i in range(mesh.size)]]
+            done = [f.result() for f in [ex.submit(contexts[i].run, one, i)
+                                         for i in range(mesh.size)]]
     else:
         done = [one(i) for i in range(mesh.size)]
     results = []
@@ -246,20 +254,22 @@ def fit_fused_sharded(signal, te, lo, hi, mesh: VoxelMesh, *, model: str = "gaus
     the first device before returning."""
     from ..models.fused_fit import fit_resolved, resolve_fused
 
-    fit_pass, strategy, two = resolve_fused(
-        te, lo, hi, model=model, guess=guess, max_iters=max_iters, ftol=ftol, gtol=gtol,
-        no_prior=no_prior, strategy=strategy, full_budget=False, prefix3=prefix3,
-        varpro3=varpro3, phase1_iters=phase1_iters, tail_frac=tail_frac,
-        tail_rounds=tail_rounds, tail_block=tail_block)
-    sig = signal if torch.is_tensor(signal) else np.asarray(signal, np.float32)
-    m = _check_divisible(sig.shape[0], mesh)
+    with profiler.request("fit_fused", model=model, shards=mesh.size):
+        with profiler.span("fit_fused.resolve"):
+            fit_pass, strategy, two = resolve_fused(
+                te, lo, hi, model=model, guess=guess, max_iters=max_iters, ftol=ftol,
+                gtol=gtol, no_prior=no_prior, strategy=strategy, full_budget=False,
+                prefix3=prefix3, varpro3=varpro3, phase1_iters=phase1_iters,
+                tail_frac=tail_frac, tail_rounds=tail_rounds, tail_block=tail_block)
+            sig = signal if torch.is_tensor(signal) else np.asarray(signal, np.float32)
+            m = _check_divisible(sig.shape[0], mesh)
 
-    def one(i, dev):
-        part = torch.as_tensor(_rows(sig, i, m), dtype=torch.float32).to(dev)
-        return fit_resolved(part.contiguous(), te, fit_pass, strategy, two)
+        def one(i, dev):
+            part = torch.as_tensor(_rows(sig, i, m), dtype=torch.float32).to(dev)
+            return fit_resolved(part.contiguous(), te, fit_pass, strategy, two)
 
-    result = _gather(run_sharded(mesh, one, list(range(mesh.size))), mesh.devices[0])
-    dev0 = mesh.devices[0]
-    if sync and dev0.type == "cuda":
-        torch.cuda.current_stream(dev0).synchronize()
-    return result
+        result = _gather(run_sharded(mesh, one, list(range(mesh.size))), mesh.devices[0])
+        dev0 = mesh.devices[0]
+        if sync and dev0.type == "cuda":
+            torch.cuda.current_stream(dev0).synchronize()
+        return result

@@ -4,7 +4,7 @@
 - ``metadata``  — session CSV logs read into row dicts (stdlib ``csv``), or
                   one log into a pandas DataFrame (``csv2df``)
 - ``maps_io``   — T2-map and summary writers
-- ``profiling`` — stage timers
+- ``profiling`` — spans, counters and stage timers
 - ``dicom``     — the Part-10 reader and its pixel decoders (RLE,
                   JPEG-lossless through the host library of
                   ``csrc/dicom_host.cpp``, 12-bit JPEG through ``jpegdct``,

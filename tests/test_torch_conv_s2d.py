@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from fetal_t2mapping_tpu.labels import pallas_conv as ref
 from fetal_t2mapping_tpu.labels.unet3d import _s2d_kernel
 from fetal_t2mapping_tpu_torch.labels import conv_s2d, unet3d
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
 
 torch.set_num_threads(1)
 
@@ -48,9 +49,9 @@ CASES = [pytest.param(r, a, q, id=f"res{int(r)}-{a}-{'x'.join(map(str, q))}")
 @pytest.mark.parametrize("with_res,act,q", CASES)
 def test_plain_matches_pallas_fp32(with_res, act, q):
     x, wp, b, res = _inputs(q=q)
-    before = conv_s2d.CONV_S2D_LAUNCHES
+    before = profiler.counter("conv_s2d.launches")
     got, want = _both(x, wp, b, res if with_res else None, act, jnp.float32, torch.float32)
-    assert conv_s2d.CONV_S2D_LAUNCHES == before
+    assert profiler.counter("conv_s2d.launches") == before
     want = np.asarray(want)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     scale = max(float(np.abs(want).max()), 1e-6)

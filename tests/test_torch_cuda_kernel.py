@@ -36,6 +36,7 @@ import torch
 
 from fetal_t2mapping_tpu_torch import build
 from fetal_t2mapping_tpu_torch.models import fused_fit
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
 
 TES3 = (114.0, 202.0, 299.0)
 TES6 = (114.0, 150.0, 202.0, 250.0, 299.0, 350.0)
@@ -68,12 +69,12 @@ def test_kernel_matches_plain_version(card, tes, no_prior, gtol):
     s = torch.from_numpy(sig).to(card)
     kw = dict(max_iters=60, ftol=1e-9, gtol=gtol, no_prior=no_prior,
               full_budget=False, stall_iters=3, stall_tol=1e-3)
-    before = fused_fit.KERNEL_LAUNCHES
+    before = profiler.counter("gauss_fit.launches")
     out_k = fused_fit._gauss_fit_cuda(s, tes, LO, HI, **kw)
     torch.cuda.synchronize()
-    assert fused_fit.KERNEL_LAUNCHES == before + 1
+    assert profiler.counter("gauss_fit.launches") == before + 1
     out_p = fused_fit._gauss_fit_plain(s, tes, LO, HI, **kw)
-    assert fused_fit.KERNEL_LAUNCHES == before + 1
+    assert profiler.counter("gauss_fit.launches") == before + 1
     x_k = torch.stack(out_k[:2]).cpu().numpy()
     x_p = torch.stack(out_p[:2]).cpu().numpy()
     assert (np.abs(x_k - x_p) / np.maximum(np.abs(x_p), 1.0))[:, ident].max() <= 1e-3
@@ -84,9 +85,9 @@ def test_kernel_matches_plain_version(card, tes, no_prior, gtol):
 
 def test_fit_fused_on_cuda_uses_the_kernel(card):
     sig, _ = _make_data(5000, TES3, seed=1)
-    before = fused_fit.KERNEL_LAUNCHES
+    before = profiler.counter("gauss_fit.launches")
     r = fused_fit.fit_fused(sig, TES3, LO, HI)
-    assert fused_fit.KERNEL_LAUNCHES == before + 1
+    assert profiler.counter("gauss_fit.launches") == before + 1
     assert r.x.device.type == "cuda" and r.x.shape == (5000, 2)
     assert r.converged.dtype == torch.bool and r.n_iter.dtype == torch.int32
     assert torch.isfinite(r.x).all()
@@ -110,10 +111,10 @@ def test_gr_varpro_kernel_matches_plain_version(card, tes):
     s = torch.from_numpy(sig).to(card)
     kw = dict(max_iters=60, ftol=1e-2, gtol=1e-2, full_budget=False, stall_iters=3,
               stall_tol=1e-2)
-    before = fused_fit.GR_VARPRO_LAUNCHES
+    before = profiler.counter("gr_varpro_fit.launches")
     out_k = fused_fit._gr_varpro_fit_cuda(s, tes, LO3, HI3, GUESS, **kw)
     torch.cuda.synchronize()
-    assert fused_fit.GR_VARPRO_LAUNCHES == before + 1
+    assert profiler.counter("gr_varpro_fit.launches") == before + 1
     _assert_bands3(out_k, fused_fit._gr_varpro_fit_plain(s, tes, LO3, HI3, GUESS, **kw), ident)
 
 
@@ -124,11 +125,12 @@ def test_fit3_kernels_match_plain_versions(card, model, tes):
     s = torch.from_numpy(sig).to(card)
     lo = LO3[:2] + (max(LO3[2], 1e-2),)
     kw = dict(ftol=1e-2, gtol=1e-2, stall_tol=1e-2)
-    before = (fused_fit.FIT3_LAUNCHES, fused_fit.FIT3_CONT_LAUNCHES)
+    before = (profiler.counter("fit3.launches"), profiler.counter("fit3_cont.launches"))
     pre_k = fused_fit._fit3_cuda(s, model, tes, lo, HI3, GUESS, max_iters=4, **kw)
     cont_k = fused_fit._fit3_cont_cuda(s, model, tes, lo, HI3, GUESS, *pre_k, max_iters=56, **kw)
     torch.cuda.synchronize()
-    assert (fused_fit.FIT3_LAUNCHES, fused_fit.FIT3_CONT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (profiler.counter("fit3.launches"),
+            profiler.counter("fit3_cont.launches")) == (before[0] + 1, before[1] + 1)
     _assert_bands3(pre_k, fused_fit._fit3_plain(s, model, tes, lo, HI3, GUESS, max_iters=4, **kw),
                    ident)
     _assert_bands3(cont_k, fused_fit._fit3_cont_plain(s, model, tes, lo, HI3, GUESS, *pre_k,
@@ -261,13 +263,13 @@ def test_kernel_rsqrt_is_torch_rsqrt(card):
     assert torch.equal(a, torch.rsqrt(x))
 
 
-@pytest.mark.parametrize("model,counter", [("gaussian_rician", "GR_VARPRO_LAUNCHES"),
-                                           ("rician", "FIT3_CONT_LAUNCHES")])
+@pytest.mark.parametrize("model,counter", [("gaussian_rician", "gr_varpro_fit.launches"),
+                                           ("rician", "fit3_cont.launches")])
 def test_fit_fused_3param_on_cuda_uses_the_kernels(card, model, counter):
     sig, _ = _make_data(5000, TES3, seed=1)
-    before = getattr(fused_fit, counter)
+    before = profiler.counter(counter)
     r = fused_fit.fit_fused(sig, TES3, LO3, HI3, model=model, guess=GUESS, ftol=1e-2, gtol=1e-2)
-    assert getattr(fused_fit, counter) == before + 1
+    assert profiler.counter(counter) == before + 1
     assert r.x.device.type == "cuda" and r.x.shape == (5000, 3)
     assert torch.isfinite(r.x).all() and r.n_overflow == 0
 
@@ -310,10 +312,10 @@ def test_conv_s2d_kernel_matches_plain_version(no_tf32, q, c, c_out, with_res, d
 
     x, w, b, res = _conv_inputs(q, c, c_out, no_tf32)
     res = res if with_res else None
-    before = conv_s2d.CONV_S2D_LAUNCHES
+    before = profiler.counter("conv_s2d.launches")
     got = conv_s2d.conv_s2d(x, w, b, res, compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert conv_s2d.CONV_S2D_LAUNCHES == before + 1
+    assert profiler.counter("conv_s2d.launches") == before + 1
     want = conv_s2d._conv_s2d_plain(x, w, b, res, compute_dtype=dtype)
     assert got.dtype == dtype and got.shape == want.shape == tuple(q) + (c_out,)
     if dtype == torch.float32:
@@ -336,13 +338,13 @@ def test_segment_volume_kernel_path_on_cuda(no_tf32):
     cfg = unet3d.UNetConfig(batch_norm=True)
     params = unet3d.random_params(cfg, seed=0)
     vol = np.random.default_rng(0).uniform(0, 1000, (32, 32, 32)).astype(np.float32)
-    before = conv_s2d.CONV_S2D_LAUNCHES
+    before = profiler.counter("conv_s2d.launches")
     lab = unet3d.segment_volume(params, vol, use_s2d="kernel", compute_dtype=torch.float32)
-    assert conv_s2d.CONV_S2D_LAUNCHES == before + 3
+    assert profiler.counter("conv_s2d.launches") == before + 3
     dense = unet3d.segment_volume(params, vol, use_s2d=False, compute_dtype=torch.float32)
     assert (lab == dense).mean() >= 0.999
     lab16 = unet3d.segment_volume(params, vol, use_s2d="kernel")
-    assert conv_s2d.CONV_S2D_LAUNCHES == before + 6
+    assert profiler.counter("conv_s2d.launches") == before + 6
     assert (lab16 == dense).mean() >= 0.97
 
 
@@ -467,11 +469,11 @@ def _serving_volume(n, seed):
 
 
 @pytest.mark.parametrize("model,lo,hi,guess,counters", [
-    ("gaussian", LO, HI, None, ("KERNEL_LAUNCHES",)),
+    ("gaussian", LO, HI, None, ("gauss_fit.launches",)),
     ("gaussian_rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
-     ("GR_VARPRO_LAUNCHES",)),
+     ("gr_varpro_fit.launches",)),
     ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
-     ("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES"))])
+     ("fit3.launches", "fit3_cont.launches"))])
 def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo, hi, guess,
                                                                 counters):
     """Every layout of fit_volume on the card launches the model's kernels
@@ -482,14 +484,13 @@ def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo,
     sig, mask = _serving_volume(40, seed=8)
     s, m = torch.from_numpy(sig).to(card), torch.from_numpy(mask).to(card)
     kw = dict(model=model, guess=guess, device=card)
-    for name in counters:
-        setattr(fused_fit, name, 0)
+    before = {name: profiler.counter(name) for name in counters}
     layouts = [fit_volume(s, m, TES3, lo, hi, compact=False, **kw),
                fit_volume(s, m, TES3, lo, hi, compact=True, mask_frac=0.6, **kw),
                fit_volume(s, m, TES3, lo, hi, compact=True, mask_frac=0.6, block=1, **kw)]
     torch.cuda.synchronize()
     for name in counters:
-        assert getattr(fused_fit, name) == 3, name
+        assert profiler.counter(name) - before[name] == 3, name
     ref = fused_fit.fit_fused(s.reshape(-1, 3)[m.reshape(-1)], TES3, lo, hi, **kw)
     sigma = ref.x[:, 2] if ref.x.shape[1] == 3 else torch.zeros_like(ref.fun)
     for res in layouts:
@@ -503,9 +504,9 @@ def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo,
 
 
 @pytest.mark.parametrize("model,lo,hi,guess,counters", [
-    ("gaussian", LO, HI, None, ("KERNEL_LAUNCHES",)),
+    ("gaussian", LO, HI, None, ("gauss_fit.launches",)),
     ("rician", (1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
-     ("FIT3_LAUNCHES", "FIT3_CONT_LAUNCHES"))])
+     ("fit3.launches", "fit3_cont.launches"))])
 def test_fit_volume_over_a_two_stream_mesh_is_the_single_call(card, model, lo, hi, guess,
                                                               counters):
     """fit_volume(mesh=) on two streams of one card: each layout's maps and
@@ -520,12 +521,11 @@ def test_fit_volume_over_a_two_stream_mesh_is_the_single_call(card, model, lo, h
                 dict(compact=True, mask_frac=0.6, block=1)):
         kw = dict(model=model, guess=guess, **lay)
         one = fit_volume(s, m, TES3, lo, hi, device=card, **kw)
-        for name in counters:
-            setattr(fused_fit, name, 0)
+        before = {name: profiler.counter(name) for name in counters}
         two = fit_volume(s, m, TES3, lo, hi, mesh=mesh, **kw)
         torch.cuda.synchronize()
         for name in counters:
-            assert getattr(fused_fit, name) == 2, name
+            assert profiler.counter(name) - before[name] == 2, name
         for f in one._fields:
             assert torch.equal(getattr(one, f), getattr(two, f)), (lay, f)
 

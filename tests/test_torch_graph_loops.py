@@ -26,11 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from fetal_t2mapping_tpu_torch import graphs
 from fetal_t2mapping_tpu_torch.core.volume import Volume
 from fetal_t2mapping_tpu_torch.models import fused_fit, init, solver
 from fetal_t2mapping_tpu_torch.recon import registration as reg
 from fetal_t2mapping_tpu_torch.recon.resample import resample_to_reference
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
+
+#: the profiler's counters that the graphed loops add to
+CAPTURES, REPLAYS, READS = "graphs.captures", "graphs.replays", "host_reads"
 
 torch.set_num_threads(1)
 
@@ -133,10 +136,10 @@ def _assert_fits_equal(a, b, what):
 @pytest.mark.parametrize("tol", sorted(TOLS))
 @pytest.mark.parametrize("model", sorted(BOUNDS))
 def test_fit_batch_steps_equal_loop(model, tol):
-    reads = graphs.HOST_READS
+    reads = profiler.counter(READS)
     loop, steps = _batch_pair(model, tol, "cpu", seed=5)
     _assert_fits_equal(loop, steps, f"{model} {tol}")
-    assert graphs.HOST_READS - reads <= 6      # 60 iterations, a read every 10
+    assert profiler.counter(READS) - reads <= 6      # 60 iterations, a read every 10
 
 
 def test_fit_batch_on_cpu_is_the_loop():
@@ -144,10 +147,10 @@ def test_fit_batch_on_cpu_is_the_loop():
     sig = _signal("gaussian_rician", seed=9)
     x0 = init.loglinear_init(sig, TES, lo, hi)
     kw = dict(model="gaussian_rician", max_iters=60, ftol=1e-9, gtol=0.0)
-    captures, reads = graphs.CAPTURES, graphs.HOST_READS
+    captures, reads = profiler.counter(CAPTURES), profiler.counter(READS)
     _assert_fits_equal(solver._fit_batch_loop(sig, TES, x0, lo, hi, **kw),
                        solver.fit_batch(sig, TES, x0, lo, hi, **kw), "gaussian_rician")
-    assert (graphs.CAPTURES, graphs.HOST_READS) == (captures, reads)
+    assert (profiler.counter(CAPTURES), profiler.counter(READS)) == (captures, reads)
 
 
 def _steps_as_the_loop(*a, **kw):
@@ -171,9 +174,9 @@ def test_batch_solvers_through_steps(monkeypatch, solve):
     loop = run()
     with monkeypatch.context() as mp:
         mp.setattr(solver, "_fit_batch_loop", _steps_as_the_loop)
-        reads = graphs.HOST_READS
+        reads = profiler.counter(READS)
         steps = run()
-        assert graphs.HOST_READS > reads
+        assert profiler.counter(READS) > reads
     _assert_fits_equal(loop, steps, solve)
     if solve == "twophase":
         _assert_bitwise(loop.n_overflow, steps.n_overflow, "n_overflow")
@@ -221,11 +224,11 @@ def test_fit_batch_stop_between_host_reads(monkeypatch, model):
         states.append({k: b[k].clone() for k in ("x", "f", "lam", "conv", "nit", "it")})
 
     monkeypatch.setattr(solver, "_batch_step", recording_step)
-    reads = graphs.HOST_READS
+    reads = profiler.counter(READS)
     steps = solver._fit_batch_steps(sig, TES, x0, lo, hi, graph=False, **kw)
     every = solver._CHECK_EVERY
     assert len(states) == -(-t_stop // every) * every
-    assert graphs.HOST_READS - reads == len(states) // every + 1   # the last saw the stop
+    assert profiler.counter(READS) - reads == len(states) // every + 1   # the last saw the stop
     for later in states[t_stop:]:
         assert int(later["it"]) > int(states[t_stop - 1]["it"])
         for k in ("x", "f", "lam", "conv", "nit"):
@@ -397,9 +400,9 @@ def test_traced_graph_equals_eager_on_card(card, model, tol):
     loop, graph = _traced_pair(model, tol, card)
     _assert_traced_equal(loop, graph, f"{model} {tol}")
     # a second call with other inputs replays the cached graph: no capture
-    captures, replays = graphs.CAPTURES, graphs.REPLAYS
+    captures, replays = profiler.counter(CAPTURES), profiler.counter(REPLAYS)
     loop2, graph2 = _traced_pair(model, tol, card, seed=11)
-    assert graphs.CAPTURES == captures and graphs.REPLAYS == replays + 60
+    assert profiler.counter(CAPTURES) == captures and profiler.counter(REPLAYS) == replays + 60
     _assert_traced_equal(loop2, graph2, f"{model} {tol} (cached graph)")
 
 
@@ -407,11 +410,11 @@ def test_traced_graph_equals_eager_on_card(card, model, tol):
 @pytest.mark.parametrize("tol", sorted(TOLS))
 @pytest.mark.parametrize("model", sorted(BOUNDS))
 def test_fit_batch_graph_equals_eager_on_card(card, model, tol):
-    captures, replays, reads = graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS
+    captures, replays, reads = (profiler.counter(c) for c in (CAPTURES, REPLAYS, READS))
     loop, graph = _batch_pair(model, tol, card, n=300, seed=5)
     _assert_fits_equal(loop, graph, f"{model} {tol} on the card")
-    assert graphs.CAPTURES == captures + 1 and graphs.REPLAYS > replays
-    assert graphs.HOST_READS - reads <= 6
+    assert profiler.counter(CAPTURES) == captures + 1 and profiler.counter(REPLAYS) > replays
+    assert profiler.counter(READS) - reads <= 6
     # through the public entry point: the graph again
     lo, hi = BOUNDS[model]
     sig = _signal(model, 300, 5).to(card)
@@ -419,7 +422,7 @@ def test_fit_batch_graph_equals_eager_on_card(card, model, tol):
     ftol, gtol = TOLS[tol]
     _assert_fits_equal(loop, solver.fit_batch(sig, TES, x0, lo, hi, model=model, ftol=ftol,
                                               gtol=gtol), f"{model} {tol} fit_batch")
-    assert graphs.CAPTURES == captures + 2
+    assert profiler.counter(CAPTURES) == captures + 2
 
 
 @pytest.mark.cuda
@@ -427,10 +430,10 @@ def test_fit_batch_graph_equals_eager_on_card(card, model, tol):
 def test_fit_batch_stop_between_host_reads_on_card(card, model):
     lo, hi = BOUNDS[model]
     sig, x0, kw, t_stop = _stop_between_reads(model, card)
-    replays = graphs.REPLAYS
+    replays = profiler.counter(REPLAYS)
     graph = solver._fit_batch_steps(sig, TES, x0, lo, hi, graph=True, **kw)
     every = solver._CHECK_EVERY
-    assert graphs.REPLAYS - replays == -(-t_stop // every) * every - 1
+    assert profiler.counter(REPLAYS) - replays == -(-t_stop // every) * every - 1
     _assert_fits_equal(solver._fit_batch_loop(sig, TES, x0, lo, hi, **kw), graph, model)
 
 
@@ -439,12 +442,12 @@ def test_fit_batch_stop_between_host_reads_on_card(card, model):
 def test_registration_graph_equals_eager_on_card(card, reg_scene, monkeypatch, mode, metric):
     fixed, movings = reg_scene
     lr = {"rigid": 0.5, "affine": 0.02}[mode]
-    replays = graphs.REPLAYS
+    replays = profiler.counter(REPLAYS)
     graph = _solve(fixed, movings, mode, metric, device=card, lr=lr)
     n_exec = [int(t) for t in graph[0].iters_run]
     # one replay per iteration after each level's first, up to the host read
     # that saw the stop
-    assert graphs.REPLAYS - replays >= sum(n_exec) - len(n_exec)
+    assert profiler.counter(REPLAYS) - replays >= sum(n_exec) - len(n_exec)
     with monkeypatch.context() as mp:
         mp.setattr(reg, "_level_while_steps", lambda *a, graph: reg._level_while(*a))
         mp.setattr(reg, "_level_scan_steps", lambda *a, graph: reg._level_scan(*a))

@@ -23,10 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from fetal_t2mapping_tpu_torch import graphs
 from fetal_t2mapping_tpu_torch.core.volume import Volume
 from fetal_t2mapping_tpu_torch.ops import morphology, tv
 from fetal_t2mapping_tpu_torch.recon import biasfield
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
+
+#: the profiler's counters that the graphed loops add to
+CAPTURES, REPLAYS, READS = "graphs.captures", "graphs.replays", "host_reads"
 
 torch.set_num_threads(1)
 
@@ -67,9 +70,9 @@ TV_CASES = {  # name: (stack seed, eps, max_iter)
 def test_tv_steps_equal_loop(case):
     seed, eps, max_iter = TV_CASES[case]
     vol = _tv_stack(seed=seed)
-    reads = graphs.HOST_READS
+    reads = profiler.counter(READS)
     steps = tv._tv2d_steps(vol, 0.1, eps, max_iter, graph=False)
-    assert graphs.HOST_READS - reads <= max_iter // tv._CHECK_EVERY
+    assert profiler.counter(READS) - reads <= max_iter // tv._CHECK_EVERY
     _assert_bitwise(tv._tv2d(vol, 0.1, eps, max_iter), steps, case)
 
 
@@ -92,14 +95,14 @@ def test_tv_stop_between_host_reads(monkeypatch):
     _CHECK_EVERY: the steps run on to the next host read, and each of them
     leaves the dual fields and the energies as they were."""
     vol = _tv_stack(seed=0)
-    reads = graphs.HOST_READS
+    reads = profiler.counter(READS)
     out, states = _recorded_tv(monkeypatch, vol)
     # the stop: the first iteration >= 2 at which no slice is active
     t_stop = next(k + 1 for k, st in enumerate(states) if k + 1 >= 2 and not bool(st["more"]))
     every = tv._CHECK_EVERY
     assert t_stop % every != 0 and t_stop < 200
     assert len(states) == -(-t_stop // every) * every
-    assert graphs.HOST_READS - reads == len(states) // every    # reads at 10, 20, ...
+    assert profiler.counter(READS) - reads == len(states) // every    # reads at 10, 20, ...
     for later in states[t_stop:]:
         for k in ("pz", "py", "e_prev", "e"):
             _assert_bitwise(later[k], states[t_stop - 1][k], f"TV {k} after the stop")
@@ -108,9 +111,9 @@ def test_tv_stop_between_host_reads(monkeypatch):
 
 def test_tv_denoise_slices_on_cpu_is_the_loop():
     vol = _tv_stack(seed=3)
-    captures, reads = graphs.CAPTURES, graphs.HOST_READS
+    captures, reads = profiler.counter(CAPTURES), profiler.counter(READS)
     _assert_bitwise(tv._tv2d(vol, 0.1, 2e-4, 200), tv.tv_denoise_slices(vol), "tv")
-    assert (graphs.CAPTURES, graphs.HOST_READS) == (captures, reads)
+    assert (profiler.counter(CAPTURES), profiler.counter(READS)) == (captures, reads)
 
 
 # ------------------------------------------------------------- hole fill
@@ -169,23 +172,23 @@ def test_fill_fixed_point_between_host_reads(case):
         reach, n_steps = nxt, n_steps + 1
     every = morphology._FILL_CHECK_EVERY
     assert n_steps > every and n_steps % every != 0
-    reads = graphs.HOST_READS
+    reads = profiler.counter(READS)
     out = morphology._fill_holes_steps(m, axes, graph=False)
-    assert graphs.HOST_READS - reads == -(-n_steps // every) + 1
+    assert profiler.counter(READS) - reads == -(-n_steps // every) + 1
     _assert_bitwise(out, m | (outside & ~reach), case)
 
 
 def test_fill_holes_and_slice_mask_on_cpu_are_the_loop():
     m = torch.from_numpy(_cavities((20, 30, 30), 2))
     img = torch.where(torch.from_numpy(_cavities((26, 28, 30), 4)), 80.0, 0.5)
-    captures, reads = graphs.CAPTURES, graphs.HOST_READS
+    captures, reads = profiler.counter(CAPTURES), profiler.counter(READS)
     _assert_bitwise(morphology.fill_holes(m), morphology._fill_holes_loop(m, (0, 1, 2)),
                     "fill_holes")
     bw = morphology._fill_holes_loop(img > 1.0, (0, 1))
     want = morphology._box_pool(morphology._box_pool(bw, 2, True, axes=(0, 1)), 2, False,
                                 axes=(0, 1))
     _assert_bitwise(morphology.build_slice_mask(img), want, "build_slice_mask")
-    assert (graphs.CAPTURES, graphs.HOST_READS) == (captures, reads)
+    assert (profiler.counter(CAPTURES), profiler.counter(READS)) == (captures, reads)
 
 
 # -------------------------------------------------------------------- N4
@@ -221,9 +224,9 @@ def test_n4_level_steps_equal_loop(case):
     v, mask_f = _level_inputs()
     kw = dict(n_iters=n_iters, n_bins=n_bins, fwhm=0.15, wiener_eps=0.01, sigma_vox=sigma)
     v_in = v.clone()
-    reads = graphs.HOST_READS
+    reads = profiler.counter(READS)
     steps = biasfield._n4_level_steps(v, mask_f, graph=False, **kw)
-    assert graphs.HOST_READS == reads                  # a fixed count: nothing read
+    assert profiler.counter(READS) == reads                  # a fixed count: nothing read
     _assert_bitwise(v, v_in, "the input log image is left alone")
     loop = biasfield._n4_level_loop(v, mask_f, **kw)
     for a, b, what in zip(loop, steps, ("v", "bias", "field_cv")):
@@ -258,9 +261,9 @@ def test_n4_correction_through_steps(monkeypatch):
 
 def test_n4_on_cpu_is_the_loop():
     vol, mask = _n4_scene(seed=2)
-    captures = graphs.CAPTURES
+    captures = profiler.counter(CAPTURES)
     res = biasfield.n4_bias_correction(vol, mask, n_iters=3, device="cpu")
-    assert graphs.CAPTURES == captures
+    assert profiler.counter(CAPTURES) == captures
     v, mask_f = _level_inputs(seed=2)
     sigma = tuple(100.0 / 4.0 / biasfield._SQRT8LN2 for _ in range(3))
     _, _, cvs = biasfield._n4_level_loop(v, mask_f, n_iters=3, n_bins=200, fwhm=0.15,
@@ -281,20 +284,20 @@ def card():
 def test_tv_graph_equals_eager_on_card(card, case):
     seed, eps, max_iter = TV_CASES[case]
     vol = _tv_stack(seed=seed).to(card)
-    captures, replays = graphs.CAPTURES, graphs.REPLAYS
+    captures, replays = profiler.counter(CAPTURES), profiler.counter(REPLAYS)
     graph = tv.tv_denoise_slices(vol, 0.1, eps, max_iter)
-    assert graphs.CAPTURES == captures + 1 and graphs.REPLAYS > replays
+    assert profiler.counter(CAPTURES) == captures + 1 and profiler.counter(REPLAYS) > replays
     _assert_bitwise(tv._tv2d(vol, 0.1, eps, max_iter), graph, f"{case} on the card")
 
 
 @pytest.mark.cuda
 def test_tv_stop_between_host_reads_on_card(card):
     vol = _tv_stack(seed=0).to(card)
-    replays, reads = graphs.REPLAYS, graphs.HOST_READS
+    replays, reads = profiler.counter(REPLAYS), profiler.counter(READS)
     graph = tv._tv2d_steps(vol, 0.1, 2e-4, 200, graph=True)
-    n_steps = graphs.REPLAYS - replays + 1
+    n_steps = profiler.counter(REPLAYS) - replays + 1
     assert n_steps % tv._CHECK_EVERY == 0 and n_steps < 200
-    assert graphs.HOST_READS - reads == n_steps // tv._CHECK_EVERY
+    assert profiler.counter(READS) - reads == n_steps // tv._CHECK_EVERY
     _assert_bitwise(tv._tv2d(vol, 0.1, 2e-4, 200), graph, "TV on the card")
 
 
@@ -303,9 +306,9 @@ def test_tv_stop_between_host_reads_on_card(card):
 def test_fill_holes_graph_equals_eager_on_card(card, case):
     make, axes = FILL_CASES[case]
     m = torch.from_numpy(make()).to(card)
-    captures = graphs.CAPTURES
+    captures = profiler.counter(CAPTURES)
     graph = morphology._fill_holes(m, axes)
-    assert graphs.CAPTURES == captures + 1
+    assert profiler.counter(CAPTURES) == captures + 1
     _assert_bitwise(morphology._fill_holes_loop(m, axes), graph, f"{case} on the card")
 
 
@@ -313,11 +316,11 @@ def test_fill_holes_graph_equals_eager_on_card(card, case):
 def test_slice_mask_and_fill_holes_graphs_on_card(card):
     m = torch.from_numpy(_cavities((48, 52, 56), 5))
     img = torch.where(torch.from_numpy(_cavities((48, 52, 56), 6)), 80.0, 0.5)
-    captures = graphs.CAPTURES
+    captures = profiler.counter(CAPTURES)
     _assert_bitwise(morphology.fill_holes(m.to(card)), morphology.fill_holes(m), "fill_holes")
     _assert_bitwise(morphology.build_slice_mask(img.to(card)), morphology.build_slice_mask(img),
                     "build_slice_mask")
-    assert graphs.CAPTURES == captures + 2
+    assert profiler.counter(CAPTURES) == captures + 2
 
 
 @pytest.mark.cuda
@@ -326,10 +329,11 @@ def test_n4_level_graph_equals_eager_on_card(card, case):
     n_iters, n_bins, sigma = N4_CASES[case]
     v, mask_f = (t.to(card) for t in _level_inputs(n=40))
     kw = dict(n_iters=n_iters, n_bins=n_bins, fwhm=0.15, wiener_eps=0.01, sigma_vox=sigma)
-    captures, replays, reads = graphs.CAPTURES, graphs.REPLAYS, graphs.HOST_READS
+    captures, replays, reads = (profiler.counter(c) for c in (CAPTURES, REPLAYS, READS))
     graph = biasfield._n4_level(v, mask_f, **kw)
-    assert (graphs.CAPTURES - captures, graphs.REPLAYS - replays) == (1, n_iters - 1)
-    assert graphs.HOST_READS == reads
+    assert (profiler.counter(CAPTURES) - captures,
+            profiler.counter(REPLAYS) - replays) == (1, n_iters - 1)
+    assert profiler.counter(READS) == reads
     for a, b, what in zip(biasfield._n4_level_loop(v, mask_f, **kw), graph,
                           ("v", "bias", "field_cv")):
         _assert_bitwise(a, b, f"{case} {what} on the card")
@@ -339,9 +343,9 @@ def test_n4_level_graph_equals_eager_on_card(card, case):
 def test_n4_correction_graph_equals_eager_on_card(card, monkeypatch):
     vol, mask = _n4_scene(n=40, seed=1)
     kw = dict(n_iters=6, ctrl_spacing_mm=(200.0, 100.0, 50.0), device=card)
-    captures = graphs.CAPTURES
+    captures = profiler.counter(CAPTURES)
     graph = biasfield.n4_bias_correction(vol, mask, **kw)
-    assert graphs.CAPTURES == captures + 3
+    assert profiler.counter(CAPTURES) == captures + 3
     with monkeypatch.context() as mp:
         mp.setattr(biasfield, "_n4_level_steps",
                    lambda v, m, graph, **k: biasfield._n4_level_loop(v, m, **k))

@@ -138,25 +138,28 @@ def test_fit_fused_sharded_rejects_bad_tail_block():
                           strategy="twophase", tail_block=12)
 
 
-def test_launch_counters_lose_no_count_across_shard_threads(monkeypatch):
+def test_launch_counters_lose_no_count_across_shard_threads():
     """run_sharded launches each shard's kernels from a thread of its own:
-    the module's launch counters count every launch (8 threads x 20,000)."""
+    the profiler's counters count every launch (8 threads x 20,000)."""
     import threading
 
-    monkeypatch.setattr(fused_fit, "KERNEL_LAUNCHES", 0)
+    from fetal_t2mapping_tpu_torch.utils.profiling import Profiler
+
+    counters = Profiler()
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)              # switch threads as often as possible
     try:
-        threads = [threading.Thread(target=lambda: [fused_fit._count("KERNEL_LAUNCHES")
+        threads = [threading.Thread(target=lambda: [counters.count("gauss_fit.launches")
                                                     for _ in range(20_000)])
                    for _ in range(8)]
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(interval)
-    assert fused_fit.KERNEL_LAUNCHES == 8 * 20_000
+    assert counters.counter("gauss_fit.launches") == 8 * 20_000
 
 
 def test_fit_batch_sharded_is_fit_batch():

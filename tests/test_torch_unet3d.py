@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from fetal_t2mapping_tpu.labels import unet3d as ref
 from fetal_t2mapping_tpu_torch.labels import conv_s2d, unet3d
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
 
 torch.set_num_threads(1)
 
@@ -208,7 +209,7 @@ def test_unet_apply_s2d_matches_reference_pallas(kw, shape, bn):
                                          return_logits=True, conv_impl="pallas"))
     tp = unet3d.to_torch_params(params, device="cpu")
     ts = unet3d.to_torch_s2d_params(unet3d.s2d_level0_params(params, cfg), device="cpu")
-    before = conv_s2d.CONV_S2D_LAUNCHES
+    before = profiler.counter("conv_s2d.launches")
     for impl in ("torch", "kernel"):
         got = unet3d.unet_apply_s2d(tp, ts, torch.from_numpy(x), cfg, torch.float32,
                                     return_logits=True, conv_impl=impl).numpy()
@@ -217,7 +218,7 @@ def test_unet_apply_s2d_matches_reference_pallas(kw, shape, bn):
                                     conv_impl=impl)
         assert cls.shape == shape[:4]
         np.testing.assert_array_equal(cls.numpy(), got.argmax(-1))
-    assert conv_s2d.CONV_S2D_LAUNCHES == before       # plain versions on the CPU
+    assert profiler.counter("conv_s2d.launches") == before       # plain versions on the CPU
 
 
 @pytest.mark.parametrize("port_s2d,ref_s2d", [(False, False), (True, True),
