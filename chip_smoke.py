@@ -2613,15 +2613,89 @@ def crossover(points):
     return float(np.clip(m0 - d0 * (m1 - m0) / (d1 - d0), 0.0, 1.0))
 
 
+LAYOUT_COUNTERS = ("volume_layout.compact.launches", "volume_layout.scatter.launches")
+
+
+def layout_bound(n: int, block: int, rows: int, kept_rows: int, T: int, P: int):
+    """The block layout's least time on the card for one request (bytes,
+    each read or written once): compaction reads the mask (n bytes), writes
+    the block -> slot map and fills the buffer (``rows`` x T floats, the
+    kept rows' echoes and mask bytes read); the scatter reads the map, the
+    kept rows' mask bytes and fit rows (P + 1 floats, a flag, an int) and
+    writes six maps (four float32, a bool, an int32)."""
+    nb = -(-n // block)
+    compact = n + 4 * nb + kept_rows * (4 * T + 1) + 4 * rows * T
+    scatter = 4 * nb + kept_rows * (4 * (P + 1) + 1 + 4 + 1) + n * (4 * 4 + 1 + 4)
+    return bound(compact, 0, FP32_OPS)[0], bound(scatter, 0, FP32_OPS)[0]
+
+
+def layout_gate(sig, mask, fit: dict, mask_frac: float, block: int, what: str, timed=False):
+    """The block layout's kernels (csrc/volume_layout.cu) against their
+    plain versions on one request: the buffer, the block -> slot map and
+    the counts, then, from one fit of the buffer, the six maps, n_masked and
+    n_overflow, all bitwise. With ``timed``, the ms a call of each half
+    takes back to back (10 calls an event pair, so the host's launch of
+    one overlaps the device's work of the last), kernel and plain, and
+    their bounds at this request's shape."""
+    from fetal_t2mapping_tpu_torch.models import volume_fit
+
+    te_t, lo_t, hi_t, guess_t = fused_fit.validate_fused_args(
+        fit["model"], TES3, fit["lo"], fit["hi"], fit["guess"], False)
+    filler = volume_fit._filler_values(te_t, lo_t, hi_t, guess_t)
+    n = mask.numel()
+    blk_cap = volume_fit._block_capacity(n, mask_frac, block)
+    flat, fmask = sig.reshape(n, 3), mask.reshape(n)
+    bufs = [torch.empty((blk_cap * block, 3), device=sig.device) for _ in range(2)]
+    slot_k, counts_k = volume_fit._compact_cuda(flat, fmask, filler, blk_cap, block, bufs[0])
+    slot_p, counts_p = volume_fit._compact_plain(flat, fmask, filler, blk_cap, block, bufs[1])
+    gate(torch.equal(bufs[0].view(torch.int32), bufs[1].view(torch.int32))
+         and torch.equal(slot_k, slot_p) and torch.equal(counts_k[:3], counts_p),
+         f"{what}: the compaction kernel's buffer, slot map or counts differ from the plain version")
+    res = fused_fit.fit_fused(bufs[0], TES3, fit["lo"], fit["hi"], model=fit["model"],
+                              guess=fit["guess"], ftol=fit["ftol"], gtol=fit["gtol"],
+                              varpro3=fit["varpro3"], sync=False, device=sig.device)
+    got = volume_fit._scatter_cuda(fmask, block, slot_k, res, counts_k, mask.shape)
+    want = volume_fit._scatter_plain(fmask, block, slot_p, res, counts_p, mask.shape)
+    for f in volume_fit.VolumeFitResult._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        gate(a.dtype == b.dtype and torch.equal(a, b),
+             f"{what}: the scatter kernel's {f} differs from the plain version")
+    if not timed:
+        return None
+
+    def per_call(fn, reps):
+        return cuda_ms(lambda: [fn() for _ in range(10)], reps) / 10
+
+    ms = dict(
+        compact=per_call(lambda: volume_fit._compact_cuda(flat, fmask, filler, blk_cap, block,
+                                                          bufs[0]), 10),
+        compact_plain=per_call(lambda: volume_fit._compact_plain(flat, fmask, filler, blk_cap,
+                                                                 block, bufs[1]), 2),
+        scatter=per_call(lambda: volume_fit._scatter_cuda(fmask, block, slot_k, res, counts_k,
+                                                          mask.shape), 10),
+        scatter_plain=per_call(lambda: volume_fit._scatter_plain(fmask, block, slot_p, res,
+                                                                 counts_p, mask.shape), 2))
+    kept_rows = int(counts_k[2])
+    ms["compact_bound"], ms["scatter_bound"] = layout_bound(n, block, blk_cap * block, kept_rows,
+                                                            3, res.x.shape[1])
+    return ms
+
+
 def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
     """fit_volume, the serving path, on 240^3 x 3-TE requests per model:
     the dense, block (32) and voxel-exact layouts, each for 3 rounds of 4
     requests; all three bitwise equal per voxel and equal to fit_fused on
     the gathered voxels; the 22% request gated; launches per request
-    counted from 0 around one compact='auto' request."""
+    counted from 0 around one compact='auto' request, and one compaction
+    and one scatter of csrc/volume_layout.cu per block-layout request; on
+    the card the layout's kernels bitwise their plain versions on every
+    request and layout, and timed at the ~5% request (gaussian)."""
     from fetal_t2mapping_tpu_torch.models import volume_fit
 
     launches, times = {}, {}
+    layout_ms = None
     for fit_name, fit in SERVING_FITS.items():
         model, lo, hi = fit["model"], fit["lo"], fit["hi"]
         kw = dict(model=model, guess=fit["guess"], ftol=fit["ftol"], gtol=fit["gtol"],
@@ -2632,9 +2706,21 @@ def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
             n_vox = mask.numel()
             n_blocks = int(volume_fit._count_touched_blocks(mask, n_vox, 32))
             mask_frac = math.ceil(106 * n_blocks * 32 / n_vox) / 100   # 6% over the touched blocks
-            res = {lay: volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac,
-                                              **lk, **kw)
-                   for lay, lk in LAYOUTS.items()}
+            res = {}
+            for lay, lk in LAYOUTS.items():
+                before = {c: profiler.counter(c) for c in LAYOUT_COUNTERS}
+                res[lay] = volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac,
+                                                 **lk, **kw)
+                want = int(lay != "dense" and device == "cuda")
+                for c in LAYOUT_COUNTERS:
+                    gate(profiler.counter(c) - before[c] == want,
+                         f"serving {fit_name} {name} {lay}: {c} "
+                         f"{profiler.counter(c) - before[c]} per request, expected {want}")
+                if lay != "dense" and device == "cuda":
+                    timed = fit_name == "gaussian" and lay == "block" and name == "5%"
+                    out = layout_gate(sig, mask, fit, mask_frac, lk.get("block", 32),
+                                      f"serving {fit_name} {name} {lay}", timed=timed)
+                    layout_ms = out if timed else layout_ms
             _sync()
             d = res["dense"]
             n_masked = int(d.n_masked)
@@ -2688,6 +2774,9 @@ def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
               f"requests, bitwise across layouts and with fit_fused): " + "; ".join(text)
               + f"; dense/block crossover at mask_frac {crossover(points):.3f}; launches per "
               f"request {launches[fit_name]}", flush=True)
+    if layout_ms is not None:
+        print("phase 13 block layout (csrc/volume_layout.cu) at the ~5% request, ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in layout_ms.items()), flush=True)
     return launches, times
 
 

@@ -9,7 +9,7 @@ Flags differ per source. The fit kernels are built with ``-fmad=false``:
 they round op by op like their plain versions and the reference, and with
 FMA contraction they missed the parity bands against them. The S2D conv is
 held to its plain version by a tolerance, not bitwise, and keeps nvcc's
-default contraction.
+default contraction; so does the volume layout, which only copies.
 
 Two host libraries are built here too, with g++, into the same
 directory: the DICOM ingest's (``csrc/dicom_host.cpp``: the Part-10 probe
@@ -45,6 +45,7 @@ SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "gr_varpro_fit": _NO_FMA,
     "fit3": _NO_FMA,
     "conv_s2d": (),
+    "volume_layout": (),
 }
 KERNEL_SOURCES = {name: os.path.join(CSRC, f"{name}.cu") for name in SOURCE_FLAGS}
 
@@ -73,6 +74,11 @@ SIGNATURES = {
         "ft2_conv_s2d_f32": [_VP] * 5 + [_I32] * 6 + [_VP],
         "ft2_conv_s2d_bf16": [_VP] * 5 + [_I32] * 9 + [_VP],
         "ft2_conv_s2d_geometry": [_VP]},
+    "volume_layout": {
+        "ft2_layout_work_ints": [_I64, _I32, _I32],
+        "ft2_layout_compact": [_VP, _VP, _I64, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _I64, _VP],
+        "ft2_layout_scatter": [_VP, _I64, _I32, _VP, _VP, _I64, _I64, _I32, _VP, _I64, _VP,
+                               _I64, _VP, _I64, _VP, _I32] + [_VP] * 8},
 }
 
 

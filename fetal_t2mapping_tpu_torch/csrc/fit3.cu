@@ -819,9 +819,10 @@ extern "C" int ft2_fit3_multistart(const float* signal, long long n, int n_te,
 // As ft2_fit3_multistart, resuming one Newton run per voxel from x0 (3, n)
 // with st0 (3, n) = (f, convf, nit) of the multistart prefix's winner; f0
 // is re-evaluated at the clipped x0. rows: ft2_fit3_cont_slot_rows() x n
-// device floats of worklist; counters: 2 device ints, zero. Two kernels
-// run, the sweep and the tail; returns cudaGetLastError() after the first
-// launch that failed or the last one (0 = launched).
+// device floats of worklist; counters: 2 device ints, zeroed here on
+// `stream`. Two kernels run, the sweep and the tail; returns
+// cudaGetLastError() after the first launch that failed or the last one
+// (0 = launched).
 extern "C" int ft2_fit3_cont(const float* signal, long long n, int n_te,
                              int model, const float* params, int max_iters,
                              const float* x0, const float* st0, float* x_out,
@@ -829,6 +830,9 @@ extern "C" int ft2_fit3_cont(const float* signal, long long n, int n_te,
   if (x0 == nullptr || st0 == nullptr || rows == nullptr || counters == nullptr ||
       n > kMaxWorklist)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t err =  // the worklist's counters start at zero
+      cudaMemsetAsync(counters, 0, 2 * sizeof(int), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return run(signal, n, n_te, model, params, max_iters, x0, st0, x_out, st_out,
              rows, counters, stream);
 }

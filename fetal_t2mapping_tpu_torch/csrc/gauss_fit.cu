@@ -511,7 +511,7 @@ extern "C" int ft2_gauss_slot_rows(int n_te) {
 // signal: (n, n_te) row-major float32 on the device; params: kParamFloats
 // host floats (GaussParams). Outputs are device arrays of length n. rows:
 // ft2_gauss_slot_rows(n_te) x n device floats of worklist; counters: 2
-// device ints, zero. Unless full_budget, two kernels run, the head and the
+// device ints, zeroed here on `stream`. Unless full_budget, two kernels run, the head and the
 // tail; returns cudaGetLastError() after the first launch that failed or
 // the last one (0 = launched).
 extern "C" int ft2_gauss_fit(const float* signal, long long n, int n_te,
@@ -525,6 +525,10 @@ extern "C" int ft2_gauss_fit(const float* signal, long long n, int n_te,
   if (n <= 0 || n > kMaxWorklist) return (int)cudaErrorInvalidValue;
   if (!full_budget && (rows == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!full_budget) {  // the worklist's counters start at zero
+    const cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   const bool np = no_prior != 0, fb = full_budget != 0;
   switch (n_te) {
     case 2: return launch<2>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);

@@ -576,10 +576,10 @@ extern "C" int ft2_gr_slot_rows(int n_te) {
 // signal: (n, n_te) row-major float32 on the device; params: kParamFloats
 // host floats (GrParams). x_out, st_out: (3, n) device arrays, rows
 // (k, t2, sigma) and (f, converged 0/1, n_iter). rows: ft2_gr_slot_rows(n_te)
-// x n device floats of worklist; counters: 2 device ints, zero. Unless
-// full_budget, two kernels run, the head and the tail; returns
-// cudaGetLastError() after the first launch that failed or the last one
-// (0 = launched).
+// x n device floats of worklist; counters: 2 device ints, zeroed here on
+// `stream`. Unless full_budget, two kernels run, the head and the tail;
+// returns cudaGetLastError() after the first launch that failed or the
+// last one (0 = launched).
 extern "C" int ft2_gr_varpro_fit(const float* signal, long long n, int n_te,
                                  const float* params, int max_iters,
                                  int stall_iters, int full_budget,
@@ -590,6 +590,10 @@ extern "C" int ft2_gr_varpro_fit(const float* signal, long long n, int n_te,
   if (n <= 0 || n > kMaxWorklist) return (int)cudaErrorInvalidValue;
   if (!full_budget && (rows == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!full_budget) {  // the worklist's counters start at zero
+    const cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   const bool fb = full_budget != 0;
   switch (n_te) {
     case 2: return launch<2>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);

@@ -916,10 +916,10 @@ def _check_params(params: np.ndarray, n_floats: int, what: str) -> None:
 def _worklist(n_rows: int, n: int, dev):
     """Device scratch of a split fit kernel: ``n_rows`` x ``n`` floats of
     worklist (one slot per voxel that may still run after the head) and
-    its two counters (pushed, handed out), zeroed. The kernels allocate
-    nothing themselves."""
+    its two counters (pushed, handed out), which the C entry zeroes on its
+    stream. The kernels allocate nothing themselves."""
     rows = torch.empty(n_rows * n, dtype=torch.float32, device=dev)
-    return rows, torch.zeros(2, dtype=torch.int32, device=dev)
+    return rows, torch.empty(2, dtype=torch.int32, device=dev)
 
 
 def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
@@ -1080,6 +1080,18 @@ def _fit3_pruned(signal: torch.Tensor, model, te, lo, hi, guess, *,
                       max_iters=max_iters - prefix_iters, **kw)
 
 
+def _columns(*cols: torch.Tensor) -> torch.Tensor:
+    """(N, P) of P (N,) columns: a view where they are consecutive rows of
+    one buffer, as a kernel's C entry writes them, else their stack."""
+    n = cols[0].shape[0]
+    start = cols[0].storage_offset()
+    if all(c.stride() == (1,) and c.shape == (n,) and c.storage_offset() == start + i * n
+           and c.untyped_storage().data_ptr() == cols[0].untyped_storage().data_ptr()
+           for i, c in enumerate(cols)):
+        return cols[0].as_strided((n, len(cols)), (1, n))
+    return torch.stack(cols, dim=1)
+
+
 def _fit_pass(signal: torch.Tensor, model: str, te_t, lo_t, hi_t, guess_t, *,
               max_iters: int, ftol: float, gtol: float, no_prior: bool,
               full_budget: bool, prefix3: int, varpro3: bool):
@@ -1091,7 +1103,7 @@ def _fit_pass(signal: torch.Tensor, model: str, te_t, lo_t, hi_t, guess_t, *,
             signal, te_t, lo_t, hi_t, no_prior=bool(no_prior),
             full_budget=bool(full_budget), stall_iters=_STALL_ITERS,
             stall_tol=max(float(ftol), 1e-3), **kw)
-        return torch.stack([k, t2], dim=1), f, conv, nit
+        return _columns(k, t2), f, conv, nit
     if varpro3:
         params, stats = _gr_varpro_fit(
             signal, te_t, lo_t, hi_t, guess_t, full_budget=bool(full_budget),

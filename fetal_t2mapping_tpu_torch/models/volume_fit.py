@@ -13,11 +13,16 @@ once it has converged, so grouping never changes an iterate):
 - dense (``compact=False``): every voxel of the volume is fitted, with a
   trivially convergent filler signal outside the mask; no partition, no
   gather, no scatter;
-- block compaction (``compact=True``, ``block`` 32): the masked blocks of
-  ``block`` consecutive flat voxels are moved to the front by a stable
-  device partition (``solver._tail_partition``) into a buffer of static
-  capacity (``mask_frac`` of the volume), fitted with the filler in their
-  unmasked voxels, and scattered back a block per row;
+- block compaction (``compact=True``, ``block`` 32): each block of
+  ``block`` consecutive flat voxels holding a masked voxel gets the next
+  slot of a buffer of static capacity (``mask_frac`` of the volume), in
+  ascending block order (a stable partition); the buffer is fitted with
+  the filler in the blocks' unmasked voxels, and the maps are written
+  through the same block -> slot map. On a CUDA tensor both halves are
+  hand-written kernels (``csrc/volume_layout.cu``: the compaction and the
+  scatter, counted in ``volume_layout.compact.launches`` and
+  ``volume_layout.scatter.launches``); on a CPU tensor their plain
+  versions ``_compact_plain`` / ``_scatter_plain``;
 - voxel-exact (``compact=True, block=1``): the same with one voxel per
   block.
 
@@ -32,13 +37,14 @@ through ``profiler.host_read``.
 
 Under a profiler a request records its spans (``utils.profiling``): the
 root ``fit_volume`` (model, layout, grid_voxels, capacity_rows), then
-``fit_volume.prepare`` (arguments, inputs to the device, ``compact``, the
-capacity check ``fit_volume.capacity_check`` with its ``host_read``, the
-filler), ``fit_volume.compact`` or ``fit_volume.dense_select``,
-``fit_fused`` and ``fit_volume.scatter``.
+``fit_volume.prepare`` (arguments, inputs to the device, ``compact``),
+``fit_volume.compact`` or ``fit_volume.dense_select``, for the block
+layout the capacity check ``fit_volume.capacity_check`` with its
+``host_read`` of the compaction's touched-block count, ``fit_fused`` and
+``fit_volume.scatter``.
 
-Over a voxel mesh (``mesh=``, a ``parallel.VoxelMesh``) the partition,
-gather, filler and scatter stay on the mesh's first device, and only the
+Over a voxel mesh (``mesh=``, a ``parallel.VoxelMesh``) the compaction,
+filler and scatter stay on the mesh's first device, and only the
 dense batch the layout built is split: padded with filler rows to
 ``pad_to_devices`` and fitted by ``fit_fused_sharded``, one contiguous
 shard per mesh entry. The volume is not cut into z slabs, which would leave
@@ -50,6 +56,7 @@ refit rounds.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from math import gcd
 from math import prod
@@ -58,11 +65,12 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import build
 from ..device import resolve_device
 from ..utils.profiling import NO_SPAN, profiler
-from .fused_fit import (fit_fused, resolve_strategy, resolve_varpro3,
+from .fused_fit import (_MAX_TE, fit_fused, resolve_strategy, resolve_varpro3,
                         validate_fused_args)
-from .solver import _tail_partition
+from .solver import FitResult
 
 
 class VolumeFitResult(NamedTuple):
@@ -140,129 +148,258 @@ def _min_mask_frac(n: int, n_blocks: int, block: int) -> float:
     return frac
 
 
-def _filler(te, lo, hi, guess, dev: torch.device) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _filler_values(te: tuple, lo: tuple, hi: tuple, guess: tuple) -> np.ndarray:
     """The signal fitted in unmasked voxels of kept blocks and of the dense
-    layout: the exact decay at the bound-clamped guess, so it converges in
-    a step or two and its (discarded) fit costs almost nothing. Computed on
-    the host and written with scalar fills: a host-to-device copy of
-    pageable memory would wait for the device."""
+    layout, (T,) float32 on the host: the exact decay at the bound-clamped
+    guess, so it converges in a step or two and its (discarded) fit costs
+    almost nothing."""
     fk = min(max(guess[0], lo[0], 1.0), hi[0])
     ft2 = min(max(guess[1], lo[1], 1e-3), hi[1])
     te32 = np.asarray(te, np.float32)
     values = np.float32(fk) * np.exp(-te32 / np.float32(ft2))
-    out = torch.empty(len(te), dtype=torch.float32, device=dev)
+    values.setflags(write=False)
+    return values
+
+
+def _filler(te, lo, hi, guess, dev: torch.device) -> torch.Tensor:
+    """``_filler_values`` on ``dev``, written with scalar fills: a
+    host-to-device copy of pageable memory would wait for the device."""
+    values = _filler_values(tuple(te), tuple(lo), tuple(hi), tuple(guess))
+    out = torch.empty(len(values), dtype=torch.float32, device=dev)
     for i, value in enumerate(values):
         out[i] = float(value)
     return out
 
 
-def _batch_buffer(rows: int, t_axis: int, filler: torch.Tensor, mesh) -> torch.Tensor:
-    """The (N', T) fit batch: N' = ``rows``, or over a mesh the padded
-    count ``pad_to_devices(rows, mesh)`` with the filler in rows >= rows.
-    The caller writes rows [0, rows); every write is on the caller's
-    stream, which the shards' streams wait for."""
+def _batch_buffer(rows: int, t_axis: int, dev: torch.device, mesh) -> torch.Tensor:
+    """The (N', T) fit batch, uninitialised: N' = ``rows``, or over a mesh
+    the padded count ``pad_to_devices(rows, mesh)``, whose rows >= rows the
+    caller fills with the filler. The caller writes rows [0, rows); every
+    write is on the caller's stream, which the shards' streams wait for."""
     n_fit = rows
     if mesh is not None:
         from ..parallel.mesh import pad_to_devices
 
         n_fit = pad_to_devices(rows, mesh)
-    buf = torch.empty((n_fit, t_axis), dtype=torch.float32, device=filler.device)
-    if n_fit != rows:
-        buf[rows:] = filler
-    return buf
+    return torch.empty((n_fit, t_axis), dtype=torch.float32, device=dev)
 
 
-def _fit(batch: torch.Tensor, rows: int, fit_kw: dict, mesh):
+def _fit(batch: torch.Tensor, fit_kw: dict, mesh) -> FitResult:
     """The fused fit of a device batch, without waiting for the device, on
-    its device or sharded over ``mesh``: (t2, k, sigma, fun, converged,
-    n_iter), each of the first ``rows`` rows, and the fit's own n_overflow
-    (0 for 'single'; a () int32 tensor for 'twophase', summed over shards)."""
+    its device or sharded over ``mesh``. Its n_overflow is 0 for 'single'
+    and a () int32 tensor for 'twophase' (summed over shards)."""
     if mesh is None:
-        res = fit_fused(batch, sync=False, device=batch.device, **fit_kw)
-    else:
-        from ..parallel.mesh import fit_fused_sharded
+        return fit_fused(batch, sync=False, device=batch.device, **fit_kw)
+    from ..parallel.mesh import fit_fused_sharded
 
-        res = fit_fused_sharded(batch, mesh=mesh, sync=False, **fit_kw)
-    x = res.x[:rows]
-    sigma = x[:, 2] if x.shape[1] == 3 else torch.zeros_like(x[:, 0])
-    return (x[:, 1], x[:, 0], sigma, res.fun[:rows], res.converged[:rows],
-            res.n_iter[:rows]), res.n_overflow
+    return fit_fused_sharded(batch, mesh=mesh, sync=False, **fit_kw)
 
 
-def _fit_dense(signal, sel, filler, fit_kw, mesh) -> VolumeFitResult:
+def _fit_dense(signal, mask, filler_args, fit_kw, mesh) -> VolumeFitResult:
     """Every voxel through the fit, filler outside the mask; results come
     back in voxel order and the maps are masked reshapes."""
     zyx = signal.shape[:3]
-    n = sel.shape[0]
+    n = prod(zyx)
     with profiler.span("fit_volume.dense_select"):
+        sel = mask.reshape(n) > 0
+        filler = _filler(*filler_args, signal.device)
         flat = signal.reshape(n, signal.shape[3])
-        batch = _batch_buffer(n, signal.shape[3], filler, mesh)
+        batch = _batch_buffer(n, signal.shape[3], signal.device, mesh)
+        if batch.shape[0] != n:
+            batch[n:] = filler
         torch.where(sel[:, None], flat, filler, out=batch[:n])
-    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(batch, n, fit_kw, mesh)
+    res = _fit(batch, fit_kw, mesh)
     with profiler.span("fit_volume.scatter"):
         selz = sel.reshape(zyx)
+        x = res.x[:n]
 
         def chan(v):
             return torch.where(selz, v.reshape(zyx), 0)
 
+        sigma = x[:, 2] if x.shape[1] == 3 else torch.zeros_like(x[:, 0])
         return VolumeFitResult(
-            t2=chan(t2), k=chan(k), sigma=chan(sigma), fun=chan(fun),
-            converged=conv.reshape(zyx) & selz, n_iter=chan(nit),
+            t2=chan(x[:, 1]), k=chan(x[:, 0]), sigma=chan(sigma), fun=chan(res.fun[:n]),
+            converged=res.converged[:n].reshape(zyx) & selz, n_iter=chan(res.n_iter[:n]),
             n_masked=sel.sum(dtype=torch.int32),
             # no capacity to overflow; the filler converges at once, so what
             # a 'twophase' fit could not refit is masked voxels
             n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device)
-            + inner_overflow)
+            + res.n_overflow)
 
 
-def _fit_compact(signal, sel, filler, fit_kw, mesh, *, blk_cap: int,
-                 block: int) -> VolumeFitResult:
+# ------------------------------------------------- the block layout's two halves
+def _compact_plain(flat, mask, filler, blk_cap: int, block: int, buf):
+    """Plain version of ``ft2_layout_compact`` (csrc/volume_layout.cu).
+
+    ``flat``: (n, T) echoes; ``mask``: (n,), nonzero = masked; ``filler``:
+    (T,) host float32. Each block of ``block`` consecutive voxels holding a
+    masked voxel gets the next slot in ascending block order (a stable
+    partition), up to ``blk_cap`` slots; buffer row ``slot * block + j``
+    takes voxel ``j`` of the slot's block where it is masked, the filler
+    elsewhere, past n on a ragged last block and in slots past the touched
+    count (slots past the last block hold block 0, as the stable
+    partition's order was padded). Writes ``buf[:blk_cap * block]``;
+    returns (the block -> slot map, (nb,) int32, -1 for a block not in the
+    buffer; counts, (3,) int32: touched blocks, masked voxels, masked
+    voxels kept)."""
+    n = flat.shape[0]
+    dev = flat.device
+    nb = -(-n // block)
+    sel = torch.nn.functional.pad(mask.reshape(n) != 0, (0, nb * block - n))
+    cnt = sel.reshape(nb, block).sum(dim=1, dtype=torch.int32)
+    touched = cnt > 0
+    order = torch.cumsum(touched, 0, dtype=torch.int32) - touched.to(torch.int32)
+    kept = touched & (order < blk_cap)
+    slot = torch.where(kept, order, -1)
+    src = torch.full((blk_cap,), -1, dtype=torch.int64, device=dev)
+    src[slot[kept].long()] = torch.arange(nb, device=dev)[kept]
+    src[nb:] = 0
+    v = (src.clamp(min=0)[:, None] * block + torch.arange(block, device=dev)).reshape(-1)
+    take = (src >= 0).repeat_interleave(block) & sel[v]
+    torch.where(take[:, None], flat[v.clamp(max=n - 1)],
+                torch.tensor(filler.tolist(), dtype=torch.float32, device=dev),
+                out=buf[:blk_cap * block])
+    counts = torch.stack([touched.sum(dtype=torch.int32), cnt.sum(dtype=torch.int32),
+                          (cnt * kept).sum(dtype=torch.int32)])
+    return slot, counts
+
+
+def _compact_cuda(flat, mask, filler, blk_cap: int, block: int, buf):
+    """Launch ``ft2_layout_compact`` (csrc/volume_layout.cu: a memset and
+    two kernels) on ``flat``'s device and stream; same outputs as
+    ``_compact_plain``, the counts a view of the kernels' scratch."""
+    lib = build.load_lib("volume_layout")
+    n, t_axis = flat.shape
+    dev = flat.device
+    if t_axis > _MAX_TE:
+        raise ValueError(f"the block layout takes up to {_MAX_TE} echoes; got {t_axis}")
+    if (flat.dtype != torch.float32 or mask.dtype not in (torch.bool, torch.uint8)
+            or mask.shape != (n,) or mask.device != dev):
+        raise ValueError(f"need (n, T) float32 echoes and an (n,) byte mask on one device; "
+                         f"got {flat.dtype} {tuple(flat.shape)}, {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    if (buf.dtype != torch.float32 or not buf.is_contiguous() or buf.device != dev
+            or buf.dim() != 2 or buf.shape[0] < blk_cap * block or buf.shape[1] != t_axis):
+        raise ValueError(f"the buffer must be contiguous float32 of >= {blk_cap * block} "
+                         f"rows of {t_axis} on {dev}")
+    work_ints = lib.ft2_layout_work_ints(n, block, blk_cap)
+    if work_ints < 0:
+        raise ValueError(f"the block layout takes grids and buffers under 2^31 voxels; got "
+                         f"{n} voxels, {blk_cap} blocks of {block}")
+    flat, mask = flat.contiguous(), mask.contiguous()
+    slot = torch.empty(-(-n // block), dtype=torch.int32, device=dev)
+    work = torch.empty(work_ints, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ft2_layout_compact(
+            flat.data_ptr(), mask.data_ptr(), n, t_axis, block, blk_cap, filler.ctypes.data,
+            buf.data_ptr(), slot.data_ptr(), work.data_ptr(), work_ints, build.stream(dev))
+    build.check_launch(err, "volume_layout compact")
+    profiler.count("volume_layout.compact.launches")
+    return slot, work[:4]
+
+
+def _scatter_plain(mask, block: int, slot, res: FitResult, counts, zyx) -> VolumeFitResult:
+    """Plain version of ``ft2_layout_scatter``: the six maps of the grid
+    ``zyx``, a kept masked voxel (its block's ``slot`` >= 0) taking its fit
+    row ``slot * block + j``, every other voxel 0 / False; n_masked and
+    n_overflow (masked voxels not kept, plus the fit's own)."""
+    n = prod(zyx)
+    dev = mask.device
+    vslot = slot.repeat_interleave(block)[:n]
+    keep = (vslot >= 0) & (mask.reshape(n) != 0)
+    row = torch.where(keep, vslot.long() * block + torch.arange(n, device=dev) % block, 0)
+
+    def take(col, zero):
+        return torch.where(keep, col[row], zero).reshape(zyx)
+
+    x = res.x
+    sigma = take(x[:, 2], 0.0) if x.shape[1] == 3 else torch.zeros(zyx, device=dev)
+    return VolumeFitResult(
+        t2=take(x[:, 1], 0.0), k=take(x[:, 0], 0.0), sigma=sigma, fun=take(res.fun, 0.0),
+        converged=take(res.converged, False), n_iter=take(res.n_iter, 0),
+        n_masked=counts[1], n_overflow=counts[1] - counts[2] + res.n_overflow)
+
+
+def _scatter_cuda(mask, block: int, slot, res: FitResult, counts, zyx) -> VolumeFitResult:
+    """Launch ``ft2_layout_scatter`` (csrc/volume_layout.cu, one kernel)
+    on ``mask``'s device and stream: ``_scatter_plain``'s maps, written as
+    fresh contiguous tensors; n_masked and n_overflow views of ``counts``,
+    the compaction's scratch."""
+    lib = build.load_lib("volume_layout")
+    dev = mask.device
+    x, inner = res.x, res.n_overflow
+    for name, t, dtype in (("x", x, torch.float32), ("fun", res.fun, torch.float32),
+                           ("converged", res.converged, torch.bool),
+                           ("n_iter", res.n_iter, torch.int32)):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"fit {name} must be {dtype} on {dev}; got {t.dtype} on {t.device}")
+    if x.dim() != 2 or x.shape[1] not in (2, 3):
+        raise ValueError(f"fit x must be (N, 2) or (N, 3); got {tuple(x.shape)}")
+    if (mask.dtype not in (torch.bool, torch.uint8) or mask.dim() != 1
+            or not mask.is_contiguous() or slot.dtype != torch.int32
+            or slot.shape != (-(-mask.numel() // block),) or counts.dtype != torch.int32
+            or counts.numel() < 4 or not counts.is_contiguous()):
+        raise ValueError("mask, slot and counts must be the flat byte mask, the block map "
+                         "and the scratch that _compact_cuda took and returned")
+    inner_ptr, inner_value = None, 0
+    if torch.is_tensor(inner):
+        if inner.dtype != torch.int32 or inner.device != dev or inner.numel() != 1:
+            raise ValueError(f"fit n_overflow must be a () int32 tensor on {dev}")
+        inner_ptr = inner.data_ptr()
+    else:
+        inner_value = int(inner)
+    maps = [torch.empty(zyx, dtype=dtype, device=dev) for dtype in
+            (torch.float32,) * 4 + (torch.bool, torch.int32)]
+    with torch.cuda.device(dev):
+        err = lib.ft2_layout_scatter(
+            mask.data_ptr(), mask.numel(), block, slot.data_ptr(), x.data_ptr(), x.stride(0),
+            x.stride(1), x.shape[1], res.fun.data_ptr(), res.fun.stride(0),
+            res.converged.data_ptr(), res.converged.stride(0), res.n_iter.data_ptr(),
+            res.n_iter.stride(0), inner_ptr, inner_value, *[m.data_ptr() for m in maps],
+            counts.data_ptr(), build.stream(dev))
+    build.check_launch(err, "volume_layout scatter")
+    profiler.count("volume_layout.scatter.launches")
+    t2, k, sigma, fun, conv, nit = maps
+    return VolumeFitResult(t2=t2, k=k, sigma=sigma, fun=fun, converged=conv, n_iter=nit,
+                           n_masked=counts[1], n_overflow=counts[3])
+
+
+def _fit_compact(signal, mask, filler_args, fit_kw, mesh, *, blk_cap: int, block: int,
+                 check_capacity: bool, mask_frac: float) -> VolumeFitResult:
     """Block compaction: the masked blocks (up to the static capacity of
     ``blk_cap`` blocks) are gathered in a stable order, fitted, and
-    scattered back one block per row. Buffer slots past the number of
-    masked blocks write to a spare row that is dropped, so no row is
-    written twice with different data."""
+    scattered back through the block -> slot map. On a CUDA tensor both
+    halves are csrc/volume_layout.cu's kernels, on a CPU one their plain
+    versions. With ``check_capacity`` the touched-block count is read
+    (one 4-byte read) between the compaction and the fit's launch."""
     zyx = signal.shape[:3]
     t_axis = signal.shape[3]
     n = prod(zyx)
-    n_pad = -(-n // block) * block
-    nb = n_pad // block
     rows = blk_cap * block
+    cuda = signal.device.type == "cuda"
     with profiler.span("fit_volume.compact"):
-        flat = signal.reshape(n, t_axis)
-        if n_pad != n:
-            flat = torch.nn.functional.pad(flat, (0, 0, 0, n_pad - n), value=1.0)
-            sel = torch.nn.functional.pad(sel, (0, n_pad - n))
-        # _tail_partition puts the unconverged first: masked blocks play that role
-        bidx, nb_sel = _tail_partition(~sel.reshape(nb, block).any(dim=1), blk_cap)
-        batch = flat.reshape(nb, block * t_axis)[bidx].reshape(blk_cap, block, t_axis)
-        mb = sel.reshape(nb, block)[bidx]                         # (blk_cap, block)
-        buf = _batch_buffer(rows, t_axis, filler, mesh)
-        torch.where(mb[..., None], batch, filler, out=buf[:rows].view(blk_cap, block, t_axis))
-    (t2, k, sigma, fun, conv, nit), inner_overflow = _fit(buf, rows, fit_kw, mesh)
-
+        flat_mask = mask.reshape(n)
+        buf = _batch_buffer(rows, t_axis, signal.device, mesh)
+        if buf.shape[0] != rows:
+            buf[rows:] = _filler(*filler_args, signal.device)
+        slot, counts = (_compact_cuda if cuda else _compact_plain)(
+            signal.reshape(n, t_axis), flat_mask, _filler_values(*filler_args), blk_cap,
+            block, buf)
+    if check_capacity:
+        with profiler.span("fit_volume.capacity_check"):
+            n_blocks = profiler.host_read(counts[0])
+            if n_blocks > blk_cap:
+                warnings.warn(
+                    f"mask touches {n_blocks} blocks of {block} voxels but "
+                    f"mask_frac={mask_frac} caps the fit buffer at {blk_cap} "
+                    f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
+                    f"be left unfitted (n_overflow); raise mask_frac to "
+                    f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=3)
+    res = _fit(buf, fit_kw, mesh)
     with profiler.span("fit_volume.scatter"):
-        valid_blk = torch.arange(blk_cap, device=signal.device) < nb_sel
-        keep = mb & valid_blk[:, None]
-        upd = torch.stack([t2, k, sigma, fun, conv.to(torch.float32),
-                           nit.to(torch.float32)], dim=1)
-        upd = torch.where(keep.reshape(-1, 1), upd, 0.0)
-        safe_bidx = torch.where(valid_blk, bidx, nb)              # nb: the spare row
-        dense = torch.zeros((nb + 1, block * 6), dtype=torch.float32, device=signal.device)
-        dense.index_copy_(0, safe_bidx, upd.reshape(blk_cap, block * 6))
-        dense = dense[:nb].reshape(nb, block, 6)
-
-        def chan(c):
-            return dense[:, :, c].reshape(n_pad)[:n].reshape(zyx)
-
-        n_masked = sel.sum(dtype=torch.int32)
-        return VolumeFitResult(
-            t2=chan(0), k=chan(1), sigma=chan(2), fun=chan(3),
-            converged=chan(4) > 0.5, n_iter=chan(5).to(torch.int32),
-            # masked voxels beyond the buffer, plus those the fit's own
-            # 'twophase' rounds could not refit
-            n_masked=n_masked,
-            n_overflow=n_masked - keep.sum(dtype=torch.int32) + inner_overflow)
+        return (_scatter_cuda if cuda else _scatter_plain)(flat_mask, block, slot, res,
+                                                           counts, zyx)
 
 
 def _fit_device(mesh, device) -> torch.device:
@@ -350,25 +487,15 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             if request is not NO_SPAN:
                 request.set(layout="block" if compact else "dense", grid_voxels=n,
                             capacity_rows=blk_cap * block if compact else n)
-            if check_capacity and compact:
-                # before the mask and filler kernels below: the read waits for
-                # the device, which then runs those while the host goes on
-                with profiler.span("fit_volume.capacity_check"):
-                    n_blocks = profiler.host_read(_count_touched_blocks(mask, n, block))
-                    if n_blocks > blk_cap:
-                        warnings.warn(
-                            f"mask touches {n_blocks} blocks of {block} voxels but "
-                            f"mask_frac={mask_frac} caps the fit buffer at {blk_cap} "
-                            f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
-                            f"be left unfitted (n_overflow); raise mask_frac to "
-                            f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=2)
             fit_kw = dict(te=te_t, lo=lo_t, hi=hi_t, model=model, guess=guess_t,
                           max_iters=max_iters, ftol=ftol, gtol=gtol, no_prior=no_prior,
                           strategy=strategy, prefix3=prefix3, varpro3=varpro3,
                           phase1_iters=phase1_iters, tail_frac=tail_frac)
-            sel = mask.reshape(n) > 0
-            filler = _filler(te_t, lo_t, hi_t, guess_t, dev)
+            if mask.dtype not in (torch.bool, torch.uint8):
+                mask = mask > 0      # the layouts read a mask of bytes, nonzero = masked
+            filler_args = (te_t, lo_t, hi_t, guess_t)
         if not compact:
-            return _fit_dense(signal, sel, filler, fit_kw, mesh)
-        return _fit_compact(signal, sel, filler, fit_kw, mesh, blk_cap=blk_cap,
-                            block=int(block))
+            return _fit_dense(signal, mask, filler_args, fit_kw, mesh)
+        return _fit_compact(signal, mask, filler_args, fit_kw, mesh, blk_cap=blk_cap,
+                            block=int(block), check_capacity=check_capacity,
+                            mask_frac=mask_frac)

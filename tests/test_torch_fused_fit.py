@@ -137,3 +137,18 @@ def test_kernel_params_layout():
     np.testing.assert_allclose(params[30:42], (e_g ** 2).sum(1), rtol=1e-7)
     np.testing.assert_array_equal(params[42:].reshape(12, 8)[:, :3],
                                   e_g.astype(np.float32))
+
+
+@pytest.mark.parametrize("layout", ["rows of one buffer", "separate", "rows out of order"])
+def test_columns_view_the_kernels_rows_else_stack(layout):
+    """The gaussian x (N, 2) is a view of k and t2 where they are
+    consecutive rows of one buffer (as the CUDA entry writes them), else a
+    stack; the values are the stack's either way."""
+    out = torch.arange(15, dtype=torch.float32).reshape(3, 5)
+    k, t2 = {"rows of one buffer": (out[0], out[1]),
+             "separate": (out[0].clone(), out[1].clone()),
+             "rows out of order": (out[1], out[0])}[layout]
+    x = port._columns(k, t2)
+    assert torch.equal(x, torch.stack([k, t2], dim=1))
+    assert (x.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()) \
+        == (layout == "rows of one buffer")

@@ -300,7 +300,7 @@ def test_build_compiles_every_source_once(tmp_path, monkeypatch):
     assert {os.path.basename(v) for v in b.KERNEL_SOURCES.values()} == {
         f for f in os.listdir(csrc) if f.endswith(".cu")}
     libs = b.build_kernels()
-    assert set(libs) == {"gauss_fit", "gr_varpro_fit", "fit3", "conv_s2d"}
+    assert set(libs) == {"gauss_fit", "gr_varpro_fit", "fit3", "conv_s2d", "volume_layout"}
     for name, path in libs.items():
         with open(path) as f:
             assert f.read() == "built from " + b.KERNEL_SOURCES[name]
@@ -309,8 +309,9 @@ def test_build_compiles_every_source_once(tmp_path, monkeypatch):
         assert "flags: " + " ".join(b.nvcc_flags(name)) in log
         assert "arch=compute_90a,code=sm_90a" in log
         # the fits round op by op like their plain versions: no FMA
-        # contraction; the conv is held by a tolerance and keeps it
-        assert ("-fmad=false" in log) == (name != "conv_s2d")
+        # contraction; the conv is held by a tolerance and keeps it, the
+        # volume layout only copies
+        assert ("-fmad=false" in log) == (name not in ("conv_s2d", "volume_layout"))
     assert sorted(os.listdir(tmp_path / "build")) == sorted(
         [f"lib{n}.so" for n in libs] + [f"{n}.log" for n in libs])
     stamp = {n: os.path.getmtime(p) for n, p in libs.items()}

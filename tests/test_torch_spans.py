@@ -96,9 +96,14 @@ def test_fit_volume_records_its_span_tree(model, layout, check):
             "fit_volume.scatter": ["fit_volume"]}
     reads = int(check and layout == "block")     # the dense layout has no capacity
     if reads:
-        want.update({"fit_volume.capacity_check": ["fit_volume.prepare"],
+        # the read is of the compaction's touched-block count, before the fit
+        want.update({"fit_volume.capacity_check": ["fit_volume"],
                      "host_read": ["fit_volume.capacity_check"]})
     assert _tree(spans) == want
+    if reads:
+        at = {s.name: s for s in spans}
+        assert (at["fit_volume.compact"].end_ns <= at["fit_volume.capacity_check"].start_ns
+                and at["fit_volume.capacity_check"].end_ns <= at["fit_fused"].start_ns)
     assert len(spans) <= 10
     assert [s.attrs["kernel"] for s in spans if s.name == "fit_fused.launch"] == kernels
     assert sum(s.name == "host_read" for s in spans) == reads
