@@ -1,20 +1,25 @@
 """The plain reference that decides ``correct``, and the comparison.
 
-``fit`` runs the frozen plain fits of ``fits.py`` over masked voxels the
-benchmark made, as the configuration states them (bounds, start, budget,
-tolerances, the multistart prefix), in blocks of rows. ``off_voxels`` counts the grid voxels where a program map leaves the
-reference's by more than the band. With ``dtype=torch.bfloat16`` the same
-code is the control: the reference one precision below the configuration's
-float32. Imports nothing of the program.
+``fit`` runs the plain fit of the configuration's kernel family over masked
+voxels the benchmark made, as the configuration states them (bounds,
+start, budget, tolerances, the multistart prefix), in blocks of rows. The
+family is the configuration's ``counts`` key, the one whose work
+``counts/<counts>.py`` counts; its fit is ``family/<counts>.py``, found by
+that name, over the frozen plain fits of ``fits.py``, so a new family is a
+new file and chooses nothing here. ``off_voxels`` counts the grid voxels
+where a program map leaves the reference's by more than the band. With
+``dtype=torch.bfloat16`` the same code is the control: the reference one
+precision below the configuration's float32. Imports nothing of the
+program.
 """
 
 from __future__ import annotations
 
+import importlib
+import os
 from typing import Dict
 
 import torch
-
-from .fits import _fit3_cont_plain, _fit3_plain, _gauss_fit_plain
 
 #: rows of one block of the reference fit: a 240^3 request's masked voxels
 #: at once (the plain loops cost a launch per operation, whatever the rows)
@@ -39,28 +44,14 @@ def fit_args(config: dict):
     return te, lo, hi, guess
 
 
-def _fit_block(config: dict, s: torch.Tensor) -> Dict[str, torch.Tensor]:
-    model = config["model"]
-    te, lo, hi, guess = fit_args(config)
-    ftol, gtol, budget = float(config["ftol"]), float(config["gtol"]), int(config["max_iters"])
-    if model == "gaussian":
-        k, t2, f, conv, nit = _gauss_fit_plain(
-            s, te, lo, hi, max_iters=budget, ftol=ftol, gtol=gtol, no_prior=False,
-            full_budget=False, stall_iters=3, stall_tol=max(ftol, 1e-3))
-        return {"k": k, "t2": t2, "sigma": torch.zeros_like(k), "fun": f, "converged": conv,
-                "n_iter": nit, "steps.gauss_fit": nit.double().sum()}
-    if model != "rician":
-        raise ValueError(f"no reference fit for model {model!r}")
-    kw = dict(ftol=ftol, gtol=gtol, stall_tol=max(ftol, 1e-6))
-    prefix = int(config["prefix3"])
-    if not 0 < prefix < budget:
-        raise ValueError(f"the rician reference runs the pruned multistart; prefix3 {prefix}")
-    x1, st1 = _fit3_plain(s, model, te, lo, hi, guess, max_iters=prefix, **kw)
-    x, st = _fit3_cont_plain(s, model, te, lo, hi, guess, x1, st1,
-                             max_iters=budget - prefix, **kw)
-    return {"k": x[0], "t2": x[1], "sigma": x[2], "fun": st[0], "converged": st[1] > 0.5,
-            "n_iter": st[2].to(torch.int32), "steps.fit3_multistart": st1[2].double().sum(),
-            "steps.fit3_cont": (st[2] - st1[2]).double().sum()}
+def family_fit(name: str):
+    """``fit_block`` of ``family/<name>.py``: the plain fit of the kernel
+    family ``name``. Raises KeyError, naming the path it looked for, where
+    there is no such file."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "family", f"{name}.py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no reference fit for the kernel family {name!r}: {path} is missing")
+    return importlib.import_module(f"{__name__}.family.{name}").fit_block
 
 
 def fit(config: dict, signal: torch.Tensor, dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -68,10 +59,11 @@ def fit(config: dict, signal: torch.Tensor, dtype=torch.float32) -> Dict[str, to
     k, t2, sigma, fun (float32), converged (bool), n_iter (int32), and
     ``steps.<kernel>``, the accepted steps summed over the voxels for each
     kernel the configuration's fit launches (what the roofline counts)."""
+    fit_block = family_fit(config["counts"])
     parts = []
     for start in range(0, signal.shape[0], BLOCK):
         block = signal[start:start + BLOCK].to(dtype)
-        parts.append(_fit_block(config, block))
+        parts.append(fit_block(config, block))
     out = {}
     for key in parts[0]:
         vals = [p[key] for p in parts]

@@ -30,8 +30,11 @@ def _call(config: dict, traffic: dict, device):
     from fetal_t2mapping_tpu_torch.models.volume_fit import fit_volume
 
     te, lo, hi, guess = reference.fit_args(config)
+    # the kernels the configuration states: no FT2_FIT3_* variable of the
+    # environment picks the multistart prefix or the VARPRO kernel
     kw = dict(model=config["model"], guess=guess, max_iters=int(config["max_iters"]),
               ftol=float(config["ftol"]), gtol=float(config["gtol"]),
+              prefix3=int(config["prefix3"]), varpro3=bool(config.get("varpro3", 0)),
               mask_frac=float(traffic["mask_frac"]), device=device)
 
     def call(it: generate.Item):

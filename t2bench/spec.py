@@ -2,9 +2,12 @@
 
 A cell ``<config>.<traffic>`` reads ``configs/<config>.json``,
 ``traffic/<traffic>.json`` and ``limits/<cell>.json``; a per-layer metric
-``<name>`` is read by ``metrics/<name>.py``; the roofline work of a
-configuration is counted by ``counts/<counts>.py``. Adding any of them is
-adding files and entries: nothing here names one.
+``<name>`` is read by ``metrics/<name>.py``; the kernel family of a
+configuration, its ``counts`` key, names two files: ``counts/<counts>.py``,
+which counts the family's roofline work, and ``reference/family/<counts>.py``,
+the plain fit that decides ``correct`` and takes the steps that the counts
+read. Adding any of them is adding files and entries: nothing here names
+one.
 """
 
 from __future__ import annotations

@@ -12,10 +12,10 @@ from t2bench.reference import fits, objectives
 CONFIGS = {
     "gaussian": {"model": "gaussian", "te": [114, 202, 299], "lower": [600.0, 10.0],
                  "upper": [10000.0, 600.0], "initial_guess": [650.0, 165.0], "ftol": 1e-9,
-                 "gtol": 0.0, "max_iters": 60, "prefix3": 0},
+                 "gtol": 0.0, "max_iters": 60, "prefix3": 0, "counts": "gauss_fit"},
     "rician": {"model": "rician", "te": [115, 202, 299], "lower": [850.0, 30.0, 7.0],
                "upper": [30000.0, 600.0, 200.0], "initial_guess": [17.0, 40.0, 0.15],
-               "ftol": 1e-9, "gtol": 0.0, "max_iters": 60, "prefix3": 4},
+               "ftol": 1e-9, "gtol": 0.0, "max_iters": 60, "prefix3": 4, "counts": "fit3"},
 }
 
 
