@@ -30,6 +30,8 @@ FITS = {  # model: (lo, hi, guess, the C entries a request launches)
     "gaussian": ((0.0, 10.0), (1e6, 2000.0), None, ["gauss_fit"]),
     "rician": ((1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
                ["fit3", "fit3_cont"]),
+    "gaussian_rician": ((1.0, 10.0, 1.0), (1e6, 2000.0, 1000.0), (650.0, 110.0, 40.0),
+                        ["gr_varpro_fit"]),
 }
 
 
@@ -79,10 +81,13 @@ def _tree(spans):
 @pytest.mark.parametrize("model,layout,check", [("gaussian", "block", True),
                                                 ("gaussian", "block", False),
                                                 ("gaussian", "dense", True),
-                                                ("rician", "block", True)])
+                                                ("rician", "block", True),
+                                                ("gaussian_rician", "block", True)])
 def test_fit_volume_records_its_span_tree(model, layout, check):
+    # varpro3 pinned: gaussian_rician's VARPRO kernel whatever FT2_FIT3_VARPRO
+    # says (the other models ignore it)
     spans, _ = _recorded(lambda: _serve(model, compact=layout == "block",
-                                        check_capacity=check))
+                                        check_capacity=check, varpro3=True))
     roots = [s for s in spans if s.parent_id is None]
     assert [r.name for r in roots] == ["fit_volume"]
     root = roots[0]

@@ -10,7 +10,8 @@ six float columns, a whole-grid zero and an ``index_copy_``. The buffer
 rows, the slot order, every map (dtype, contiguity, bits), ``n_masked``
 and ``n_overflow`` must match, on ragged grids, at block 32, 1 and 7, with
 a capacity that overflows and one larger than the grid's blocks, at 3 and
-4 echoes, and for fits of 2 and 3 parameters.
+4 echoes, and for fits of 2 and 3 parameters. Each benchmark cell's
+request, cut to 24^3, gives the maps of the benchmark's reference fit.
 
 On the card (marker ``cuda``; ``python3 -m pytest --noconftest
 tests/test_torch_volume_layout.py``) the kernels of
@@ -243,15 +244,16 @@ def test_plain_scatter_is_the_legacy_scatter(case, p, layout, inner):
     _assert_same_result(got, _legacy_scatter(bidx, nb_sel, mb, res, mask, block))
 
 
-@pytest.mark.parametrize("model", ["gaussian", "rician"])
+@pytest.mark.parametrize("model", ["gaussian", "rician", "gaussian_rician"])
 def test_fit_volume_block_layout_is_the_legacy_layout(model):
     """End to end on the CPU: fit_volume's block layout gives the bits of
-    the legacy layout around fit_fused on its buffer."""
+    the legacy layout around fit_fused on its buffer (gaussian_rician with
+    its VARPRO kernel)."""
     signal, mask = _grid("ragged15" if model == "gaussian" else "empty10", 3)
-    if model == "rician":
+    if model != "gaussian":
         mask = torch.from_numpy(np.random.default_rng(3).random(mask.shape) < 0.3)
     lo, hi, guess = (LO, HI, None) if model == "gaussian" else (LO3, HI3, GUESS3)
-    kw = dict(model=model, guess=guess, ftol=1e-9, gtol=0.0, max_iters=30)
+    kw = dict(model=model, guess=guess, ftol=1e-9, gtol=0.0, max_iters=30, varpro3=True)
     got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=True, mask_frac=1.0,
                                 device="cpu", **kw)
     n = mask.numel()
@@ -282,6 +284,26 @@ def test_capacity_warning_comes_before_the_fit(monkeypatch):
     blk_cap = volume_fit._block_capacity(mask.numel(), 0.1, 32)
     assert int(res.n_overflow) == mask.numel() - blk_cap * 32
     assert int(res.n_masked) == mask.numel()
+
+
+@pytest.mark.parametrize("cell", ["lf055_gauss.serve", "hf15_rician.serve", "lf055_gr.serve"])
+def test_cell_request_is_the_reference_fit(cell):
+    """A benchmark cell's request cut to 24^3 (the capacity raised to hold
+    its partly filled blocks), through ``serve._call`` on the CPU:
+    every map the judge reads is bitwise the benchmark's reference fit of
+    the masked voxels scattered into the grid, and every masked voxel is
+    fitted."""
+    from t2bench import generate, reference, serve, spec
+
+    c = spec.load(ROOT, cell)
+    c.config["grid"] = [24] * 3
+    c.traffic.update(mask_frac=0.2)
+    it = generate.item(c.config, c.traffic, 2**31 + 22, int(c.traffic["items"]) - 1, "cpu")
+    got = serve._call(c.config, c.traffic, "cpu")(it)
+    ref = reference.fit(c.config, it.signal[it.mask])
+    for key in serve.MAPS:
+        _assert_same(getattr(got, key), reference.to_grid(ref[key], it.mask), key)
+    assert int(got.n_masked) == it.n_masked > 0 and int(got.n_overflow) == 0
 
 
 # ------------------------------------------------------------------ the card
@@ -350,21 +372,32 @@ def _counts():
     return [profiler.counter(c) for c in COUNTERS]
 
 
+#: the fit kernels' launch counters a request of each model moves, one each
+FIT_COUNTERS = {"gaussian": ("gauss_fit.launches",),
+                "rician": ("fit3.launches", "fit3_cont.launches"),
+                "gaussian_rician": ("gr_varpro_fit.launches",)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("model,block", [("gaussian", 32), ("gaussian", 1), ("rician", 32)])
+@pytest.mark.parametrize("model,block", [("gaussian", 32), ("gaussian", 1), ("rician", 32),
+                                         ("gaussian_rician", 32)])
 def test_fit_volume_on_cuda_runs_the_layout_kernels(card, model, block):
-    """A block-layout request launches one compaction and one scatter and
-    gives the bits of the legacy layout around fit_fused on its buffer;
-    the dense layout launches neither."""
+    """A block-layout request launches one compaction, one fit of its
+    model's kernels and one scatter and gives the bits of the legacy
+    layout around fit_fused on its buffer; the dense layout launches no
+    layout kernel."""
     signal, mask = _grid("ellipsoid16", 3)
     signal, mask = signal.to(card), mask.to(card)
     lo, hi, guess = (LO, HI, None) if model == "gaussian" else (LO3, HI3, GUESS3)
-    kw = dict(model=model, guess=guess, ftol=1e-9, gtol=0.0)
+    kw = dict(model=model, guess=guess, ftol=1e-9, gtol=0.0, varpro3=True)
     before = _counts()
+    fits_before = [profiler.counter(c) for c in FIT_COUNTERS[model]]
     got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=True, mask_frac=0.6,
                                 block=block, device=card, **kw)
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_counts(), before)] == [1, 1]
+    assert [profiler.counter(c) - b for c, b in zip(FIT_COUNTERS[model], fits_before)] \
+        == [1] * len(FIT_COUNTERS[model])
     blk_cap = volume_fit._block_capacity(mask.numel(), 0.6, block)
     buf, bidx, nb_sel, mb = _legacy_compact(signal, mask, _filler(3, model), blk_cap, block)
     res = fit_fused(buf, TES[3], lo, hi, device=card, **kw)
@@ -410,17 +443,19 @@ def test_fit_volume_on_a_mesh_pads_the_kernels_buffer(card, strategy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["lf055_gauss.serve", "hf15_rician.serve"])
+@pytest.mark.parametrize("cell", ["lf055_gauss.serve", "hf15_rician.serve", "lf055_gr.serve"])
 def test_cell_requests_are_the_plain_layout(card, cell):
     """The benchmark cell's 16 requests (240^3, seed 20260118): the
     kernels' buffer is the legacy layout's, and their maps, n_masked and
-    n_overflow the plain scatter's from the same fit."""
+    n_overflow the plain scatter's from the same fit, whose kernels the
+    configuration states (its prefix3 and varpro3, not the environment)."""
     from t2bench import generate, reference, spec
 
     c = spec.load(ROOT, cell)
     te, lo, hi, guess = reference.fit_args(c.config)
     kw = dict(model=c.config["model"], guess=guess, max_iters=int(c.config["max_iters"]),
-              ftol=float(c.config["ftol"]), gtol=float(c.config["gtol"]))
+              ftol=float(c.config["ftol"]), gtol=float(c.config["gtol"]),
+              prefix3=int(c.config["prefix3"]), varpro3=bool(c.config.get("varpro3", 0)))
     te_t, lo_t, hi_t, guess_t = validate_fused_args(kw["model"], te, lo, hi, guess, False)
     filler = volume_fit._filler_values(te_t, lo_t, hi_t, guess_t)
     for index in range(int(c.traffic["items"])):
