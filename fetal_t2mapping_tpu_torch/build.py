@@ -54,20 +54,21 @@ _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "gauss_fit": {
         "ft2_gauss_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _I32,
-                          _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+                          _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _VP],
         "ft2_gauss_params_floats": [],
         "ft2_gauss_slot_rows": [_I32],
         "ft2_gauss_head_iters": []},
     "gr_varpro_fit": {
-        "ft2_gr_varpro_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP],
+        "ft2_gr_varpro_fit": [_VP, _I64, _I32, _VP, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP,
+                              _I32, _VP],
         "ft2_gr_params_floats": [],
         "ft2_gr_slot_rows": [_I32],
         "ft2_gr_head_iters": [],
         "ft2_rsqrt_probe": [_VP, _I64, _VP, _VP, _VP]},
     "fit3": {
-        "ft2_fit3_multistart": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP],
+        "ft2_fit3_multistart": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _I32, _VP],
         "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _VP, _VP,
-                          _VP],
+                          _VP, _I32, _VP],
         "ft2_fit3_params_floats": [],
         "ft2_fit3_cont_slot_rows": []},
     "conv_s2d": {

@@ -48,7 +48,10 @@
 //   gradient pass takes i0e and i1e of one argument in one branch.
 // On the H100 the three starts spread over three threads ran about as fast
 // as the three in one thread: more warps in flight do not help a kernel
-// bound by issue; doing less does.
+// bound by issue; doing less does. Given a live-row bound (fit_common.cuh's
+// RowBound: the block layout's touched-block count, on the device), the
+// multistart and the sweep fit only the rows before it and write the others
+// unfitted, and the tail drains only what the sweep pushed.
 //
 // Numerics follow fused_fit._fit3_plain / _fit3_cont_plain and models/fgh.py
 // op for op: left-to-right echo sums, the grid and bracket constants
@@ -647,17 +650,23 @@ constexpr int kStartThreads = 3 * kVoxPerBlock;   // warp w runs start w
 template <class Model, int T>
 __global__ void __launch_bounds__(kStartThreads, (T <= 3 ? 12 : 9))
 fit3_multistart_kernel(const float* __restrict__ signal, long long n,
-                       const Fit3Params p, int max_iters,
+                       const Fit3Params p, int max_iters, const RowBound bound,
                        float* __restrict__ x_out, float* __restrict__ st_out) {
   __shared__ float cand[3][6][kVoxPerBlock];  // [start][output][voxel]
   const int start = threadIdx.x / kVoxPerBlock;
   const int v = threadIdx.x % kVoxPerBlock;
   const long long i = (long long)blockIdx.x * kVoxPerBlock + v;
   if (i < n) {
-    float s[T], ls[T], out[6];
-    load_signal<T>(signal, i, s);
-    Model::template prepare<T>(s, ls);
-    run_start<Model, T>(s, ls, p, max_iters, start, out);
+    // a row past the live bound is not fitted: its three candidates are
+    // the unfitted outputs (all 0), which the argmin keeps. Nothing of the
+    // bound lives across the fit, which runs at the register limit.
+    float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (i < live_rows(bound, n)) {
+      float s[T], ls[T];
+      load_signal<T>(signal, i, s);
+      Model::template prepare<T>(s, ls);
+      run_start<Model, T>(s, ls, p, max_iters, start, out);
+    }
 #pragma unroll
     for (int c = 0; c < 6; ++c) cand[start][c][v] = out[c];
   }
@@ -685,17 +694,21 @@ __device__ __forceinline__ void write_result(const Newton<T>& st, long long n, l
 // The continuation's sweep: one thread per voxel enters the loop (x0
 // clipped, f and e evaluated there: the same work on every lane). A voxel
 // that enters converged writes its results; every other one pushes its
-// entered state to the worklist for the tail.
+// entered state to the worklist for the tail. Rows past the live bound
+// are written unfitted and never read x0.
 template <class Model, int T>
 __global__ void __launch_bounds__(kThreads)
 fit3_sweep_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
-                  int max_iters, const float* __restrict__ x0,
+                  int max_iters, const RowBound bound, const float* __restrict__ x0,
                   const float* __restrict__ st0, float* __restrict__ x_out,
                   float* __restrict__ st_out, float* __restrict__ rows, int* counters) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long live = live_rows(bound, n);
+  if (i >= live && i < n) write_unfitted3(n, i, x_out, st_out);
+  if ((long long)blockIdx.x * kThreads >= live) return;  // the whole block
   Newton<T> st;
   bool runs = false;
-  if (i < n) {
+  if (i < live) {
     float s[T], ls[T];
     load_signal<T>(signal, i, s);
     Model::template prepare<T>(s, ls);
@@ -748,17 +761,17 @@ fit3_tail_kernel(const float* __restrict__ signal, long long n, const Fit3Params
 
 template <class Model, int T>
 int launch_t(const float* signal, long long n, const Fit3Params& p,
-             int max_iters, const float* x0, const float* st0, float* x,
-             float* st, float* rows, int* counters, cudaStream_t stream) {
+             int max_iters, const RowBound& bound, const float* x0, const float* st0,
+             float* x, float* st, float* rows, int* counters, cudaStream_t stream) {
   if (x0 == nullptr) {
     const unsigned blocks = (unsigned)((n + kVoxPerBlock - 1) / kVoxPerBlock);
     fit3_multistart_kernel<Model, T><<<blocks, kStartThreads, 0, stream>>>(
-        signal, n, p, max_iters, x, st);
+        signal, n, p, max_iters, bound, x, st);
     return (int)cudaGetLastError();
   }
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   fit3_sweep_kernel<Model, T><<<blocks, kThreads, 0, stream>>>(
-      signal, n, p, max_iters, x0, st0, x, st, rows, counters);
+      signal, n, p, max_iters, bound, x0, st0, x, st, rows, counters);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fit3_tail_kernel<Model, T><<<persistent_blocks(fit3_tail_kernel<Model, T>, kThreads),
@@ -769,30 +782,30 @@ int launch_t(const float* signal, long long n, const Fit3Params& p,
 
 template <class Model>
 int launch(const float* signal, long long n, int n_te, const Fit3Params& p,
-           int max_iters, const float* x0, const float* st0, float* x,
+           int max_iters, const RowBound& b, const float* x0, const float* st0, float* x,
            float* st, float* rows, int* counters, cudaStream_t s) {
   switch (n_te) {
-    case 2: return launch_t<Model, 2>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 3: return launch_t<Model, 3>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 4: return launch_t<Model, 4>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 5: return launch_t<Model, 5>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 6: return launch_t<Model, 6>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 7: return launch_t<Model, 7>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 8: return launch_t<Model, 8>(signal, n, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 2: return launch_t<Model, 2>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 3: return launch_t<Model, 3>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 4: return launch_t<Model, 4>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 5: return launch_t<Model, 5>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 6: return launch_t<Model, 6>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 7: return launch_t<Model, 7>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 8: return launch_t<Model, 8>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int run(const float* signal, long long n, int n_te, int model,
-        const float* params, int max_iters, const float* x0, const float* st0,
-        float* x, float* st, float* rows, int* counters, void* stream) {
+        const float* params, int max_iters, const RowBound& b, const float* x0,
+        const float* st0, float* x, float* st, float* rows, int* counters, void* stream) {
   Fit3Params p;
   std::memcpy(&p, params, sizeof(p));
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || (b.live_blocks != nullptr && b.block < 1)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (model) {  // fused_fit._MODEL_ID
-    case 0: return launch<GaussRician>(signal, n, n_te, p, max_iters, x0, st0, x, st, rows, counters, s);
-    case 1: return launch<Rician>(signal, n, n_te, p, max_iters, x0, st0, x, st, rows, counters, s);
+    case 0: return launch<GaussRician>(signal, n, n_te, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 1: return launch<Rician>(signal, n, n_te, p, max_iters, b, x0, st0, x, st, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -807,32 +820,36 @@ extern "C" int ft2_fit3_cont_slot_rows() { return kContRows; }
 // signal: (n, n_te) row-major float32 on the device; model: 0
 // gaussian_rician, 1 rician; params: kParamFloats host floats (Fit3Params).
 // x_out, st_out: (3, n) device arrays, rows (k, t2, sigma) and
-// (f, converged 0/1, n_iter). Returns cudaGetLastError() after the launch.
+// (f, converged 0/1, n_iter). live_blocks: a device int, the count of
+// leading `block`-row blocks to fit (rows past count * block are written
+// unfitted: all 0), or null for every row. Returns cudaGetLastError()
+// after the launch.
 extern "C" int ft2_fit3_multistart(const float* signal, long long n, int n_te,
                                    int model, const float* params,
                                    int max_iters, float* x_out, float* st_out,
-                                   void* stream) {
-  return run(signal, n, n_te, model, params, max_iters, nullptr, nullptr,
-             x_out, st_out, nullptr, nullptr, stream);
+                                   const int* live_blocks, int block, void* stream) {
+  return run(signal, n, n_te, model, params, max_iters, RowBound{live_blocks, block},
+             nullptr, nullptr, x_out, st_out, nullptr, nullptr, stream);
 }
 
 // As ft2_fit3_multistart, resuming one Newton run per voxel from x0 (3, n)
 // with st0 (3, n) = (f, convf, nit) of the multistart prefix's winner; f0
-// is re-evaluated at the clipped x0. rows: ft2_fit3_cont_slot_rows() x n
-// device floats of worklist; counters: 2 device ints, zeroed here on
-// `stream`. Two kernels run, the sweep and the tail; returns
-// cudaGetLastError() after the first launch that failed or the last one
-// (0 = launched).
+// is re-evaluated at the clipped x0 (x0 and st0 are not read past the live
+// rows). rows: ft2_fit3_cont_slot_rows() x n device floats of worklist;
+// counters: 2 device ints, zeroed here on `stream`. Two kernels run, the
+// sweep and the tail; returns cudaGetLastError() after the first launch
+// that failed or the last one (0 = launched).
 extern "C" int ft2_fit3_cont(const float* signal, long long n, int n_te,
                              int model, const float* params, int max_iters,
                              const float* x0, const float* st0, float* x_out,
-                             float* st_out, float* rows, int* counters, void* stream) {
+                             float* st_out, float* rows, int* counters,
+                             const int* live_blocks, int block, void* stream) {
   if (x0 == nullptr || st0 == nullptr || rows == nullptr || counters == nullptr ||
       n > kMaxWorklist)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err =  // the worklist's counters start at zero
       cudaMemsetAsync(counters, 0, 2 * sizeof(int), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
-  return run(signal, n, n_te, model, params, max_iters, x0, st0, x_out, st_out,
-             rows, counters, stream);
+  return run(signal, n, n_te, model, params, max_iters, RowBound{live_blocks, block}, x0,
+             st0, x_out, st_out, rows, counters, stream);
 }

@@ -1,7 +1,8 @@
 // Device helpers shared by the fit kernels (gauss_fit.cu, gr_varpro_fit.cu,
 // fit3.cu): NaN-keeping clips, left-to-right echo sums, the weighted
-// log-linear start, the exact T = 3 gaussian_rician interpolant, and the
-// worklist that compacts the voxels still running into a tail kernel.
+// log-linear start, the exact T = 3 gaussian_rician interpolant, the bound
+// on a buffer's live rows, and the worklist that compacts the voxels still
+// running into a tail kernel.
 //
 // Numerics follow fetal_t2mapping_tpu_torch/models/fused_fit.py op for op
 // (which follows the JAX package's kernels): each helper rounds where its
@@ -145,6 +146,38 @@ __device__ __forceinline__ void interp_start_gr(
   k_out = valid ? clip(sqrtf(nmax(k2, 0.0f)), lo[0], hi[0]) : fb[0];
   t2_out = valid ? t2r : fb[1];
   sg_out = valid ? clip(sqrtf(nmax(sg2, 0.0f)), lo[2], hi[2]) : fb[2];
+}
+
+// ---- the live rows of a fit buffer
+//
+// A caller that knows on the device how many leading blocks of its buffer
+// hold voxels it will read (the block layout's touched-block count) passes
+// that count: the fit then takes rows [0, live_rows) only. A row at or
+// past the bound is written as an unfitted voxel (parameters, objective,
+// converged and n_iter all 0) and never enters a worklist; a thread block
+// whose first row is past it does nothing else. The launch keeps the
+// buffer's size, so the host reads nothing. Without a count every row is
+// live.
+struct RowBound {
+  const int* live_blocks;  // device count of live blocks, or null: every row
+  int block;               // rows per block
+};
+
+__device__ __forceinline__ long long live_rows(const RowBound& bound, long long n) {
+  if (bound.live_blocks == nullptr) return n;
+  const long long rows = (long long)*bound.live_blocks * bound.block;
+  return rows < n ? rows : n;
+}
+
+// An unfitted row of the (3, n) parameter and stats arrays (k, t2, sigma;
+// f, converged, n_iter) of the 3-parameter fits.
+__device__ __forceinline__ void write_unfitted3(long long n, long long i, float* x_out,
+                                                float* st_out) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    x_out[c * n + i] = 0.0f;
+    st_out[c * n + i] = 0.0f;
+  }
 }
 
 // Bits of a voxel index in a float worklist row, and back.

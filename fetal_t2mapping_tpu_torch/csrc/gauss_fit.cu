@@ -27,6 +27,9 @@
 // some lane of a tail warp refills on most turns: 0.15-0.3 ms) and, at the
 // bench's tolerances, where the voxels still running lie (~0.27 ms).
 // full_budget, a measurement instrument, keeps the one-pass kernel.
+// Given a live-row bound (fit_common.cuh's RowBound), the head and the
+// one-pass kernel fit only the rows before it and write the others
+// unfitted; the tail drains only what the head pushed.
 //
 // Numerics follow the reference op for op so that the port agrees with it
 // to float32 rounding: sums over echoes run left to right from the first
@@ -375,16 +378,31 @@ __device__ __forceinline__ void write_result(long long i, const Gauss<T>& v, boo
   nit_out[i] = (int32_t)v.nit;
 }
 
+// A row past the live bound: an unfitted voxel.
+__device__ __forceinline__ void write_unfitted(long long i, float* k_out, float* t2_out,
+                                               float* f_out, uint8_t* conv_out,
+                                               int32_t* nit_out) {
+  k_out[i] = 0.0f;
+  t2_out[i] = 0.0f;
+  f_out[i] = 0.0f;
+  conv_out[i] = 0;
+  nit_out[i] = 0;
+}
+
 // full_budget (a measurement instrument): every voxel to max_iters in one pass.
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 gauss_single_kernel(const float* __restrict__ signal, long long n,
                     const GaussParams p, int max_iters, int stall_iters,
-                    bool no_prior, float* __restrict__ k_out,
+                    bool no_prior, const RowBound bound, float* __restrict__ k_out,
                     float* __restrict__ t2_out, float* __restrict__ f_out,
                     uint8_t* __restrict__ conv_out, int32_t* __restrict__ nit_out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
+  if (i >= live_rows(bound, n)) {
+    write_unfitted(i, k_out, t2_out, f_out, conv_out, nit_out);
+    return;
+  }
   float s[T];
   load_signal<T>(signal, i, s);
   const KBox b = k_box(s[0], p, no_prior);
@@ -395,20 +413,24 @@ gauss_single_kernel(const float* __restrict__ signal, long long n,
 
 // The head: one thread per voxel; a voxel that stopped writes its results,
 // one still running pushes its state to the worklist. Threads past the end
-// take part in the push (it holds __syncthreads) with nothing to push.
+// or the live bound take part in the push (it holds __syncthreads) with
+// nothing to push; a block wholly past the bound returns.
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 gauss_head_kernel(const float* __restrict__ signal, long long n,
                   const GaussParams p, int max_iters, int stall_iters,
-                  bool no_prior, float* __restrict__ k_out,
+                  bool no_prior, const RowBound bound, float* __restrict__ k_out,
                   float* __restrict__ t2_out, float* __restrict__ f_out,
                   uint8_t* __restrict__ conv_out, int32_t* __restrict__ nit_out,
                   float* __restrict__ rows, int* counters) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long live = live_rows(bound, n);
+  if (i >= live && i < n) write_unfitted(i, k_out, t2_out, f_out, conv_out, nit_out);
+  if ((long long)blockIdx.x * kThreads >= live) return;  // the whole block
   float s[T];
   Gauss<T> v;
   bool runs = false;
-  if (i < n) {
+  if (i < live) {
     load_signal<T>(signal, i, s);
     const KBox b = k_box(s[0], p, no_prior);
     bool conv;
@@ -467,17 +489,18 @@ gauss_tail_kernel(const GaussParams p, int max_iters, int stall_iters, bool no_p
 
 template <int T>
 int launch(const float* signal, long long n, const GaussParams& p, int max_iters,
-           int stall_iters, bool no_prior, bool full_budget, float* k, float* t2,
-           float* f, uint8_t* conv, int32_t* nit, float* rows, int* counters,
+           int stall_iters, bool no_prior, bool full_budget, const RowBound& bound, float* k,
+           float* t2, float* f, uint8_t* conv, int32_t* nit, float* rows, int* counters,
            cudaStream_t stream) {
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (full_budget) {
     gauss_single_kernel<T><<<blocks, kThreads, 0, stream>>>(
-        signal, n, p, max_iters, stall_iters, no_prior, k, t2, f, conv, nit);
+        signal, n, p, max_iters, stall_iters, no_prior, bound, k, t2, f, conv, nit);
     return (int)cudaGetLastError();
   }
   gauss_head_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      signal, n, p, max_iters, stall_iters, no_prior, k, t2, f, conv, nit, rows, counters);
+      signal, n, p, max_iters, stall_iters, no_prior, bound, k, t2, f, conv, nit, rows,
+      counters);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gauss_tail_kernel<T><<<persistent_blocks(gauss_tail_kernel<T>, kThreads), kThreads, 0,
@@ -511,18 +534,22 @@ extern "C" int ft2_gauss_slot_rows(int n_te) {
 // signal: (n, n_te) row-major float32 on the device; params: kParamFloats
 // host floats (GaussParams). Outputs are device arrays of length n. rows:
 // ft2_gauss_slot_rows(n_te) x n device floats of worklist; counters: 2
-// device ints, zeroed here on `stream`. Unless full_budget, two kernels run, the head and the
-// tail; returns cudaGetLastError() after the first launch that failed or
-// the last one (0 = launched).
+// device ints, zeroed here on `stream`. live_blocks: a device int, the
+// count of leading `block`-row blocks to fit (rows past count * block are
+// written unfitted: all 0), or null for every row. Unless full_budget, two
+// kernels run, the head and the tail; returns cudaGetLastError() after the
+// first launch that failed or the last one (0 = launched).
 extern "C" int ft2_gauss_fit(const float* signal, long long n, int n_te,
                              const float* params, int max_iters,
                              int stall_iters, int no_prior, int full_budget,
                              float* k, float* t2, float* f,
                              unsigned char* conv, int* nit, float* rows,
-                             int* counters, void* stream) {
+                             int* counters, const int* live_blocks, int block,
+                             void* stream) {
   GaussParams p;
   std::memcpy(&p, params, sizeof(p));
-  if (n <= 0 || n > kMaxWorklist) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kMaxWorklist || (live_blocks != nullptr && block < 1))
+    return (int)cudaErrorInvalidValue;
   if (!full_budget && (rows == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!full_budget) {  // the worklist's counters start at zero
@@ -530,14 +557,15 @@ extern "C" int ft2_gauss_fit(const float* signal, long long n, int n_te,
     if (err != cudaSuccess) return (int)err;
   }
   const bool np = no_prior != 0, fb = full_budget != 0;
+  const RowBound b{live_blocks, block};
   switch (n_te) {
-    case 2: return launch<2>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
-    case 3: return launch<3>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
-    case 4: return launch<4>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
-    case 5: return launch<5>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
-    case 6: return launch<6>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
-    case 7: return launch<7>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
-    case 8: return launch<8>(signal, n, p, max_iters, stall_iters, np, fb, k, t2, f, conv, nit, rows, counters, s);
+    case 2: return launch<2>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
+    case 3: return launch<3>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
+    case 4: return launch<4>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
+    case 5: return launch<5>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
+    case 6: return launch<6>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
+    case 7: return launch<7>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
+    case 8: return launch<8>(signal, n, p, max_iters, stall_iters, np, fb, b, k, t2, f, conv, nit, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

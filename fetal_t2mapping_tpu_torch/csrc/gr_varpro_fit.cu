@@ -34,6 +34,9 @@
 // results are those of one pass, whatever lane or order the tail gives it;
 // a converged voxel is frozen, so they equal the TPU kernel's block-wide
 // loop. full_budget (a measurement instrument) keeps the single pass.
+// Given a live-row bound (fit_common.cuh's RowBound), the head and the
+// single pass fit only the rows before it and write the others unfitted;
+// the tail drains only what the head pushed.
 //
 // Everything above the "kernel and C entry" marker is per-thread code that
 // also compiles as host C++ (tests/test_torch_gr_varpro_host.py runs the
@@ -452,9 +455,14 @@ template <int T>
 __global__ void __launch_bounds__(kThreads)
 gr_varpro_single_kernel(const float* __restrict__ signal, long long n,
                         const GrParams p, int max_iters, int stall_iters,
-                        float* __restrict__ x_out, float* __restrict__ st_out) {
+                        const RowBound bound, float* __restrict__ x_out,
+                        float* __restrict__ st_out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
+  if (i >= live_rows(bound, n)) {
+    write_unfitted3(n, i, x_out, st_out);
+    return;
+  }
   float s[T];
   load_signal<T>(signal, i, s);
   float x[3], st[3];
@@ -467,17 +475,21 @@ gr_varpro_single_kernel(const float* __restrict__ signal, long long n,
 }
 
 // The head: one thread per voxel; a voxel that stopped writes its
-// results, one still running pushes its state to the worklist.
+// results, one still running pushes its state to the worklist. Rows past
+// the live bound are written unfitted; a block wholly past it returns.
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 gr_varpro_head_kernel(const float* __restrict__ signal, long long n,
                       const GrParams p, int max_iters, int stall_iters,
-                      float* __restrict__ x_out, float* __restrict__ st_out,
-                      float* __restrict__ rows, int* counters) {
+                      const RowBound bound, float* __restrict__ x_out,
+                      float* __restrict__ st_out, float* __restrict__ rows, int* counters) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long live = live_rows(bound, n);
+  if (i >= live && i < n) write_unfitted3(n, i, x_out, st_out);
+  if ((long long)blockIdx.x * kThreads >= live) return;  // the whole block
   Outer<T> o;
   bool runs = false;
-  if (i < n) {
+  if (i < live) {
     float s[T];
     load_signal<T>(signal, i, s);
     runs = head_voxel<T>(s, p, max_iters, stall_iters, kHeadIters, o);
@@ -524,16 +536,16 @@ gr_varpro_tail_kernel(const float* __restrict__ signal, long long n,
 
 template <int T>
 int launch(const float* signal, long long n, const GrParams& p, int max_iters,
-           int stall_iters, bool full_budget, float* x, float* st, float* rows,
-           int* counters, cudaStream_t stream) {
+           int stall_iters, bool full_budget, const RowBound& bound, float* x, float* st,
+           float* rows, int* counters, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (full_budget) {
     gr_varpro_single_kernel<T><<<blocks, kThreads, 0, stream>>>(
-        signal, n, p, max_iters, stall_iters, x, st);
+        signal, n, p, max_iters, stall_iters, bound, x, st);
     return (int)cudaGetLastError();
   }
   gr_varpro_head_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      signal, n, p, max_iters, stall_iters, x, st, rows, counters);
+      signal, n, p, max_iters, stall_iters, bound, x, st, rows, counters);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gr_varpro_tail_kernel<T><<<persistent_blocks(gr_varpro_tail_kernel<T>, kThreads),
@@ -577,17 +589,21 @@ extern "C" int ft2_gr_slot_rows(int n_te) {
 // host floats (GrParams). x_out, st_out: (3, n) device arrays, rows
 // (k, t2, sigma) and (f, converged 0/1, n_iter). rows: ft2_gr_slot_rows(n_te)
 // x n device floats of worklist; counters: 2 device ints, zeroed here on
-// `stream`. Unless full_budget, two kernels run, the head and the tail;
-// returns cudaGetLastError() after the first launch that failed or the
-// last one (0 = launched).
+// `stream`. live_blocks: a device int, the count of leading `block`-row
+// blocks to fit (rows past count * block are written unfitted: all 0), or
+// null for every row. Unless full_budget, two kernels run, the head and the
+// tail; returns cudaGetLastError() after the first launch that failed or
+// the last one (0 = launched).
 extern "C" int ft2_gr_varpro_fit(const float* signal, long long n, int n_te,
                                  const float* params, int max_iters,
                                  int stall_iters, int full_budget,
                                  float* x_out, float* st_out, float* rows,
-                                 int* counters, void* stream) {
+                                 int* counters, const int* live_blocks, int block,
+                                 void* stream) {
   GrParams p;
   std::memcpy(&p, params, sizeof(p));
-  if (n <= 0 || n > kMaxWorklist) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > kMaxWorklist || (live_blocks != nullptr && block < 1))
+    return (int)cudaErrorInvalidValue;
   if (!full_budget && (rows == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!full_budget) {  // the worklist's counters start at zero
@@ -595,14 +611,15 @@ extern "C" int ft2_gr_varpro_fit(const float* signal, long long n, int n_te,
     if (err != cudaSuccess) return (int)err;
   }
   const bool fb = full_budget != 0;
+  const RowBound b{live_blocks, block};
   switch (n_te) {
-    case 2: return launch<2>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
-    case 3: return launch<3>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
-    case 4: return launch<4>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
-    case 5: return launch<5>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
-    case 6: return launch<6>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
-    case 7: return launch<7>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
-    case 8: return launch<8>(signal, n, p, max_iters, stall_iters, fb, x_out, st_out, rows, counters, s);
+    case 2: return launch<2>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
+    case 3: return launch<3>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
+    case 4: return launch<4>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
+    case 5: return launch<5>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
+    case 6: return launch<6>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
+    case 7: return launch<7>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
+    case 8: return launch<8>(signal, n, p, max_iters, stall_iters, fb, b, x_out, st_out, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

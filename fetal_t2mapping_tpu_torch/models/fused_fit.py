@@ -21,6 +21,15 @@ Each fit pass records a ``fit_fused.launch`` span (attribute ``kernel``)
 and each CUDA launch a count in ``<kernel>.launches``, both in
 ``utils.profiling.profiler``.
 
+A fit pass may take a live-row bound (``row_bound``: a () int32 count of
+live blocks on the batch's device, and the rows per block): kernels and
+plain versions alike fit rows [0, min(count * block, N)) only and return
+the rows past it unfitted (parameters, objective, converged and n_iter 0).
+``volume_fit``'s block layout passes its compaction's touched-block
+count, so the slots past the touched blocks, which no map reads, are not
+fitted; the count stays on the device. Each pass launched with a bound
+counts in ``fit_fused.row_bound.launches``.
+
 Kernels and plain versions follow the reference op for op — the same
 left-to-right sums over echoes, the same float32 constants (every
 expression the reference evaluates between Python floats is computed here
@@ -38,6 +47,7 @@ default single pass; ``parallel.mesh`` shards either over several devices.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Dict, Tuple
@@ -395,12 +405,30 @@ def _stop_tests(f, f_new, lam, conv, scnt, step_sq, x_sq, pg, *, ftol, gtol,
     return accept, newly, scnt
 
 
+def _rows_bounded(plain):
+    """A plain fit that honours a live-row bound: with ``row_bound`` (count,
+    block) it fits the rows before min(count * block, N) (its (P, N)
+    tensor arguments cut to them) and returns each (..., N) output with
+    the rows past the bound 0 (False); without one, ``plain`` itself."""
+    @functools.wraps(plain)
+    def fit(signal, *args, row_bound=None, **kw):
+        if row_bound is None:
+            return plain(signal, *args, **kw)
+        n = signal.shape[0]
+        live = min(int(row_bound[0]) * int(row_bound[1]), n)
+        args = tuple(a[..., :live] if torch.is_tensor(a) else a for a in args)
+        return tuple(torch.cat([t, t.new_zeros(t.shape[:-1] + (n - live,))], dim=-1)
+                     for t in plain(signal[:live], *args, **kw))
+    return fit
+
+
 def _proj_grad(x, g, lo_thr, hi_thr):
     zero = torch.zeros_like(g)
     return torch.where(x <= lo_thr, torch.minimum(g, zero),
                        torch.where(x >= hi_thr, torch.maximum(g, zero), g))
 
 
+@_rows_bounded
 def _gauss_fit_plain(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
                      ftol: float, gtol: float, no_prior: bool,
                      full_budget: bool, stall_iters: int, stall_tol: float):
@@ -568,6 +596,7 @@ def _interp_start_gr(s, tab, lo, hi, n_bisect):
             torch.where(valid, sg, fb[2]))
 
 
+@_rows_bounded
 def _gr_varpro_fit_plain(signal: torch.Tensor, te, lo, hi, guess, *,
                          max_iters: int, ftol: float, gtol: float,
                          full_budget: bool, stall_iters: int, stall_tol: float):
@@ -859,6 +888,7 @@ def _grid_start3(s, tab, lo, hi):
     return (best_k, torch.clamp(best_t2, lo[1], hi[1]), torch.clamp(sg, lo[2], hi[2]))
 
 
+@_rows_bounded
 def _fit3_plain(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
                 max_iters: int, ftol: float, gtol: float, stall_tol: float):
     """Plain PyTorch version of the 3-start multistart kernel
@@ -891,6 +921,7 @@ def _fit3_plain(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
     return best[:3], best[3:]
 
 
+@_rows_bounded
 def _fit3_cont_plain(signal: torch.Tensor, model: str, te, lo, hi, guess,
                      x0: torch.Tensor, st0: torch.Tensor, *, max_iters: int,
                      ftol: float, gtol: float, stall_tol: float):
@@ -913,6 +944,20 @@ def _check_params(params: np.ndarray, n_floats: int, what: str) -> None:
                            "fused_fit.py and its CUDA source")
 
 
+def _bound_args(row_bound, dev):
+    """A live-row bound as a C entry takes it: (pointer to the device count
+    of live blocks, rows per block), or (None, 0) for every row."""
+    if row_bound is None:
+        return None, 0
+    live, block = row_bound
+    if live.dtype != torch.int32 or live.device != dev or live.numel() != 1:
+        raise ValueError(f"the live-block count must be one int32 on {dev}; got "
+                         f"{live.dtype} {tuple(live.shape)} on {live.device}")
+    if int(block) < 1:
+        raise ValueError(f"rows per live block must be >= 1; got {block}")
+    return live.data_ptr(), int(block)
+
+
 def _worklist(n_rows: int, n: int, dev):
     """Device scratch of a split fit kernel: ``n_rows`` x ``n`` floats of
     worklist (one slot per voxel that may still run after the head) and
@@ -924,7 +969,7 @@ def _worklist(n_rows: int, n: int, dev):
 
 def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
                     ftol: float, gtol: float, no_prior: bool,
-                    full_budget: bool, stall_iters: int, stall_tol: float):
+                    full_budget: bool, stall_iters: int, stall_tol: float, row_bound=None):
     """Launch csrc/gauss_fit.cu (its head and tail kernels; one pass with
     full_budget) on ``signal``'s device and stream; same outputs as
     ``_gauss_fit_plain``."""
@@ -938,13 +983,14 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
     nit = torch.empty(n, dtype=torch.int32, device=dev)
     # the head kernel's worklist for the tail (unused by the full-budget pass)
     rows, counters = _worklist(0 if full_budget else lib.ft2_gauss_slot_rows(T), n, dev)
+    live, block = _bound_args(row_bound, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_gauss_fit(
             signal.data_ptr(), n, T, params.ctypes.data, int(max_iters),
             int(stall_iters), int(no_prior), int(full_budget),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             conv.data_ptr(), nit.data_ptr(), rows.data_ptr(), counters.data_ptr(),
-            build.stream(dev))
+            live, block, build.stream(dev))
     build.check_launch(err, "gauss_fit")
     profiler.count("gauss_fit.launches")
     return out[0], out[1], out[2], conv.view(torch.bool), nit
@@ -952,7 +998,8 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
 
 def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
                         max_iters: int, ftol: float, gtol: float,
-                        full_budget: bool, stall_iters: int, stall_tol: float):
+                        full_budget: bool, stall_iters: int, stall_tol: float,
+                        row_bound=None):
     """Launch csrc/gr_varpro_fit.cu (its head and tail kernels; one pass
     with full_budget); same outputs as the plain version."""
     lib = build.load_lib("gr_varpro_fit")
@@ -963,18 +1010,20 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
     # the head kernel's worklist for the tail (unused by the full-budget pass)
     rows, counters = _worklist(0 if full_budget else lib.ft2_gr_slot_rows(T), n, dev)
+    live, block = _bound_args(row_bound, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_gr_varpro_fit(
             signal.data_ptr(), n, T, params.ctypes.data, int(max_iters),
             int(stall_iters), int(full_budget), out[0].data_ptr(),
-            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
+            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), live, block,
+            build.stream(dev))
     build.check_launch(err, "gr_varpro_fit")
     profiler.count("gr_varpro_fit.launches")
     return out[0], out[1]
 
 
 def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
-               max_iters: int, ftol: float, gtol: float, stall_tol: float):
+               max_iters: int, ftol: float, gtol: float, stall_tol: float, row_bound=None):
     """Launch ft2_fit3_multistart (csrc/fit3.cu)."""
     lib = build.load_lib("fit3")
     n, T = signal.shape
@@ -982,10 +1031,12 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
+    live, block = _bound_args(row_bound, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_fit3_multistart(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
-            int(max_iters), out[0].data_ptr(), out[1].data_ptr(), build.stream(dev))
+            int(max_iters), out[0].data_ptr(), out[1].data_ptr(), live, block,
+            build.stream(dev))
     build.check_launch(err, "fit3")
     profiler.count("fit3.launches")
     return out[0], out[1]
@@ -993,7 +1044,7 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
 
 def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
                     x0: torch.Tensor, st0: torch.Tensor, *, max_iters: int,
-                    ftol: float, gtol: float, stall_tol: float):
+                    ftol: float, gtol: float, stall_tol: float, row_bound=None):
     """Launch ft2_fit3_cont (csrc/fit3.cu: its sweep and tail kernels)."""
     lib = build.load_lib("fit3")
     n, T = signal.shape
@@ -1006,11 +1057,13 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
     rows, counters = _worklist(lib.ft2_fit3_cont_slot_rows(), n, dev)
+    live, block = _bound_args(row_bound, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_fit3_cont(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
             int(max_iters), x0.data_ptr(), st0.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), build.stream(dev))
+            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), live, block,
+            build.stream(dev))
     build.check_launch(err, "fit3_cont")
     profiler.count("fit3_cont.launches")
     return out[0], out[1]
@@ -1094,10 +1147,14 @@ def _columns(*cols: torch.Tensor) -> torch.Tensor:
 
 def _fit_pass(signal: torch.Tensor, model: str, te_t, lo_t, hi_t, guess_t, *,
               max_iters: int, ftol: float, gtol: float, no_prior: bool,
-              full_budget: bool, prefix3: int, varpro3: bool):
-    """One pass of the model's fit over every row of ``signal``, on its
-    device: (x (N, P), fun, converged (bool), n_iter (int32))."""
-    kw = dict(max_iters=int(max_iters), ftol=float(ftol), gtol=float(gtol))
+              full_budget: bool, prefix3: int, varpro3: bool, row_bound=None):
+    """One pass of the model's fit over every row of ``signal`` (those
+    before ``row_bound``'s live rows, if given), on its device: (x (N, P),
+    fun, converged (bool), n_iter (int32))."""
+    kw = dict(max_iters=int(max_iters), ftol=float(ftol), gtol=float(gtol),
+              row_bound=row_bound)
+    if row_bound is not None:
+        profiler.count("fit_fused.row_bound.launches")
     if model == "gaussian":
         k, t2, f, conv, nit = _gauss_fit(
             signal, te_t, lo_t, hi_t, no_prior=bool(no_prior),
@@ -1200,24 +1257,29 @@ def resolve_fused(te, lo, hi, *, model: str, guess, max_iters: int, ftol: float,
     varpro3 = resolve_varpro3(varpro3, model)
     strategy = resolve_strategy(strategy, phase1_iters, max_iters, model, prefix3, varpro3)
 
-    def fit_pass(batch, *, max_iters, prefix3):
+    def fit_pass(batch, *, max_iters, prefix3, row_bound=None):
         return _fit_pass(batch, model, te_t, lo_t, hi_t, guess_t, max_iters=max_iters,
                          ftol=ftol, gtol=gtol, no_prior=no_prior, full_budget=full_budget,
-                         prefix3=prefix3, varpro3=varpro3)
+                         prefix3=prefix3, varpro3=varpro3, row_bound=row_bound)
 
     two = dict(phase1_iters=int(phase1_iters), max_iters=int(max_iters), prefix3=prefix3,
                tail_frac=tail_frac, tail_rounds=int(tail_rounds), tail_block=tail_block)
     return fit_pass, strategy, two
 
 
-def fit_resolved(signal: torch.Tensor, te, fit_pass, strategy: str, two: dict) -> FitResult:
+def fit_resolved(signal: torch.Tensor, te, fit_pass, strategy: str, two: dict,
+                 row_bound=None) -> FitResult:
     """One batch through a :func:`resolve_fused` configuration, on the
     batch's device and current stream, without waiting for the device
-    (but for the 'twophase' rounds' reads)."""
+    (but for the 'twophase' rounds' reads). ``row_bound`` bounds a
+    'single' pass's live rows; 'twophase' takes none."""
     _check_signal(signal, te)
     if strategy == "twophase":
+        if row_bound is not None:
+            raise ValueError("a live-row bound is for strategy 'single'; 'twophase' takes none")
         return _fit_twophase(signal, fit_pass, **two)
-    x, f, conv, nit = fit_pass(signal, max_iters=two["max_iters"], prefix3=two["prefix3"])
+    x, f, conv, nit = fit_pass(signal, max_iters=two["max_iters"], prefix3=two["prefix3"],
+                               row_bound=row_bound)
     return FitResult(x=x, fun=f, converged=conv, n_iter=nit, n_overflow=0)
 
 
@@ -1226,7 +1288,8 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
               no_prior: bool = False, strategy: str = "auto",
               full_budget: bool = False, prefix3=None, varpro3=None,
               phase1_iters: int = 10, tail_frac=None, tail_rounds: int = 2,
-              tail_block=None, sync: bool = True, device="cuda") -> FitResult:
+              tail_block=None, sync: bool = True, device="cuda",
+              _row_bound=None) -> FitResult:
     """Fused fit of every voxel in the batch.
 
     Args:
@@ -1270,6 +1333,10 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
         sync: wait for the device before returning.
         device: 'cuda' (default) runs the CUDA kernels, 'cpu' the plain
             versions.
+        _row_bound: internal to ``volume_fit``'s block layout: (a () int32
+            count of live blocks on the batch's device, rows per block).
+            Only rows before count * block are fitted; the others come back
+            unfitted (0, False). 'single' only.
 
     Returns:
         FitResult with x (N, P), fun, converged (bool), n_iter (int32) and
@@ -1286,7 +1353,7 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
                 prefix3=prefix3, varpro3=varpro3, phase1_iters=phase1_iters,
                 tail_frac=tail_frac, tail_rounds=tail_rounds, tail_block=tail_block)
             signal = torch.as_tensor(signal, dtype=torch.float32, device=resolve_device(device))
-        result = fit_resolved(signal, te, fit_pass, strategy, two)
+        result = fit_resolved(signal, te, fit_pass, strategy, two, _row_bound)
         if sync and signal.device.type == "cuda":
             torch.cuda.current_stream(signal.device).synchronize()
         return result

@@ -18,7 +18,10 @@ once it has converged, so grouping never changes an iterate):
   slot of a buffer of static capacity (``mask_frac`` of the volume), in
   ascending block order (a stable partition); the buffer is fitted with
   the filler in the blocks' unmasked voxels, and the maps are written
-  through the same block -> slot map. On a CUDA tensor both halves are
+  through the same block -> slot map. On one device under 'single' the
+  fit stops at the touched blocks' rows: it reads the compaction's count
+  on the device (``fit_fused``'s live-row bound), so the slots past it,
+  which no map reads, are not fitted. On a CUDA tensor both halves are
   hand-written kernels (``csrc/volume_layout.cu``: the compaction and the
   scatter, counted in ``volume_layout.compact.launches`` and
   ``volume_layout.scatter.launches``); on a CPU tensor their plain
@@ -185,12 +188,14 @@ def _batch_buffer(rows: int, t_axis: int, dev: torch.device, mesh) -> torch.Tens
     return torch.empty((n_fit, t_axis), dtype=torch.float32, device=dev)
 
 
-def _fit(batch: torch.Tensor, fit_kw: dict, mesh) -> FitResult:
+def _fit(batch: torch.Tensor, fit_kw: dict, mesh, row_bound=None) -> FitResult:
     """The fused fit of a device batch, without waiting for the device, on
     its device or sharded over ``mesh``. Its n_overflow is 0 for 'single'
-    and a () int32 tensor for 'twophase' (summed over shards)."""
+    and a () int32 tensor for 'twophase' (summed over shards).
+    ``row_bound``: fit_fused's live-row bound (one device only)."""
     if mesh is None:
-        return fit_fused(batch, sync=False, device=batch.device, **fit_kw)
+        return fit_fused(batch, sync=False, device=batch.device, _row_bound=row_bound,
+                         **fit_kw)
     from ..parallel.mesh import fit_fused_sharded
 
     return fit_fused_sharded(batch, mesh=mesh, sync=False, **fit_kw)
@@ -372,7 +377,9 @@ def _fit_compact(signal, mask, filler_args, fit_kw, mesh, *, blk_cap: int, block
     scattered back through the block -> slot map. On a CUDA tensor both
     halves are csrc/volume_layout.cu's kernels, on a CPU one their plain
     versions. With ``check_capacity`` the touched-block count is read
-    (one 4-byte read) between the compaction and the fit's launch."""
+    (one 4-byte read) between the compaction and the fit's launch. On one
+    device under 'single' the fit takes that count, on the device, as its
+    live-row bound: the slots past the touched blocks are not fitted."""
     zyx = signal.shape[:3]
     t_axis = signal.shape[3]
     n = prod(zyx)
@@ -396,7 +403,8 @@ def _fit_compact(signal, mask, filler_args, fit_kw, mesh, *, blk_cap: int, block
                     f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
                     f"be left unfitted (n_overflow); raise mask_frac to "
                     f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=3)
-    res = _fit(buf, fit_kw, mesh)
+    single = mesh is None and resolve_strategy(fit_kw["strategy"]) == "single"
+    res = _fit(buf, fit_kw, mesh, (counts[0], block) if single else None)
     with profiler.span("fit_volume.scatter"):
         return (_scatter_cuda if cuda else _scatter_plain)(flat_mask, block, slot, res,
                                                            counts, zyx)

@@ -12,6 +12,11 @@ and ``n_overflow`` must match, on ragged grids, at block 32, 1 and 7, with
 a capacity that overflows and one larger than the grid's blocks, at 3 and
 4 echoes, and for fits of 2 and 3 parameters. Each benchmark cell's
 request, cut to 24^3, gives the maps of the benchmark's reference fit.
+The block layout's fit stops at the touched blocks' rows (``fit_fused``'s
+live-row bound) and still gives the dense layout's maps; a bounded fit
+keeps the unbounded fit's bits on its live rows and writes the others
+unfitted, at no live row, at the capacity and past it; only the
+single-device 'single' block layout counts a bounded pass.
 
 On the card (marker ``cuda``; ``python3 -m pytest --noconftest
 tests/test_torch_volume_layout.py``) the kernels of
@@ -19,9 +24,13 @@ tests/test_torch_volume_layout.py``) the kernels of
 the same cases, ``fit_volume`` counts one compaction and one scatter
 launch per block-layout request (also over a mesh, whose padding rows the
 wrapper fills), and the benchmark cells' 240^3 requests give the plain
-layout's buffer and maps. This file imports no JAX.
+layout's buffer and maps. Every fit kernel keeps its bits under a live-row
+bound, and a cell's request without the capacity check (no host read)
+gives the maps of the call with it and of the dense layout. This file
+imports no JAX.
 """
 
+import functools
 import os
 import warnings
 from math import prod
@@ -286,6 +295,121 @@ def test_capacity_warning_comes_before_the_fit(monkeypatch):
     assert int(res.n_masked) == mask.numel()
 
 
+ROW_BOUND = "fit_fused.row_bound.launches"
+
+#: fit_fused's keywords per fit: each fit kernel (rician with its prefix,
+#: gaussian_rician's VARPRO), the multistart alone, and the one-pass kernels
+FITS = {"gaussian": dict(model="gaussian"),
+        "gaussian_full": dict(model="gaussian", full_budget=True),
+        "gaussian_rician": dict(model="gaussian_rician", guess=GUESS3, varpro3=True),
+        "gaussian_rician_full": dict(model="gaussian_rician", guess=GUESS3, varpro3=True,
+                                     full_budget=True),
+        "rician": dict(model="rician", guess=GUESS3, prefix3=4),
+        "rician_unpruned": dict(model="rician", guess=GUESS3, prefix3=0)}
+
+
+def _box(model):
+    return (LO, HI) if model == "gaussian" else (LO3, HI3)
+
+
+def _fit_kw(model):
+    """fit_volume's keywords of a model's serving fit (rician with its
+    4-iteration prefix, gaussian_rician with its VARPRO kernel)."""
+    return dict(FITS[model], ftol=1e-9, gtol=0.0, max_iters=60)
+
+
+@pytest.mark.parametrize("model", ["gaussian", "gaussian_rician", "rician"])
+def test_block_layout_fits_only_the_touched_blocks(model):
+    """The block layout's fit stops at the touched blocks' rows (72 of 128
+    slots here: 44% of the capacity is never fitted), and its six maps,
+    n_masked and n_overflow are the dense layout's bits; one bounded fit
+    pass is counted."""
+    signal, mask = _grid("ellipsoid16", 3)
+    lo, hi = _box(model)
+    blk_cap = volume_fit._block_capacity(mask.numel(), 1.0, 32)
+    touched = int(mask.reshape(-1, 32).any(dim=1).sum())
+    assert touched / blk_cap <= 0.6
+    before = profiler.counter(ROW_BOUND)
+    got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=True, mask_frac=1.0,
+                                device="cpu", **_fit_kw(model))
+    assert profiler.counter(ROW_BOUND) == before + 1
+    _assert_same_result(got, volume_fit.fit_volume(signal, mask, TES[3], lo, hi,
+                                                   compact=False, device="cpu",
+                                                   **_fit_kw(model)))
+
+
+@pytest.mark.parametrize("layout", ["dense", "mesh", "twophase"])
+def test_other_layouts_fit_every_row(layout):
+    """Only the single-device block layout under 'single' bounds its fit:
+    the dense layout, a voxel mesh and 'twophase' count no bounded pass.
+    The mesh's unbounded shards give the bounded block layout's bits."""
+    from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
+
+    signal, mask = _grid("ellipsoid16", 3)
+    kw = dict(compact=layout != "dense", mask_frac=1.0, device="cpu", **_fit_kw("gaussian"))
+    if layout == "mesh":
+        kw["mesh"] = voxel_mesh(devices=["cpu"] * 2)
+    if layout == "twophase":
+        kw["strategy"] = "twophase"
+    before = profiler.counter(ROW_BOUND)
+    got = volume_fit.fit_volume(signal, mask, TES[3], LO, HI, **kw)
+    assert profiler.counter(ROW_BOUND) == before
+    if layout == "mesh":
+        kw.pop("mesh")
+        _assert_same_result(got, volume_fit.fit_volume(signal, mask, TES[3], LO, HI, **kw))
+    assert int(got.n_masked) == int(mask.sum())
+
+
+@functools.lru_cache(maxsize=None)
+def _unbounded(fit: str, dev: str, n: int):
+    """(signal (n, 3), the unbounded fit_fused result) of a fit."""
+    rng = np.random.default_rng(23)
+    k = rng.uniform(600.0, 5000.0, n).astype(np.float32)
+    t2 = rng.uniform(20.0, 500.0, n).astype(np.float32)
+    sig = np.maximum(k[:, None] * np.exp(-np.asarray(TES[3], np.float32) / t2[:, None])
+                     + rng.normal(0, 8.0, (n, 3)), 1e-2).astype(np.float32)
+    signal = torch.from_numpy(sig).to(dev)
+    lo, hi = _box(FITS[fit]["model"])
+    return signal, fit_fused(signal, TES[3], lo, hi, device=dev, **_fit_kw(fit))
+
+
+def _check_row_bound(fit: str, dev: str, n: int, count: int, block: int):
+    """fit_fused with a live-row bound of ``count`` blocks of ``block``
+    rows: the rows before min(count * block, n) carry the unbounded fit's
+    bits, the others 0 / False (converged) / 0 (n_iter)."""
+    signal, want = _unbounded(fit, dev, n)
+    lo, hi = _box(FITS[fit]["model"])
+    bound = (torch.tensor(count, dtype=torch.int32, device=dev), block)
+    before = profiler.counter(ROW_BOUND)
+    got = fit_fused(signal, TES[3], lo, hi, device=dev, _row_bound=bound, **_fit_kw(fit))
+    assert profiler.counter(ROW_BOUND) == before + 1
+    live = min(count * block, n)
+    for name in ("x", "fun", "converged", "n_iter"):
+        g, w = getattr(got, name), getattr(want, name)
+        _assert_same(g[:live], w[:live], name)
+        _assert_same(g[live:], torch.zeros_like(w[live:]), f"{name} past the bound")
+    assert got.n_overflow == 0
+
+
+#: (count, block) over 256 rows: none live, a partial bound, the capacity
+#: (8 blocks of 32), a count past it (an overflowing layout: clamped), and
+#: a block that does not divide the kernels' thread blocks
+BOUNDS = [(0, 32), (3, 32), (8, 32), (13, 32), (5, 7)]
+
+
+@pytest.mark.parametrize("count,block", BOUNDS)
+@pytest.mark.parametrize("fit", sorted(FITS))
+def test_fit_fused_row_bound(fit, count, block):
+    _check_row_bound(fit, "cpu", 256, count, block)
+
+
+def test_fit_fused_refuses_a_row_bound_with_twophase():
+    signal, _ = _unbounded("gaussian", "cpu", 256)
+    with pytest.raises(ValueError, match="twophase"):
+        fit_fused(signal, TES[3], LO, HI, strategy="twophase", device="cpu",
+                  _row_bound=(torch.tensor(1, dtype=torch.int32), 32))
+
+
 @pytest.mark.parametrize("cell", ["lf055_gauss.serve", "hf15_rician.serve", "lf055_gr.serve"])
 def test_cell_request_is_the_reference_fit(cell):
     """A benchmark cell's request cut to 24^3 (the capacity raised to hold
@@ -474,3 +598,46 @@ def test_cell_requests_are_the_plain_layout(card, cell):
         _assert_same_result(got, want)
         assert int(got.n_masked) == it.n_masked and int(got.n_overflow) == 0
         del it, buf, res, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,block", [(0, 32), (50, 32), (128, 32), (200, 32), (300, 7)])
+@pytest.mark.parametrize("fit", sorted(FITS))
+def test_fit_kernels_stop_at_the_row_bound(card, fit, count, block):
+    """Every fit kernel (heads, one-pass kernels, the multistart and the
+    continuation's sweep) with a device live-row bound over 4096 rows: the
+    live rows are the unbounded launch's bits, the rows past them 0."""
+    _check_row_bound(fit, "cuda", 4096, count, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lf055_gauss.serve", "hf15_rician.serve", "lf055_gr.serve"])
+def test_cell_request_bound_needs_no_host_read(card, cell):
+    """A benchmark cell's 240^3 request (its largest mask, mask_frac 0.06)
+    without the capacity check: the fit takes the touched-block count on
+    the device, no host read is made, and the maps are those of the call
+    with the check and of the dense layout, bit for bit."""
+    from t2bench import generate, reference, spec
+
+    c = spec.load(ROOT, cell)
+    te, lo, hi, guess = reference.fit_args(c.config)
+    kw = dict(model=c.config["model"], guess=guess, max_iters=int(c.config["max_iters"]),
+              ftol=float(c.config["ftol"]), gtol=float(c.config["gtol"]),
+              prefix3=int(c.config["prefix3"]), varpro3=bool(c.config.get("varpro3", 0)),
+              device=card)
+    items = [generate.item(c.config, c.traffic, 20260123, i, card)
+             for i in range(int(c.traffic["items"]))]
+    it = max(items, key=lambda item: item.n_masked)
+    del items
+    mask_frac = float(c.traffic["mask_frac"])
+    reads, bounded = profiler.counter("host_reads"), profiler.counter(ROW_BOUND)
+    got = volume_fit.fit_volume(it.signal, it.mask, te, lo, hi, mask_frac=mask_frac,
+                                check_capacity=False, **kw)
+    torch.cuda.synchronize()
+    assert profiler.counter("host_reads") == reads
+    assert profiler.counter(ROW_BOUND) == bounded + 1
+    _assert_same_result(got, volume_fit.fit_volume(it.signal, it.mask, te, lo, hi,
+                                                   mask_frac=mask_frac, **kw))
+    _assert_same_result(got, volume_fit.fit_volume(it.signal, it.mask, te, lo, hi,
+                                                   compact=False, **kw))
+    assert int(got.n_masked) == it.n_masked and int(got.n_overflow) == 0
