@@ -35,8 +35,9 @@ MiB; phase 17's sharded solvers), TV, ``fill_holes`` and
 and eager, bitwise) and each N4 level (phase 14: s graphed and eager,
 bitwise with field_cv, the host's launches per level). Phase
 13, the serving path: ``fit_volume`` per model on bench.py's 240^3 x 3-TE
-request (and ~5% and ~50% ellipsoid masks), its dense, block and
-voxel-exact layouts timed, bitwise equal to each other and to
+request (and ~5% and ~50% ellipsoid masks), its block layout with a
+buffer over every block, at mask_frac and voxel-exact timed, bitwise
+equal to each other and to
 ``fit_fused`` on the gathered voxels, the model's kernels launched once
 per request. Phase 14: N4 bias correction at 240^3 (two card runs bitwise,
 card vs CPU at 48^3, the shared-field variant and the stage-2 step), the
@@ -2559,9 +2560,17 @@ SERVING_FITS = {
     "rician": dict(model="rician", lo=LO3, hi=HI3, guess=GUESS3, varpro3=None,
                    kernels=("fit3.launches", "fit3_cont.launches"), **TOL3),
 }
-LAYOUTS = {"dense": dict(compact=False), "block": dict(compact=True),
+# fit_volume's one layout at its two capacities (a buffer over every block,
+# compact=False; mask_frac of the grid) and voxel-exact
+LAYOUTS = {"full": dict(compact=False), "block": dict(compact=True),
            "voxel": dict(compact=True, block=1)}
 VF_MAPS = ("t2", "k", "sigma", "fun", "converged", "n_iter")
+
+
+def touched_blocks(mask: torch.Tensor, block: int = 32) -> int:
+    """The ``block``-voxel blocks of the flat grid holding a masked voxel."""
+    flat = torch.nn.functional.pad(mask.reshape(-1) > 0, (0, -mask.numel() % block))
+    return int(flat.reshape(-1, block).any(dim=1).sum())
 
 
 def serving_request(n: int, scale: float, seed: int, device: str):
@@ -2595,22 +2604,6 @@ def serving_ms(call, rounds=3, per_round=4):
         times.append((time.perf_counter() - t0) / per_round * 1e3)
         del outs
     return float(np.median(times))
-
-
-def crossover(points):
-    """Mask fraction where the dense layout starts to beat block compaction,
-    by linear interpolation of (block ms - dense ms) over mask_frac (and
-    extrapolation from the nearest two points outside them), clipped to
-    [0, 1]."""
-    points = sorted(points)
-    d = [(mf, blk - den) for mf, den, blk in points]
-    for (m0, d0), (m1, d1) in zip(d, d[1:]):
-        if d0 < 0 <= d1 or d0 >= 0 > d1:
-            return float(np.clip(m0 - d0 * (m1 - m0) / (d1 - d0), 0.0, 1.0))
-    (m0, d0), (m1, d1) = (d[-2], d[-1]) if d[-1][1] < 0 else (d[0], d[1])
-    if d1 == d0:
-        return 1.0 if d1 < 0 else 0.0
-    return float(np.clip(m0 - d0 * (m1 - m0) / (d1 - d0), 0.0, 1.0))
 
 
 LAYOUT_COUNTERS = ("volume_layout.compact.launches", "volume_layout.scatter.launches")
@@ -2685,13 +2678,14 @@ def layout_gate(sig, mask, fit: dict, mask_frac: float, block: int, what: str, t
 
 def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
     """fit_volume, the serving path, on 240^3 x 3-TE requests per model:
-    the dense, block (32) and voxel-exact layouts, each for 3 rounds of 4
-    requests; all three bitwise equal per voxel and equal to fit_fused on
-    the gathered voxels; the 22% request gated; launches per request
-    counted from 0 around one compact='auto' request, and one compaction
-    and one scatter of csrc/volume_layout.cu per block-layout request; on
-    the card the layout's kernels bitwise their plain versions on every
-    request and layout, and timed at the ~5% request (gaussian)."""
+    the block layout with a buffer over every block (compact=False), at
+    mask_frac (32) and voxel-exact, each for 3 rounds of 4 requests; all
+    three bitwise equal per voxel and equal to fit_fused on the gathered
+    voxels; the 22% request gated; launches per request counted from 0
+    around one compact='auto' request, and one compaction and one scatter
+    of csrc/volume_layout.cu per request; on the card the layout's kernels
+    bitwise their plain versions on every request and capacity, and timed
+    at the ~5% request (gaussian)."""
     from fetal_t2mapping_tpu_torch.models import volume_fit
 
     launches, times = {}, {}
@@ -2700,29 +2694,29 @@ def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
         model, lo, hi = fit["model"], fit["lo"], fit["hi"]
         kw = dict(model=model, guess=fit["guess"], ftol=fit["ftol"], gtol=fit["gtol"],
                   varpro3=fit["varpro3"], check_capacity=False, device=device)
-        points, text = [], []
+        text = []
         for name, scale in SERVING_MASKS.items():
             sig, mask, t2 = serving_request(n, scale, seed=21, device=device)
-            n_vox = mask.numel()
-            n_blocks = int(volume_fit._count_touched_blocks(mask, n_vox, 32))
-            mask_frac = math.ceil(106 * n_blocks * 32 / n_vox) / 100   # 6% over the touched blocks
+            # 6% over the touched blocks
+            mask_frac = math.ceil(106 * touched_blocks(mask) * 32 / mask.numel()) / 100
             res = {}
             for lay, lk in LAYOUTS.items():
                 before = {c: profiler.counter(c) for c in LAYOUT_COUNTERS}
                 res[lay] = volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac,
                                                  **lk, **kw)
-                want = int(lay != "dense" and device == "cuda")
+                want = int(device == "cuda")
                 for c in LAYOUT_COUNTERS:
                     gate(profiler.counter(c) - before[c] == want,
                          f"serving {fit_name} {name} {lay}: {c} "
                          f"{profiler.counter(c) - before[c]} per request, expected {want}")
-                if lay != "dense" and device == "cuda":
+                if device == "cuda":
                     timed = fit_name == "gaussian" and lay == "block" and name == "5%"
-                    out = layout_gate(sig, mask, fit, mask_frac, lk.get("block", 32),
-                                      f"serving {fit_name} {name} {lay}", timed=timed)
+                    out = layout_gate(sig, mask, fit, 1.0 if lay == "full" else mask_frac,
+                                      lk.get("block", 32), f"serving {fit_name} {name} {lay}",
+                                      timed=timed)
                     layout_ms = out if timed else layout_ms
             _sync()
-            d = res["dense"]
+            d = res["full"]
             n_masked = int(d.n_masked)
             gate(n_masked == int(mask.sum()), f"serving {fit_name} {name}: n_masked {n_masked}")
             for lay, r in res.items():
@@ -2730,7 +2724,7 @@ def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
                      f"{int(r.n_overflow)}")
                 for m in VF_MAPS:
                     gate(torch.equal(getattr(r, m), getattr(d, m)),
-                         f"serving {fit_name} {name}: layout {lay} map {m} differs from dense")
+                         f"serving {fit_name} {name}: layout {lay} map {m} differs from full")
                     gate(not bool(getattr(r, m)[~mask].any()),
                          f"serving {fit_name} {name} {lay}: map {m} not 0 outside the mask")
             ff = fused_fit.fit_fused(sig.reshape(-1, 3)[mask.reshape(-1)], TES3, lo, hi,
@@ -2762,18 +2756,14 @@ def phase13_serving(n: int = SERVING_N, device: str = "cuda"):
                 sig, mask, TES3, lo, hi, mask_frac=mask_frac, **lk, **kw))
                 for lay, lk in LAYOUTS.items()}
             times[(fit_name, name)] = (mask_frac, ms)
-            points.append((mask_frac, ms["dense"], ms["block"]))
-            compact = volume_fit.resolve_compact("auto", model, mask_frac, fit["varpro3"])
-            pick = "block" if compact else "dense"
-            text.append(f"{name} mask ({n_masked} voxels, mask_frac {mask_frac}, auto -> {pick}): "
+            text.append(f"{name} mask ({n_masked} voxels, mask_frac {mask_frac}): "
                         + ", ".join(f"{lay} {t:.3f} ms ({n_masked / t * 1e3:.4g} voxels/s)"
                                     for lay, t in ms.items())
                         + f", median rel T2 err {med_rel:.3e}, converged {conv:.5f}")
             del sig, mask, t2
         print(f"phase 13 serving {fit_name} (fit_volume, {n}^3 x 3 TEs, 3 rounds of 4 "
-              f"requests, bitwise across layouts and with fit_fused): " + "; ".join(text)
-              + f"; dense/block crossover at mask_frac {crossover(points):.3f}; launches per "
-              f"request {launches[fit_name]}", flush=True)
+              f"requests, bitwise across capacities and with fit_fused): " + "; ".join(text)
+              + f"; launches per request {launches[fit_name]}", flush=True)
     if layout_ms is not None:
         print("phase 13 block layout (csrc/volume_layout.cu) at the ~5% request, ms: "
               + ", ".join(f"{k} {v:.4f}" for k, v in layout_ms.items()), flush=True)
@@ -3908,15 +3898,16 @@ def mesh_batch_solvers(mesh, dev: torch.device, n: int) -> str:
 # and the examples (phase 18)
 def volume_fit_rows(mask: np.ndarray, compact: bool, mask_frac: float, block: int) -> np.ndarray:
     """The voxel (flat index) each row of fit_volume's fit batch holds, -1
-    for a filler row, recomputed on the host from the layout's rules: dense,
-    every voxel in order; compacted, the first ``_block_capacity`` blocks of
-    ``block`` voxels that hold a masked voxel, in block order."""
+    for a filler row, recomputed on the host from the layout's rules: the
+    first ``_block_capacity`` blocks of ``block`` voxels that hold a masked
+    voxel, in block order, at ``mask_frac``'s capacity, or without
+    ``compact`` at a capacity of every block."""
     from fetal_t2mapping_tpu_torch.models.volume_fit import _block_capacity
 
     flat = np.asarray(mask, bool).reshape(-1)
     n = flat.size
     if not compact:
-        return np.where(flat, np.arange(n), -1)
+        mask_frac = 1.0
     n_pad = -(-n // block) * block
     sel = np.zeros(n_pad, bool)
     sel[:n] = flat
@@ -3983,8 +3974,7 @@ def phase18a_serving_mesh(n: int = SERVING_N, device: str = "cuda"):
         mask_np = mask.cpu().numpy()
         n_mask = int(mask_np.sum())
         # phase 13's rule, 6% over the touched blocks: 0.30 at 240^3
-        n_blocks = int(volume_fit._count_touched_blocks(mask, mask.numel(), 32))
-        mask_frac = math.ceil(106 * n_blocks * 32 / mask.numel()) / 100
+        mask_frac = math.ceil(106 * touched_blocks(mask) * 32 / mask.numel()) / 100
         conv1 = volume_fit.fit_volume(sig, mask, TES3, lo, hi, mask_frac=mask_frac,
                                       max_iters=10, device=dev, **kw).converged
         conv1 = conv1.cpu().numpy().reshape(-1)

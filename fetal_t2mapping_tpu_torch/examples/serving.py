@@ -2,9 +2,9 @@
 
 The file pipeline (``cli.t2mapping``) reads NIfTIs and writes maps and
 CSVs. A deployment serving many requests keeps the echo stack on the card
-and runs mask compaction (or the dense layout), the fused fit and the map
-scatter there (``models.fit_volume``), with nothing crossing the host link
-but the input upload and whatever maps the caller downloads.
+and runs the block compaction, the fused fit and the map scatter there
+(``models.fit_volume``), with nothing crossing the host link but the
+input upload and whatever maps the caller downloads.
 
 This example makes a brain-like request (an ellipsoid mask over a
 96^3 grid, noise sigma 5) from a seeded numpy generator, serves it and

@@ -7,53 +7,49 @@ echo volume once, selects the masked voxels on the device, runs the fused
 fit (``fused_fit.fit_fused``: the CUDA kernels on a CUDA tensor) and
 builds dense maps there, without a host round trip.
 
-Three layouts give the same per-voxel results (each kernel freezes a voxel
-once it has converged, so grouping never changes an iterate):
+One layout, block compaction: each block of ``block`` (32) consecutive
+flat voxels holding a masked voxel gets the next slot of a fit buffer, in
+ascending block order (a stable partition); the buffer is fitted with a
+trivially convergent filler signal in the blocks' unmasked voxels, and the
+maps are written through the same block -> slot map. ``block=1`` is
+voxel-exact. On a CUDA tensor both halves are hand-written kernels
+(``csrc/volume_layout.cu``: the compaction and the scatter, counted in
+``volume_layout.compact.launches`` and ``volume_layout.scatter.launches``);
+on a CPU tensor their plain versions ``_compact_plain`` / ``_scatter_plain``.
+Each kernel freezes a voxel once it has converged, so the grouping never
+changes an iterate: every block size and capacity gives the same bits.
 
-- dense (``compact=False``): every voxel of the volume is fitted, with a
-  trivially convergent filler signal outside the mask; no partition, no
-  gather, no scatter;
-- block compaction (``compact=True``, ``block`` 32): each block of
-  ``block`` consecutive flat voxels holding a masked voxel gets the next
-  slot of a buffer of static capacity (``mask_frac`` of the volume), in
-  ascending block order (a stable partition); the buffer is fitted with
-  the filler in the blocks' unmasked voxels, and the maps are written
-  through the same block -> slot map. On one device under 'single' the
-  fit stops at the touched blocks' rows: it reads the compaction's count
-  on the device (``fit_fused``'s live-row bound), so the slots past it,
-  which no map reads, are not fitted. On a CUDA tensor both halves are
-  hand-written kernels (``csrc/volume_layout.cu``: the compaction and the
-  scatter, counted in ``volume_layout.compact.launches`` and
-  ``volume_layout.scatter.launches``); on a CPU tensor their plain
-  versions ``_compact_plain`` / ``_scatter_plain``;
-- voxel-exact (``compact=True, block=1``): the same with one voxel per
-  block.
+The buffer has one of two capacities:
 
-``compact='auto'`` picks between dense and block compaction per model from
-the mask fraction (``resolve_compact``), at crossovers measured on an H100
-(``chip_smoke.py`` phase 13; ``PERF.md``). Masked blocks beyond the
-capacity are left unfitted (map 0, converged False) and their masked
-voxels counted in ``n_overflow``. Nothing here reads the device from the
-host, except the optional capacity check (one 4-byte read) and, with
+- ``mask_frac`` of the volume (``compact`` True or 'auto'): masked blocks
+  beyond it are left unfitted (map 0, converged False) and their masked
+  voxels counted in ``n_overflow``; the optional capacity check reads the
+  touched-block count (one 4-byte read) and warns before the fit;
+- every block of the grid (``compact=False``): nothing can overflow, so
+  there is no check and no read.
+
+On one device under 'single' the fit stops at the touched blocks' rows: it
+reads the compaction's count on the device (``fit_fused``'s live-row
+bound), so the slots past it, which no map reads, are not fitted. Nothing
+here reads the device from the host, except the capacity check and, with
 ``strategy='twophase'``, the fit's rounds (one 4-byte read each), both
 through ``profiler.host_read``.
 
 Under a profiler a request records its spans (``utils.profiling``): the
-root ``fit_volume`` (model, layout, grid_voxels, capacity_rows), then
-``fit_volume.prepare`` (arguments, inputs to the device, ``compact``),
-``fit_volume.compact`` or ``fit_volume.dense_select``, for the block
-layout the capacity check ``fit_volume.capacity_check`` with its
-``host_read`` of the compaction's touched-block count, ``fit_fused`` and
-``fit_volume.scatter``.
+root ``fit_volume`` (model, grid_voxels, capacity_rows), then
+``fit_volume.prepare`` (arguments, inputs to the device),
+``fit_volume.compact``, the capacity check ``fit_volume.capacity_check``
+with its ``host_read`` of the compaction's touched-block count,
+``fit_fused`` and ``fit_volume.scatter``.
 
 Over a voxel mesh (``mesh=``, a ``parallel.VoxelMesh``) the compaction,
 filler and scatter stay on the mesh's first device, and only the
-dense batch the layout built is split: padded with filler rows to
-``pad_to_devices`` and fitted by ``fit_fused_sharded``, one contiguous
-shard per mesh entry. The volume is not cut into z slabs, which would leave
-the end shards of an ellipsoidal brain mask nearly empty. Capacity stays
-global, so under 'single' every map, ``n_masked`` and ``n_overflow`` equal
-the single-device call's bitwise; under 'twophase' each shard runs its own
+buffer is split: padded with filler rows to ``pad_to_devices`` and fitted
+by ``fit_fused_sharded``, one contiguous shard per mesh entry. The volume
+is not cut into z slabs, which would leave the end shards of an
+ellipsoidal brain mask nearly empty. Capacity stays global, so under
+'single' every map, ``n_masked`` and ``n_overflow`` equal the
+single-device call's bitwise; under 'twophase' each shard runs its own
 refit rounds.
 """
 
@@ -71,8 +67,7 @@ import torch
 from .. import build
 from ..device import resolve_device
 from ..utils.profiling import NO_SPAN, profiler
-from .fused_fit import (_MAX_TE, fit_fused, resolve_strategy, resolve_varpro3,
-                        validate_fused_args)
+from .fused_fit import _MAX_TE, fit_fused, resolve_strategy, validate_fused_args
 from .solver import FitResult
 
 
@@ -86,33 +81,6 @@ class VolumeFitResult(NamedTuple):
     n_iter: torch.Tensor      # (Z, Y, X) int32
     n_masked: torch.Tensor    # () int32: voxels selected by the mask
     n_overflow: torch.Tensor  # () int32: masked voxels beyond capacity (unfitted)
-
-
-# mask_frac from which the dense layout is as fast as block compaction, per
-# fit: measured on an NVIDIA H100 80GB HBM3 at 700 W over 240^3 x 3-TE
-# requests with ~5%, 22% and ~50% ellipsoid masks, mask_frac 6% above the
-# touched blocks (chip_smoke.py phase 13; PERF.md section 6). The
-# dense layout costs about the same at any mask (every voxel goes through
-# the fits' first pass); compaction grows with the mask. The JAX package's
-# crossovers were measured on a TPU and are not carried over.
-_DENSE_CROSSOVER_FRAC = {"gaussian": 0.30, "gaussian_rician": 0.44, "rician": 0.67}
-_DENSE_CROSSOVER_VARPRO_GR = 0.29
-
-
-def resolve_compact(compact, model: str, mask_frac: float, varpro3=None) -> bool:
-    """Resolve fit_volume's ``compact`` knob ('auto' | bool) -> bool.
-
-    ``varpro3`` mirrors fit_volume's knob (None = env/default): the
-    gaussian_rician VARPRO kernel has its own crossover."""
-    if compact == "auto":
-        if model == "gaussian_rician" and resolve_varpro3(varpro3, model):
-            cross = _DENSE_CROSSOVER_VARPRO_GR
-        else:
-            cross = _DENSE_CROSSOVER_FRAC[model]
-        return float(mask_frac) < cross
-    if isinstance(compact, bool):
-        return compact
-    raise ValueError(f"compact must be 'auto' or a bool; got {compact!r}")
 
 
 def _capacity(n: int, mask_frac: float) -> int:
@@ -132,15 +100,6 @@ def _block_capacity(n: int, mask_frac: float, block: int) -> int:
     return -(-blk_cap // quantum) * quantum
 
 
-def _count_touched_blocks(mask: torch.Tensor, n: int, block: int) -> torch.Tensor:
-    """() int32 device count of the ``block``-voxel blocks holding a masked voxel."""
-    flat = mask.reshape(n) > 0
-    n_pad = -(-n // block) * block
-    if n_pad != n:
-        flat = torch.nn.functional.pad(flat, (0, n_pad - n))
-    return flat.reshape(n_pad // block, block).any(dim=1).sum(dtype=torch.int32)
-
-
 def _min_mask_frac(n: int, n_blocks: int, block: int) -> float:
     """Smallest mask_frac whose _block_capacity covers ``n_blocks`` blocks
     (n_masked / n undercounts: capacity is taken by whole blocks)."""
@@ -153,10 +112,10 @@ def _min_mask_frac(n: int, n_blocks: int, block: int) -> float:
 
 @functools.lru_cache(maxsize=64)
 def _filler_values(te: tuple, lo: tuple, hi: tuple, guess: tuple) -> np.ndarray:
-    """The signal fitted in unmasked voxels of kept blocks and of the dense
-    layout, (T,) float32 on the host: the exact decay at the bound-clamped
-    guess, so it converges in a step or two and its (discarded) fit costs
-    almost nothing."""
+    """The signal fitted in the unmasked voxels of kept blocks and in a
+    mesh's padding rows, (T,) float32 on the host: the exact decay at the
+    bound-clamped guess, so it converges in a step or two and its
+    (discarded) fit costs almost nothing."""
     fk = min(max(guess[0], lo[0], 1.0), hi[0])
     ft2 = min(max(guess[1], lo[1], 1e-3), hi[1])
     te32 = np.asarray(te, np.float32)
@@ -175,17 +134,19 @@ def _filler(te, lo, hi, guess, dev: torch.device) -> torch.Tensor:
     return out
 
 
-def _batch_buffer(rows: int, t_axis: int, dev: torch.device, mesh) -> torch.Tensor:
-    """The (N', T) fit batch, uninitialised: N' = ``rows``, or over a mesh
-    the padded count ``pad_to_devices(rows, mesh)``, whose rows >= rows the
-    caller fills with the filler. The caller writes rows [0, rows); every
-    write is on the caller's stream, which the shards' streams wait for."""
-    n_fit = rows
-    if mesh is not None:
-        from ..parallel.mesh import pad_to_devices
+def _batch_buffer(rows: int, t_axis: int, dev: torch.device, mesh, filler_args) -> torch.Tensor:
+    """The (N', T) fit batch: N' = ``rows``, or over a mesh the padded count
+    ``pad_to_devices(rows, mesh)``, whose rows >= rows hold the filler. The
+    caller writes rows [0, rows); every write is on the caller's stream,
+    which the shards' streams wait for."""
+    if mesh is None:
+        return torch.empty((rows, t_axis), dtype=torch.float32, device=dev)
+    from ..parallel.mesh import pad_to_devices
 
-        n_fit = pad_to_devices(rows, mesh)
-    return torch.empty((n_fit, t_axis), dtype=torch.float32, device=dev)
+    buf = torch.empty((pad_to_devices(rows, mesh), t_axis), dtype=torch.float32, device=dev)
+    if buf.shape[0] != rows:
+        buf[rows:] = _filler(*filler_args, dev)
+    return buf
 
 
 def _fit(batch: torch.Tensor, fit_kw: dict, mesh, row_bound=None) -> FitResult:
@@ -199,38 +160,6 @@ def _fit(batch: torch.Tensor, fit_kw: dict, mesh, row_bound=None) -> FitResult:
     from ..parallel.mesh import fit_fused_sharded
 
     return fit_fused_sharded(batch, mesh=mesh, sync=False, **fit_kw)
-
-
-def _fit_dense(signal, mask, filler_args, fit_kw, mesh) -> VolumeFitResult:
-    """Every voxel through the fit, filler outside the mask; results come
-    back in voxel order and the maps are masked reshapes."""
-    zyx = signal.shape[:3]
-    n = prod(zyx)
-    with profiler.span("fit_volume.dense_select"):
-        sel = mask.reshape(n) > 0
-        filler = _filler(*filler_args, signal.device)
-        flat = signal.reshape(n, signal.shape[3])
-        batch = _batch_buffer(n, signal.shape[3], signal.device, mesh)
-        if batch.shape[0] != n:
-            batch[n:] = filler
-        torch.where(sel[:, None], flat, filler, out=batch[:n])
-    res = _fit(batch, fit_kw, mesh)
-    with profiler.span("fit_volume.scatter"):
-        selz = sel.reshape(zyx)
-        x = res.x[:n]
-
-        def chan(v):
-            return torch.where(selz, v.reshape(zyx), 0)
-
-        sigma = x[:, 2] if x.shape[1] == 3 else torch.zeros_like(x[:, 0])
-        return VolumeFitResult(
-            t2=chan(x[:, 1]), k=chan(x[:, 0]), sigma=chan(sigma), fun=chan(res.fun[:n]),
-            converged=res.converged[:n].reshape(zyx) & selz, n_iter=chan(res.n_iter[:n]),
-            n_masked=sel.sum(dtype=torch.int32),
-            # no capacity to overflow; the filler converges at once, so what
-            # a 'twophase' fit could not refit is masked voxels
-            n_overflow=torch.zeros((), dtype=torch.int32, device=signal.device)
-            + res.n_overflow)
 
 
 # ------------------------------------------------- the block layout's two halves
@@ -370,46 +299,6 @@ def _scatter_cuda(mask, block: int, slot, res: FitResult, counts, zyx) -> Volume
                            n_masked=counts[1], n_overflow=counts[3])
 
 
-def _fit_compact(signal, mask, filler_args, fit_kw, mesh, *, blk_cap: int, block: int,
-                 check_capacity: bool, mask_frac: float) -> VolumeFitResult:
-    """Block compaction: the masked blocks (up to the static capacity of
-    ``blk_cap`` blocks) are gathered in a stable order, fitted, and
-    scattered back through the block -> slot map. On a CUDA tensor both
-    halves are csrc/volume_layout.cu's kernels, on a CPU one their plain
-    versions. With ``check_capacity`` the touched-block count is read
-    (one 4-byte read) between the compaction and the fit's launch. On one
-    device under 'single' the fit takes that count, on the device, as its
-    live-row bound: the slots past the touched blocks are not fitted."""
-    zyx = signal.shape[:3]
-    t_axis = signal.shape[3]
-    n = prod(zyx)
-    rows = blk_cap * block
-    cuda = signal.device.type == "cuda"
-    with profiler.span("fit_volume.compact"):
-        flat_mask = mask.reshape(n)
-        buf = _batch_buffer(rows, t_axis, signal.device, mesh)
-        if buf.shape[0] != rows:
-            buf[rows:] = _filler(*filler_args, signal.device)
-        slot, counts = (_compact_cuda if cuda else _compact_plain)(
-            signal.reshape(n, t_axis), flat_mask, _filler_values(*filler_args), blk_cap,
-            block, buf)
-    if check_capacity:
-        with profiler.span("fit_volume.capacity_check"):
-            n_blocks = profiler.host_read(counts[0])
-            if n_blocks > blk_cap:
-                warnings.warn(
-                    f"mask touches {n_blocks} blocks of {block} voxels but "
-                    f"mask_frac={mask_frac} caps the fit buffer at {blk_cap} "
-                    f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
-                    f"be left unfitted (n_overflow); raise mask_frac to "
-                    f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=3)
-    single = mesh is None and resolve_strategy(fit_kw["strategy"]) == "single"
-    res = _fit(buf, fit_kw, mesh, (counts[0], block) if single else None)
-    with profiler.span("fit_volume.scatter"):
-        return (_scatter_cuda if cuda else _scatter_plain)(flat_mask, block, slot, res,
-                                                           counts, zyx)
-
-
 def _fit_device(mesh, device) -> torch.device:
     """fit_volume's device: ``device`` ('cuda' by default), or with a mesh
     its first device, which a ``device`` given beside it must name."""
@@ -447,22 +336,21 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             ``fused_fit.fit_fused`` (the 'twophase' rounds at their default
             count and block; their host reads are the only ones the call
             makes besides ``check_capacity``'s).
-        mask_frac: static capacity of the compacted buffer as a fraction of
+        mask_frac: static capacity of the block buffer as a fraction of
             the volume. Partially masked blocks take whole-block capacity,
             so budget above the exact masked fraction (the capacity warning
             states what is needed).
         block: compaction granularity in flat voxels; 1 is voxel-exact.
-        compact: 'auto' (default) | bool. False fits every voxel, with the
-            filler outside the mask, and has no capacity to overflow.
-            'auto' goes dense above the model's measured crossover
-            (``resolve_compact``). Per-voxel results are identical.
-        check_capacity: compacted layouts only — count the touched blocks
-            and warn before fitting if they exceed the capacity (one 4-byte
-            read from the device). Pipelined loops pass False and watch
-            ``result.n_overflow``.
-        mesh: a ``parallel.VoxelMesh``: the layout's batch is fitted
-            sharded over it (``fit_fused_sharded``) and everything else runs
-            on ``mesh.devices[0]``. Under 'single' the result equals the
+        compact: 'auto' (default) or True: the buffer holds ``mask_frac``
+            of the volume. False: it holds every block of the grid, so
+            nothing can overflow and ``mask_frac`` and ``check_capacity``
+            are not read. Per-voxel results are identical.
+        check_capacity: count the touched blocks and warn before fitting if
+            they exceed the capacity (one 4-byte read from the device).
+            Pipelined loops pass False and watch ``result.n_overflow``.
+        mesh: a ``parallel.VoxelMesh``: the buffer is fitted sharded over
+            it (``fit_fused_sharded``) and everything else runs on
+            ``mesh.devices[0]``. Under 'single' the result equals the
             single-device call's bitwise; under 'twophase' each shard runs
             its own refit rounds, so the refit part of ``n_overflow`` is
             per shard.
@@ -481,6 +369,8 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             resolve_strategy(strategy)
             if block < 1:
                 raise ValueError(f"block must be >= 1; got {block}")
+            if compact != "auto" and not isinstance(compact, bool):
+                raise ValueError(f"compact must be 'auto' or a bool; got {compact!r}")
             dev = _fit_device(mesh, device)
             signal = torch.as_tensor(signal, dtype=torch.float32, device=dev)
             if signal.dim() != 4:
@@ -489,21 +379,40 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             if tuple(mask.shape) != tuple(signal.shape[:3]):
                 raise ValueError(f"mask {tuple(mask.shape)} != volume grid "
                                  f"{tuple(signal.shape[:3])}")
-            n = prod(signal.shape[:3])
-            compact = resolve_compact(compact, model, mask_frac, varpro3)
-            blk_cap = _block_capacity(n, mask_frac, block) if compact else 0
+            zyx, t_axis = signal.shape[:3], signal.shape[3]
+            n, block = prod(zyx), int(block)
+            if compact is False:         # a buffer over every block: nothing to check
+                mask_frac, check_capacity = 1.0, False
+            blk_cap = _block_capacity(n, mask_frac, block)
+            rows = blk_cap * block
             if request is not NO_SPAN:
-                request.set(layout="block" if compact else "dense", grid_voxels=n,
-                            capacity_rows=blk_cap * block if compact else n)
+                request.set(grid_voxels=n, capacity_rows=rows)
             fit_kw = dict(te=te_t, lo=lo_t, hi=hi_t, model=model, guess=guess_t,
                           max_iters=max_iters, ftol=ftol, gtol=gtol, no_prior=no_prior,
                           strategy=strategy, prefix3=prefix3, varpro3=varpro3,
                           phase1_iters=phase1_iters, tail_frac=tail_frac)
             if mask.dtype not in (torch.bool, torch.uint8):
-                mask = mask > 0      # the layouts read a mask of bytes, nonzero = masked
+                mask = mask > 0      # the layout reads a mask of bytes, nonzero = masked
             filler_args = (te_t, lo_t, hi_t, guess_t)
-        if not compact:
-            return _fit_dense(signal, mask, filler_args, fit_kw, mesh)
-        return _fit_compact(signal, mask, filler_args, fit_kw, mesh, blk_cap=blk_cap,
-                            block=int(block), check_capacity=check_capacity,
-                            mask_frac=mask_frac)
+        cuda = dev.type == "cuda"
+        with profiler.span("fit_volume.compact"):
+            flat_mask = mask.reshape(n)
+            buf = _batch_buffer(rows, t_axis, dev, mesh, filler_args)
+            slot, counts = (_compact_cuda if cuda else _compact_plain)(
+                signal.reshape(n, t_axis), flat_mask, _filler_values(*filler_args), blk_cap,
+                block, buf)
+        if check_capacity:
+            with profiler.span("fit_volume.capacity_check"):
+                n_blocks = profiler.host_read(counts[0])
+                if n_blocks > blk_cap:
+                    warnings.warn(
+                        f"mask touches {n_blocks} blocks of {block} voxels but "
+                        f"mask_frac={mask_frac} caps the fit buffer at {blk_cap} "
+                        f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
+                        f"be left unfitted (n_overflow); raise mask_frac to "
+                        f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=2)
+        single = mesh is None and resolve_strategy(strategy) == "single"
+        res = _fit(buf, fit_kw, mesh, (counts[0], block) if single else None)
+        with profiler.span("fit_volume.scatter"):
+            return (_scatter_cuda if cuda else _scatter_plain)(flat_mask, block, slot, res,
+                                                               counts, zyx)

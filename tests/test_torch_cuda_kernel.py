@@ -476,9 +476,9 @@ def _serving_volume(n, seed):
      ("fit3.launches", "fit3_cont.launches"))])
 def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo, hi, guess,
                                                                 counters):
-    """Every layout of fit_volume on the card launches the model's kernels
-    and gives the bits of fit_fused on the masked voxels alone (a batch of
-    mostly filler for the dense layout)."""
+    """fit_volume on the card, with a buffer over every block, at
+    mask_frac and voxel-exact, launches the model's kernels and gives the
+    bits of fit_fused on the masked voxels alone."""
     from fetal_t2mapping_tpu_torch.models import fit_volume
 
     sig, mask = _serving_volume(40, seed=8)
@@ -509,8 +509,9 @@ def test_fit_volume_on_cuda_is_fit_fused_on_the_gathered_voxels(card, model, lo,
      ("fit3.launches", "fit3_cont.launches"))])
 def test_fit_volume_over_a_two_stream_mesh_is_the_single_call(card, model, lo, hi, guess,
                                                               counters):
-    """fit_volume(mesh=) on two streams of one card: each layout's maps and
-    counts are the single-device call's bits, one launch per shard."""
+    """fit_volume(mesh=) on two streams of one card: at each capacity and
+    block size the maps and counts are the single-device call's bits, one
+    launch per shard."""
     from fetal_t2mapping_tpu_torch.models import fit_volume
     from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
 

@@ -48,7 +48,8 @@ def _request(n=10, seed=0):
 
 
 def _serve(model="gaussian", compact=True, **kw):
-    """One request on the CPU, the block layout's capacity the whole grid."""
+    """One request on the CPU, the block buffer's capacity the whole grid
+    (``compact=False`` sizes it so without a capacity check)."""
     sig, mask = _request()
     lo, hi, guess, _ = FITS[model]
     return fit_volume(sig, mask, TES, lo, hi, model=model, guess=guess, mask_frac=1.0,
@@ -94,12 +95,11 @@ def test_fit_volume_records_its_span_tree(model, layout, check):
     assert {s.request_id for s in spans} == {root.request_id}
     assert {s.thread for s in spans} == {threading.get_ident()}
     kernels = FITS[model][3]
-    select = "fit_volume.compact" if layout == "block" else "fit_volume.dense_select"
     want = {"fit_volume": [None], "fit_volume.prepare": ["fit_volume"],
-            select: ["fit_volume"], "fit_fused": ["fit_volume"],
+            "fit_volume.compact": ["fit_volume"], "fit_fused": ["fit_volume"],
             "fit_fused.resolve": ["fit_fused"], "fit_fused.launch": ["fit_fused"] * len(kernels),
             "fit_volume.scatter": ["fit_volume"]}
-    reads = int(check and layout == "block")     # the dense layout has no capacity
+    reads = int(check and layout == "block")     # compact=False has nothing to check
     if reads:
         # the read is of the compaction's touched-block count, before the fit
         want.update({"fit_volume.capacity_check": ["fit_volume"],
@@ -113,9 +113,9 @@ def test_fit_volume_records_its_span_tree(model, layout, check):
     assert [s.attrs["kernel"] for s in spans if s.name == "fit_fused.launch"] == kernels
     assert sum(s.name == "host_read" for s in spans) == reads
     n = 10 ** 3
-    assert root.attrs["model"] == model and root.attrs["layout"] == layout
+    assert root.attrs["model"] == model and "layout" not in root.attrs
     assert root.attrs["grid_voxels"] == n
-    assert root.attrs["capacity_rows"] == (1024 if layout == "block" else n)
+    assert root.attrs["capacity_rows"] == 1024
     assert all(s.end_ns >= s.start_ns for s in spans)
     assert {s.name for s in spans} <= profiling.SPAN_NAMES
 

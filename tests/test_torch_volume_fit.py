@@ -8,11 +8,14 @@ one kernel (ROADMAP.md): gaussian parameters 1e-3 and objective 1e-2
 relative; 3-parameter k and T2 1e-2 and objective 3e-2; convergence rates
 within 0.01; on identifiable masked voxels (noiseless last echo >= 3
 sigma, bench.py:612). Counts and the zero maps outside the mask are held
-exactly. Inside the port, the three layouts (dense, block compaction,
-voxel-exact) are held bitwise to each other and to ``fit_fused`` on the
-gathered voxels: every fit freezes a voxel once it has converged, so how
-voxels are grouped never changes an iterate.
+exactly. Inside the port, the block layout's capacities and block sizes
+(a buffer over every block, ``compact=False``; ``mask_frac`` of the
+volume; voxel-exact ``block=1``) are held bitwise to each other and to
+``fit_fused`` on the gathered voxels: every fit freezes a voxel once it
+has converged, so how voxels are grouped never changes an iterate.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -21,7 +24,8 @@ import torch
 from fetal_t2mapping_tpu.models import fit_volume as ref_fit_volume
 from fetal_t2mapping_tpu_torch.models import fit_volume
 from fetal_t2mapping_tpu_torch.models.fused_fit import fit_fused, validate_fused_args
-from fetal_t2mapping_tpu_torch.models.volume_fit import _filler, resolve_compact
+from fetal_t2mapping_tpu_torch.models.volume_fit import _filler
+from fetal_t2mapping_tpu_torch.utils.profiling import profiler
 
 torch.set_num_threads(1)
 
@@ -123,7 +127,7 @@ def test_fit_volume_block_matches_voxel_exact():
                                          ("rician", (0.0, 10.0, 1.0), (900.0, 600.0, 100.0))])
 def test_block_filler_converges_quickly_for_3param(model, lo, hi):
     """The filler that fit_volume feeds unmasked voxels of kept blocks (and
-    of the dense layout) is an exact decay at the clamped guess: it must
+    a mesh's padding rows) is an exact decay at the clamped guess: it must
     converge, and within a few iterations, so its fit costs next to
     nothing."""
     te_t, lo_t, hi_t, guess = validate_fused_args(model, TES, lo, hi, None, False)
@@ -181,11 +185,13 @@ def test_fit_volume_validates_shapes():
         fit_volume(sig, mask, TES, LO, HI, block=0, device="cpu")
     with pytest.raises(ValueError, match="unknown strategy"):
         fit_volume(sig, mask, TES, LO, HI, strategy="fastest", device="cpu")
+    with pytest.raises(ValueError, match="compact"):
+        fit_volume(sig, mask, TES, LO, HI, compact="always", device="cpu")
 
 
 def test_fit_volume_dense_matches_compact():
-    """compact=False (every voxel fitted, filler outside the mask) gives
-    the same bits as the compacted layout."""
+    """compact=False (a buffer over every block of the grid) gives the
+    bits of the block layout at mask_frac 1.0."""
     sig, mask, t2, _ = _volume(nz=15, seed=9)
     res_c = fit_volume(sig, mask, TES, LO, HI, max_iters=30, mask_frac=1.0,
                        compact=True, device="cpu")
@@ -198,24 +204,41 @@ def test_fit_volume_dense_matches_compact():
     assert not res_d.converged.numpy()[~mask].any()
 
 
-def test_resolve_compact_auto():
-    """The crossovers measured on the H100 (chip_smoke.py phase 13,
-    PERF.md): compaction below each model's crossover, dense from it on."""
-    from fetal_t2mapping_tpu_torch.models.volume_fit import (_DENSE_CROSSOVER_FRAC,
-                                                             _DENSE_CROSSOVER_VARPRO_GR)
+def test_compact_false_holds_any_mask_without_a_read():
+    """compact=False ignores a mask_frac that could not hold the mask: no
+    capacity check (no host read, no warning), one fit pass bounded at the
+    touched blocks, n_overflow 0, and the maps of a buffer over every block."""
+    sig, mask, _, _ = _volume(nz=15, seed=4)
+    assert mask.mean() > 0.4
+    counters = ("host_reads", "fit_fused.row_bound.launches")
+    before = [profiler.counter(c) for c in counters]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = fit_volume(sig, mask, TES, LO, HI, max_iters=30, mask_frac=0.05, compact=False,
+                         device="cpu")
+    assert [profiler.counter(c) - b for c, b in zip(counters, before)] == [0, 1]
+    assert int(got.n_overflow) == 0 and int(got.n_masked) == int(mask.sum())
+    want = fit_volume(sig, mask, TES, LO, HI, max_iters=30, mask_frac=1.0, compact=True,
+                      device="cpu")
+    for name in MAPS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
-    assert set(_DENSE_CROSSOVER_FRAC) == {"gaussian", "gaussian_rician", "rician"}
-    for model, cross in _DENSE_CROSSOVER_FRAC.items():
-        varpro3 = False if model == "gaussian_rician" else None
-        assert resolve_compact("auto", model, cross - 0.01, varpro3=varpro3) is True
-        assert resolve_compact("auto", model, cross, varpro3=varpro3) is False
-    cross = _DENSE_CROSSOVER_VARPRO_GR
-    assert resolve_compact("auto", "gaussian_rician", cross - 0.01, varpro3=True) is True
-    assert resolve_compact("auto", "gaussian_rician", cross, varpro3=True) is False
-    assert resolve_compact(True, "gaussian", 0.9) is True
-    assert resolve_compact(False, "rician", 0.01) is False
-    with pytest.raises(ValueError, match="compact"):
-        resolve_compact("always", "gaussian", 0.5)
+
+def test_auto_honours_mask_frac_at_any_mask():
+    """compact='auto' takes mask_frac's capacity whatever the model and
+    mask_frac: a mask beyond it warns before the fit and counts its
+    unfitted voxels in n_overflow, as compact=True does."""
+    sig, mask, _, _ = _volume(nz=15, seed=4)
+    for model, lo, hi, guess in (("gaussian", LO, HI, None),
+                                 ("gaussian_rician", LO3, HI3, GUESS3)):
+        kw = dict(model=model, guess=guess, max_iters=8, mask_frac=0.3, device="cpu")
+        with pytest.warns(UserWarning, match="left unfitted"):
+            auto = fit_volume(sig, mask, TES, lo, hi, compact="auto", varpro3=True, **kw)
+        with pytest.warns(UserWarning, match="left unfitted"):
+            block = fit_volume(sig, mask, TES, lo, hi, compact=True, varpro3=True, **kw)
+        assert int(auto.n_overflow) > 0
+        for name in MAPS + ("n_masked", "n_overflow"):
+            assert torch.equal(getattr(auto, name), getattr(block, name)), (model, name)
 
 
 CASES = {
@@ -247,8 +270,9 @@ def test_fit_volume_matches_reference(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_layouts_bitwise_equal_fit_fused(case):
-    """Dense, block and voxel-exact layouts give the same bits, equal to
-    fit_fused on the gathered voxels."""
+    """A buffer over every block (compact=False), block at mask_frac and
+    voxel-exact give the same bits, equal to fit_fused on the gathered
+    voxels."""
     model, lo, hi, guess, _ = CASES[case]
     sig, mask, _, _ = _bench_volume(nz=15, seed=11)
     kw = dict(model=model, guess=guess, ftol=1e-9, gtol=0.0, device="cpu")

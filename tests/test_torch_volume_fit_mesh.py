@@ -4,8 +4,9 @@ fit versions.
 
 Port against port, tolerance none (bitwise): on the ragged 56 x 48 x 48
 stack of the reference's dry run (tilted ellipsoid, 5% holes, uneven
-per-shard counts), every map, ``n_masked`` and ``n_overflow`` of the dense,
-block and voxel-exact layouts under 'single' equal the single-device call's
+per-shard counts), every map, ``n_masked`` and ``n_overflow`` of the block
+layout over every block (``compact=False``, the cases named "dense"), at
+``mask_frac`` and voxel-exact under 'single' equal the single-device call's
 for the three models; under 'twophase' each shard runs its own refit
 rounds, so every voxel its rounds handle equals 'single' and
 ``n_overflow`` equals the count recomputed on the host from the phase-1

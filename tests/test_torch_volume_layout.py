@@ -13,20 +13,23 @@ a capacity that overflows and one larger than the grid's blocks, at 3 and
 4 echoes, and for fits of 2 and 3 parameters. Each benchmark cell's
 request, cut to 24^3, gives the maps of the benchmark's reference fit.
 The block layout's fit stops at the touched blocks' rows (``fit_fused``'s
-live-row bound) and still gives the dense layout's maps; a bounded fit
-keeps the unbounded fit's bits on its live rows and writes the others
-unfitted, at no live row, at the capacity and past it; only the
-single-device 'single' block layout counts a bounded pass.
+live-row bound) and still gives the maps of the legacy layout around an
+unbounded fit; a bounded fit keeps the unbounded fit's bits on its live
+rows and writes the others unfitted, at no live row, at the capacity and
+past it; every single-device 'single' request counts a bounded pass,
+``compact=False`` (a buffer over every block) included, and a mesh or
+'twophase' none.
 
 On the card (marker ``cuda``; ``python3 -m pytest --noconftest
 tests/test_torch_volume_layout.py``) the kernels of
 ``csrc/volume_layout.cu`` are held bitwise against the plain versions on
 the same cases, ``fit_volume`` counts one compaction and one scatter
-launch per block-layout request (also over a mesh, whose padding rows the
-wrapper fills), and the benchmark cells' 240^3 requests give the plain
-layout's buffer and maps. Every fit kernel keeps its bits under a live-row
-bound, and a cell's request without the capacity check (no host read)
-gives the maps of the call with it and of the dense layout. This file
+launch per request (also over a mesh, whose padding rows the
+wrapper fills, and with ``compact=False``), and the benchmark cells' 240^3
+requests give the plain layout's buffer and maps. Every fit kernel keeps
+its bits under a live-row bound, and a cell's request without the
+capacity check (no host read) gives the maps of the call with it and of
+``compact=False``. This file
 imports no JAX.
 """
 
@@ -322,8 +325,8 @@ def _fit_kw(model):
 def test_block_layout_fits_only_the_touched_blocks(model):
     """The block layout's fit stops at the touched blocks' rows (72 of 128
     slots here: 44% of the capacity is never fitted), and its six maps,
-    n_masked and n_overflow are the dense layout's bits; one bounded fit
-    pass is counted."""
+    n_masked and n_overflow are the bits of the legacy layout around the
+    unbounded fit of its whole buffer; one bounded fit pass is counted."""
     signal, mask = _grid("ellipsoid16", 3)
     lo, hi = _box(model)
     blk_cap = volume_fit._block_capacity(mask.numel(), 1.0, 32)
@@ -333,16 +336,17 @@ def test_block_layout_fits_only_the_touched_blocks(model):
     got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=True, mask_frac=1.0,
                                 device="cpu", **_fit_kw(model))
     assert profiler.counter(ROW_BOUND) == before + 1
-    _assert_same_result(got, volume_fit.fit_volume(signal, mask, TES[3], lo, hi,
-                                                   compact=False, device="cpu",
-                                                   **_fit_kw(model)))
+    buf, bidx, nb_sel, mb = _legacy_compact(signal, mask, _filler(3, model), blk_cap, 32)
+    res = fit_fused(buf, TES[3], lo, hi, device="cpu", **_fit_kw(model))
+    _assert_same_result(got, _legacy_scatter(bidx, nb_sel, mb, res, mask, 32))
 
 
 @pytest.mark.parametrize("layout", ["dense", "mesh", "twophase"])
 def test_other_layouts_fit_every_row(layout):
-    """Only the single-device block layout under 'single' bounds its fit:
-    the dense layout, a voxel mesh and 'twophase' count no bounded pass.
-    The mesh's unbounded shards give the bounded block layout's bits."""
+    """A voxel mesh and 'twophase' count no bounded pass: they fit every
+    row. compact=False (a buffer over every block; the case named "dense")
+    is the single-device block layout under 'single' and counts one. It
+    and the mesh give the bits of the bounded block layout at mask_frac 1.0."""
     from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
 
     signal, mask = _grid("ellipsoid16", 3)
@@ -353,9 +357,10 @@ def test_other_layouts_fit_every_row(layout):
         kw["strategy"] = "twophase"
     before = profiler.counter(ROW_BOUND)
     got = volume_fit.fit_volume(signal, mask, TES[3], LO, HI, **kw)
-    assert profiler.counter(ROW_BOUND) == before
-    if layout == "mesh":
-        kw.pop("mesh")
+    assert profiler.counter(ROW_BOUND) == before + (layout == "dense")
+    if layout != "twophase":
+        kw.pop("mesh", None)
+        kw["compact"] = True
         _assert_same_result(got, volume_fit.fit_volume(signal, mask, TES[3], LO, HI, **kw))
     assert int(got.n_masked) == int(mask.sum())
 
@@ -508,8 +513,7 @@ FIT_COUNTERS = {"gaussian": ("gauss_fit.launches",),
 def test_fit_volume_on_cuda_runs_the_layout_kernels(card, model, block):
     """A block-layout request launches one compaction, one fit of its
     model's kernels and one scatter and gives the bits of the legacy
-    layout around fit_fused on its buffer; the dense layout launches no
-    layout kernel."""
+    layout around fit_fused on its buffer; so does compact=False."""
     signal, mask = _grid("ellipsoid16", 3)
     signal, mask = signal.to(card), mask.to(card)
     lo, hi, guess = (LO, HI, None) if model == "gaussian" else (LO3, HI3, GUESS3)
@@ -528,7 +532,8 @@ def test_fit_volume_on_cuda_runs_the_layout_kernels(card, model, block):
     _assert_same_result(got, _legacy_scatter(bidx, nb_sel, mb, res, mask, block))
     before = _counts()
     volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=False, device=card, **kw)
-    assert _counts() == before
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 1]
 
 
 @pytest.mark.cuda
@@ -616,7 +621,7 @@ def test_cell_request_bound_needs_no_host_read(card, cell):
     """A benchmark cell's 240^3 request (its largest mask, mask_frac 0.06)
     without the capacity check: the fit takes the touched-block count on
     the device, no host read is made, and the maps are those of the call
-    with the check and of the dense layout, bit for bit."""
+    with the check and of compact=False, bit for bit."""
     from t2bench import generate, reference, spec
 
     c = spec.load(ROOT, cell)
