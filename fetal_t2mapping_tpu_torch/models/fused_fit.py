@@ -19,7 +19,9 @@ version.
 
 Each fit pass records a ``fit_fused.launch`` span (attribute ``kernel``)
 and each CUDA launch a count in ``<kernel>.launches``, both in
-``utils.profiling.profiler``.
+``utils.profiling.profiler``. A kernel's parameter struct is packed on the
+host once per configuration (``_kernel_params_cached``; each pack counts
+in ``fit_fused.params.packs``) and reused by every later launch.
 
 A fit pass may take a live-row bound (``row_bound``: a () int32 count of
 live blocks on the batch's device, and the rows per block): kernels and
@@ -50,6 +52,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+import struct
 from typing import Dict, Tuple
 
 import numpy as np
@@ -341,6 +344,41 @@ def _fit3_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol) -> np.ndarray:
     tab = dict(_fit3_tables(te, lo, hi, guess), te=np.asarray(te, np.float32),
                tols=np.asarray([ftol, gtol, stall_tol], np.float32))
     return _pack(_FIT3_FIELDS, tab)
+
+
+#: each kernel's parameter struct, by name, and the function that packs it
+_PACKERS = {"gauss": _kernel_params, "gr": _gr_kernel_params, "fit3": _fit3_kernel_params}
+
+
+def _kernel_params_cached(kind: str, te, lo, hi, guess, ftol, gtol, stall_tol) -> np.ndarray:
+    """The struct ``kind`` ('gauss', 'gr' or 'fit3') as its packer gives
+    it for these arguments as Python floats (``guess`` None for 'gauss'),
+    read-only. The arguments are a configuration's, the same on every
+    request, so the struct is packed once per distinct set, off the
+    requests' critical path. The key is the arguments' float64 bits: a
+    float key would take -0.0 for 0.0, which packs other bits."""
+    guess = () if guess is None else guess
+    values = (*te, *lo, *hi, *guess, ftol, gtol, stall_tol)
+    return _packed_params(kind, (len(te), len(lo), len(hi), len(guess)),
+                          struct.pack(f"<{len(values)}d", *values))
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_params(kind: str, sizes: Tuple[int, ...], bits: bytes) -> np.ndarray:
+    """The miss path of ``_kernel_params_cached``: one pack, counted in
+    ``fit_fused.params.packs``. Threads that miss on one key at once may
+    each pack; their arrays are equal."""
+    values = struct.unpack(f"<{len(bits) // 8}d", bits)
+    groups, at = [], 0
+    for size in sizes + (3,):
+        groups.append(values[at:at + size])
+        at += size
+    te, lo, hi, guess, tols = groups
+    profiler.count("fit_fused.params.packs")
+    args = (te, lo, hi) if kind == "gauss" else (te, lo, hi, guess)
+    params = _PACKERS[kind](*args, *tols)
+    params.setflags(write=False)
+    return params
 
 
 # ----------------------------------------------------------- plain versions
@@ -975,7 +1013,7 @@ def _gauss_fit_cuda(signal: torch.Tensor, te, lo, hi, *, max_iters: int,
     ``_gauss_fit_plain``."""
     lib = build.load_lib("gauss_fit")
     n, T = signal.shape
-    params = _kernel_params(te, lo, hi, ftol, gtol, stall_tol)
+    params = _kernel_params_cached("gauss", te, lo, hi, None, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_gauss_params_floats(), "GaussParams")
     dev = signal.device
     out = torch.empty((3, n), dtype=torch.float32, device=dev)   # k, t2, f
@@ -1004,7 +1042,7 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
     with full_budget); same outputs as the plain version."""
     lib = build.load_lib("gr_varpro_fit")
     n, T = signal.shape
-    params = _gr_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
+    params = _kernel_params_cached("gr", te, lo, hi, guess, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_gr_params_floats(), "GrParams")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
@@ -1027,7 +1065,7 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
     """Launch ft2_fit3_multistart (csrc/fit3.cu)."""
     lib = build.load_lib("fit3")
     n, T = signal.shape
-    params = _fit3_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
+    params = _kernel_params_cached("fit3", te, lo, hi, guess, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
@@ -1052,7 +1090,7 @@ def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
         if t.shape != (3, n) or t.dtype != torch.float32 or t.device != signal.device:
             raise ValueError(f"{name} must be (3, {n}) float32 on {signal.device}")
     x0, st0 = x0.contiguous(), st0.contiguous()
-    params = _fit3_kernel_params(te, lo, hi, guess, ftol, gtol, stall_tol)
+    params = _kernel_params_cached("fit3", te, lo, hi, guess, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
