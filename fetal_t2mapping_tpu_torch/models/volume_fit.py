@@ -36,7 +36,9 @@ here reads the device from the host, except the capacity check and, with
 through ``profiler.host_read``.
 
 Under a profiler a request records its spans (``utils.profiling``): the
-root ``fit_volume`` (model, grid_voxels, capacity_rows), then
+root ``fit_volume`` (model, grid_voxels, capacity_rows, and with the
+capacity check live_rows: the rows of the touched blocks the fit runs
+over, from the check's read), then
 ``fit_volume.prepare`` (arguments, inputs to the device),
 ``fit_volume.compact``, the capacity check ``fit_volume.capacity_check``
 with its ``host_read`` of the compaction's touched-block count,
@@ -404,6 +406,8 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
         if check_capacity:
             with profiler.span("fit_volume.capacity_check"):
                 n_blocks = profiler.host_read(counts[0])
+                if request is not NO_SPAN:
+                    request.set(live_rows=min(n_blocks, blk_cap) * block)
                 if n_blocks > blk_cap:
                     warnings.warn(
                         f"mask touches {n_blocks} blocks of {block} voxels but "

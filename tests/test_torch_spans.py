@@ -47,12 +47,12 @@ def _request(n=10, seed=0):
     return sig, zz ** 2 + yy ** 2 + xx ** 2 <= 0.8
 
 
-def _serve(model="gaussian", compact=True, **kw):
-    """One request on the CPU, the block buffer's capacity the whole grid
-    (``compact=False`` sizes it so without a capacity check)."""
+def _serve(model="gaussian", compact=True, mask_frac=1.0, **kw):
+    """One request on the CPU, the block buffer's capacity by default the
+    whole grid (``compact=False`` sizes it so without a capacity check)."""
     sig, mask = _request()
     lo, hi, guess, _ = FITS[model]
-    return fit_volume(sig, mask, TES, lo, hi, model=model, guess=guess, mask_frac=1.0,
+    return fit_volume(sig, mask, TES, lo, hi, model=model, guess=guess, mask_frac=mask_frac,
                       compact=compact, device="cpu", **kw)
 
 
@@ -217,3 +217,39 @@ def test_graphs_read_is_a_counted_host_read():
     assert graphs.read(torch.tensor(True)) is True
     assert graphs.read(torch.tensor(False)) is False
     assert profiler.counter("host_reads") == reads + 2
+
+
+def _touched_blocks(mask, block):
+    flat = np.asarray(mask).reshape(-1)
+    return sum(bool(flat[i:i + block].any()) for i in range(0, flat.size, block))
+
+
+@pytest.mark.parametrize("model,block,mask_frac", [("gaussian", 32, 1.0), ("rician", 32, 1.0),
+                                                   ("gaussian", 8, 1.0), ("gaussian", 32, 0.1)])
+def test_root_span_records_the_live_rows_from_the_capacity_read(model, block, mask_frac):
+    """``live_rows`` on the root: the touched blocks times ``block``, capped
+    at the buffer's capacity (mask_frac 0.1 holds 4 of the request's
+    blocks), taken from the capacity check's one read."""
+    _, mask = _request()
+    touched = _touched_blocks(mask, block)
+    reads = profiler.counter("host_reads")
+    if mask_frac < 1.0:
+        with pytest.warns(UserWarning, match="mask touches"):
+            spans, _ = _recorded(lambda: _serve(model, block=block, mask_frac=mask_frac))
+    else:
+        spans, _ = _recorded(lambda: _serve(model, block=block, mask_frac=mask_frac))
+    root, = [s for s in spans if s.parent_id is None]
+    assert root.attrs["live_rows"] == min(touched * block, root.attrs["capacity_rows"])
+    assert (root.attrs["live_rows"] < touched * block) == (mask_frac < 1.0)
+    assert sum(s.name == "host_read" for s in spans) == 1
+    assert profiler.counter("host_reads") == reads + 1
+
+
+@pytest.mark.parametrize("kw", [dict(check_capacity=False), dict(compact=False)])
+def test_root_span_has_no_live_rows_without_the_capacity_read(kw):
+    reads = profiler.counter("host_reads")
+    spans, _ = _recorded(lambda: _serve(**kw))
+    root, = [s for s in spans if s.parent_id is None]
+    assert "live_rows" not in root.attrs and "capacity_rows" in root.attrs
+    assert not any(s.name == "host_read" for s in spans)
+    assert profiler.counter("host_reads") == reads

@@ -435,6 +435,27 @@ def test_cell_request_is_the_reference_fit(cell):
     assert int(got.n_masked) == it.n_masked > 0 and int(got.n_overflow) == 0
 
 
+def test_adult_cell_request_is_the_reference_fit():
+    """The adult cell's request (tissue layers, CSF's T2 beyond the prior
+    box) cut to 32^3, through ``serve._call`` on the CPU: every map
+    bitwise the reference's, and CSF's T2 on the box's upper bound in
+    both."""
+    from t2bench import reference, serve, serve_adult, spec
+
+    c = spec.load(ROOT, "hf15_rician_adult.serve_adult")
+    c.config["grid"] = [32] * 3
+    c.traffic.update(mask_frac=0.6)
+    it, lab = serve_adult.item_labels(c.config, c.traffic, 2**31 + 26, 3, "cpu")
+    got = serve._call(c.config, c.traffic, "cpu")(it)
+    ref = reference.fit(c.config, it.signal[it.mask])
+    for key in serve.MAPS:
+        _assert_same(getattr(got, key), reference.to_grid(ref[key], it.mask), key)
+    assert int(got.n_masked) == it.n_masked > 0 and int(got.n_overflow) == 0
+    csf = it.mask & (lab == 2)
+    pinned = got.t2[csf] == float(c.config["upper"][1])
+    assert int(csf.sum()) > 100 and float(pinned.double().mean()) > 0.9
+
+
 # ------------------------------------------------------------------ the card
 @pytest.fixture
 def card():
