@@ -39,7 +39,10 @@ request (and ~5% and ~50% ellipsoid masks), its block layout with a
 buffer over every block, at mask_frac and voxel-exact timed, bitwise
 equal to each other and to
 ``fit_fused`` on the gathered voxels, the model's kernels launched once
-per request. Phase 14: N4 bias correction at 240^3 (two card runs bitwise,
+per request, the layout's kernels bitwise their plain versions, and for
+the 3-start multistart the gather's row list the plain list and fit3's
+prefix and in-place continuation over it bitwise their plain versions.
+Phase 14: N4 bias correction at 240^3 (two card runs bitwise,
 card vs CPU at 48^3, the shared-field variant and the stage-2 step), the
 ROI tables on a 240^3 T2 map (card equal to CPU) and the LUT estimate at
 256^3. Phase 15, stage 1 (host code): one 240 x 240 slice read through
@@ -2622,11 +2625,38 @@ def layout_bound(n: int, block: int, rows: int, kept_rows: int, T: int, P: int):
     return bound(compact, 0, FP32_OPS)[0], bound(scatter, 0, FP32_OPS)[0]
 
 
+def fit3_list_gate(buf, fit: dict, list_k, list_p, what: str):
+    """fit3's multistart prefix and continuation over a gathered buffer's
+    row list: the kernels over the gather's list (the continuation in place
+    over the prefix's outputs) bitwise the plain versions over the plain
+    list, the rows not listed included (all 0)."""
+    args = (buf, fit["model"], TES3, fit["lo"], fit["hi"], fit["guess"])
+    kw = dict(ftol=fit["ftol"], gtol=fit["gtol"], stall_tol=max(fit["ftol"], 1e-6))
+    cont = dict(max_iters=60 - PREFIX3, **kw)
+    pre_k = fused_fit._fit3_cuda(*args, max_iters=PREFIX3, row_list=list_k, **kw)
+    pre_p = fused_fit._fit3_plain(*args, max_iters=PREFIX3, row_list=list_p, **kw)
+    cont_p = fused_fit._fit3_cont_plain(*args, *pre_p, row_list=list_p, **cont)
+
+    def same(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+    gate(same(pre_k, pre_p), f"{what}: fit3's prefix over the row list differs from the plain "
+         "version")
+    cont_k = fused_fit._fit3_cont_cuda(*args, *pre_k, row_list=list_k, in_place=True, **cont)
+    gate(same(cont_k, cont_p), f"{what}: fit3's continuation over the row list (in place) "
+         "differs from the plain version")
+
+
 def layout_gate(sig, mask, fit: dict, mask_frac: float, block: int, what: str, timed=False):
     """The block layout's kernels (csrc/volume_layout.cu) against their
     plain versions on one request: the buffer, the block -> slot map and
     the counts, then, from one fit of the buffer, the six maps, n_masked and
-    n_overflow, all bitwise. With ``timed``, the ms a call of each half
+    n_overflow, all bitwise. For a fit that takes a row list (the 3-start
+    multistart) both compactions list the rows: the gather's list, sorted,
+    is the plain list and nothing past counts[2] is written, and fit3's
+    prefix and continuation (in place, as fit_fused runs it) over the
+    gather's list are bitwise their plain versions over the plain list
+    (fit3_list_gate). With ``timed``, the ms a call of each half
     takes back to back (10 calls an event pair, so the host's launch of
     one overlaps the device's work of the last), kernel and plain, and
     their bounds at this request's shape."""
@@ -2639,11 +2669,23 @@ def layout_gate(sig, mask, fit: dict, mask_frac: float, block: int, what: str, t
     blk_cap = volume_fit._block_capacity(n, mask_frac, block)
     flat, fmask = sig.reshape(n, 3), mask.reshape(n)
     bufs = [torch.empty((blk_cap * block, 3), device=sig.device) for _ in range(2)]
-    slot_k, counts_k = volume_fit._compact_cuda(flat, fmask, filler, blk_cap, block, bufs[0])
-    slot_p, counts_p = volume_fit._compact_plain(flat, fmask, filler, blk_cap, block, bufs[1])
+    listed = fused_fit.takes_row_list(fit["model"], fit["varpro3"])
+    lists = [torch.full((blk_cap * block,), -1, dtype=torch.int32, device=sig.device)
+             if listed else None for _ in range(2)]
+    slot_k, counts_k = volume_fit._compact_cuda(flat, fmask, filler, blk_cap, block, bufs[0],
+                                                lists[0])
+    slot_p, counts_p = volume_fit._compact_plain(flat, fmask, filler, blk_cap, block, bufs[1],
+                                                 lists[1])
     gate(torch.equal(bufs[0].view(torch.int32), bufs[1].view(torch.int32))
          and torch.equal(slot_k, slot_p) and torch.equal(counts_k[:3], counts_p),
          f"{what}: the compaction kernel's buffer, slot map or counts differ from the plain version")
+    if listed:
+        kept = int(counts_k[2])
+        gate(torch.equal(torch.sort(lists[0][:kept]).values, lists[1][:kept])
+             and not bool((lists[0][kept:] != -1).any()),
+             f"{what}: the gather's row list ({kept} kept masked voxels) is not the plain list "
+             "or runs past counts[2]")
+        fit3_list_gate(bufs[0], fit, (lists[0], counts_k[2]), (lists[1], counts_p[2]), what)
     res = fused_fit.fit_fused(bufs[0], TES3, fit["lo"], fit["hi"], model=fit["model"],
                               guess=fit["guess"], ftol=fit["ftol"], gtol=fit["gtol"],
                               varpro3=fit["varpro3"], sync=False, device=sig.device)

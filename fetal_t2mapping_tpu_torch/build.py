@@ -66,9 +66,8 @@ SIGNATURES = {
         "ft2_gr_head_iters": [],
         "ft2_rsqrt_probe": [_VP, _I64, _VP, _VP, _VP]},
     "fit3": {
-        "ft2_fit3_multistart": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _I32, _VP],
-        "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _VP, _VP,
-                          _VP, _I32, _VP],
+        "ft2_fit3_multistart": [_VP, _I64, _I32, _I32, _VP, _I32] + [_VP] * 5,
+        "ft2_fit3_cont": [_VP, _I64, _I32, _I32, _VP, _I32] + [_VP] * 9,
         "ft2_fit3_params_floats": [],
         "ft2_fit3_cont_slot_rows": []},
     "conv_s2d": {
@@ -77,7 +76,8 @@ SIGNATURES = {
         "ft2_conv_s2d_geometry": [_VP]},
     "volume_layout": {
         "ft2_layout_work_ints": [_I64, _I32, _I32],
-        "ft2_layout_compact": [_VP, _VP, _I64, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _I64, _VP],
+        "ft2_layout_compact": [_VP, _VP, _I64, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _I64, _VP,
+                               _VP],
         "ft2_layout_scatter": [_VP, _I64, _I32, _VP, _VP, _I64, _I64, _I32, _VP, _I64, _VP,
                                _I64, _VP, _I64, _VP, _I32] + [_VP] * 8},
 }

@@ -48,10 +48,16 @@
 //   gradient pass takes i0e and i1e of one argument in one branch.
 // On the H100 the three starts spread over three threads ran about as fast
 // as the three in one thread: more warps in flight do not help a kernel
-// bound by issue; doing less does. Given a live-row bound (fit_common.cuh's
-// RowBound: the block layout's touched-block count, on the device), the
-// multistart and the sweep fit only the rows before it and write the others
-// unfitted, and the tail drains only what the sweep pushed.
+// bound by issue; doing less does. Given a row list (fit_common.cuh's
+// RowList: the block layout's kept masked voxels, which its gather lists),
+// the multistart and the sweep run densely over the list: a multistart
+// block takes 32 consecutive entries and a sweep thread one, so the filler
+// rows between masked voxels, and the slots past the touched blocks, take
+// no lane; blocks past the list's count exit at once, the tail drains only
+// what the sweep pushed, and a row not listed comes back unfitted (the
+// multistart's entry zeroes its outputs first; the continuation's zeroes
+// them too, unless it runs in place over the multistart's, whose rows not
+// listed are zero already).
 //
 // Numerics follow fused_fit._fit3_plain / _fit3_cont_plain and models/fgh.py
 // op for op: left-to-right echo sums, the grid and bracket constants
@@ -642,36 +648,44 @@ namespace {
 constexpr int kVoxPerBlock = 32;                  // one warp of voxels
 constexpr int kStartThreads = 3 * kVoxPerBlock;   // warp w runs start w
 // One thread per (voxel, start); the block's three warps share 32 voxels.
-// Blocks per SM asked of ptxas, from its register counts without a bound
-// (48-56 at T = 3, up to 72 at T = 8 rician, no spills): 12 blocks (at
-// most 56 registers) at T <= 3, 9 blocks (at most 72) above, so no
-// instance spills (rician at T = 4 spilled 4 bytes under 12). A uniform 9
-// let ptxas take more registers at T = 3 and ran slower on the H100.
+// Blocks per SM asked of ptxas, from its register counts (48-56 at T = 3,
+// up to 72 at T = 8 rician, no spills): 12 blocks (at most 56 registers)
+// at T <= 3, 9 blocks (at most 72) to T = 7 and 8 (at most 80) at T = 8,
+// so no instance spills (rician at T = 4 spilled 4 bytes under 12, and at
+// T = 8 12 bytes under 9 once the kernel took a row list). A uniform 9 let
+// ptxas take more registers at T = 3 and ran slower on the H100.
 template <class Model, int T>
-__global__ void __launch_bounds__(kStartThreads, (T <= 3 ? 12 : 9))
+__global__ void __launch_bounds__(kStartThreads, (T <= 3 ? 12 : T < 8 ? 9 : 8))
 fit3_multistart_kernel(const float* __restrict__ signal, long long n,
-                       const Fit3Params p, int max_iters, const RowBound bound,
+                       const Fit3Params p, int max_iters, const RowList list,
                        float* __restrict__ x_out, float* __restrict__ st_out) {
   __shared__ float cand[3][6][kVoxPerBlock];  // [start][output][voxel]
+  __shared__ long long row_of[kVoxPerBlock];  // the row voxel v writes, or -1
   const int start = threadIdx.x / kVoxPerBlock;
   const int v = threadIdx.x % kVoxPerBlock;
-  const long long i = (long long)blockIdx.x * kVoxPerBlock + v;
-  if (i < n) {
-    // a row past the live bound is not fitted: its three candidates are
-    // the unfitted outputs (all 0), which the argmin keeps. Nothing of the
-    // bound lives across the fit, which runs at the register limit.
-    float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (i < live_rows(bound, n)) {
-      float s[T], ls[T];
-      load_signal<T>(signal, i, s);
-      Model::template prepare<T>(s, ls);
-      run_start<Model, T>(s, ls, p, max_iters, start, out);
-    }
-#pragma unroll
-    for (int c = 0; c < 6; ++c) cand[start][c][v] = out[c];
+  const long long j = (long long)blockIdx.x * kVoxPerBlock + v;  // pass row
+  const long long m = pass_rows(list, n);
+  // past the list's count a block has nothing to write (the entry zeroed it)
+  if ((long long)blockIdx.x * kVoxPerBlock >= m) return;
+  // the buffer row goes through shared memory, so nothing of the list
+  // lives across the fit, which runs at the register limit
+  float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (j < m) {
+    const long long i = pass_row(list, j);
+    if (start == 0) row_of[v] = i;
+    float s[T], ls[T];
+    load_signal<T>(signal, i, s);
+    Model::template prepare<T>(s, ls);
+    run_start<Model, T>(s, ls, p, max_iters, start, out);
+  } else if (start == 0) {
+    row_of[v] = -1;
   }
+#pragma unroll
+  for (int c = 0; c < 6; ++c) cand[start][c][v] = out[c];
   __syncthreads();
-  if (start == 0 && i < n) {
+  if (start == 0) {
+    const long long i = row_of[v];
+    if (i < 0) return;
     const int w = argmin_start(cand[0][3][v], cand[1][3][v], cand[2][3][v]);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -694,21 +708,22 @@ __device__ __forceinline__ void write_result(const Newton<T>& st, long long n, l
 // The continuation's sweep: one thread per voxel enters the loop (x0
 // clipped, f and e evaluated there: the same work on every lane). A voxel
 // that enters converged writes its results; every other one pushes its
-// entered state to the worklist for the tail. Rows past the live bound
-// are written unfitted and never read x0.
+// entered state to the worklist for the tail. With a list, thread j takes
+// listed row j. x0 and st0 may be x_out and st_out (in place): a thread
+// reads its row's x0 before it writes that row, and the tail reads none.
 template <class Model, int T>
 __global__ void __launch_bounds__(kThreads)
 fit3_sweep_kernel(const float* __restrict__ signal, long long n, const Fit3Params p,
-                  int max_iters, const RowBound bound, const float* __restrict__ x0,
-                  const float* __restrict__ st0, float* __restrict__ x_out,
-                  float* __restrict__ st_out, float* __restrict__ rows, int* counters) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long live = live_rows(bound, n);
-  if (i >= live && i < n) write_unfitted3(n, i, x_out, st_out);
-  if ((long long)blockIdx.x * kThreads >= live) return;  // the whole block
+                  int max_iters, const RowList list, const float* x0, const float* st0,
+                  float* x_out, float* st_out, float* __restrict__ rows, int* counters) {
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;  // pass row
+  const long long m = pass_rows(list, n);
+  if ((long long)blockIdx.x * kThreads >= m) return;  // the whole block
   Newton<T> st;
   bool runs = false;
-  if (i < live) {
+  long long i = 0;
+  if (j < m) {
+    i = pass_row(list, j);
     float s[T], ls[T];
     load_signal<T>(signal, i, s);
     Model::template prepare<T>(s, ls);
@@ -760,18 +775,18 @@ fit3_tail_kernel(const float* __restrict__ signal, long long n, const Fit3Params
 }
 
 template <class Model, int T>
-int launch_t(const float* signal, long long n, const Fit3Params& p,
-             int max_iters, const RowBound& bound, const float* x0, const float* st0,
+int launch_t(const float* signal, long long n, const Fit3Params& p, int max_iters,
+             const RowList& list, const float* x0, const float* st0,
              float* x, float* st, float* rows, int* counters, cudaStream_t stream) {
   if (x0 == nullptr) {
     const unsigned blocks = (unsigned)((n + kVoxPerBlock - 1) / kVoxPerBlock);
     fit3_multistart_kernel<Model, T><<<blocks, kStartThreads, 0, stream>>>(
-        signal, n, p, max_iters, bound, x, st);
+        signal, n, p, max_iters, list, x, st);
     return (int)cudaGetLastError();
   }
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   fit3_sweep_kernel<Model, T><<<blocks, kThreads, 0, stream>>>(
-      signal, n, p, max_iters, bound, x0, st0, x, st, rows, counters);
+      signal, n, p, max_iters, list, x0, st0, x, st, rows, counters);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fit3_tail_kernel<Model, T><<<persistent_blocks(fit3_tail_kernel<Model, T>, kThreads),
@@ -782,31 +797,37 @@ int launch_t(const float* signal, long long n, const Fit3Params& p,
 
 template <class Model>
 int launch(const float* signal, long long n, int n_te, const Fit3Params& p,
-           int max_iters, const RowBound& b, const float* x0, const float* st0, float* x,
+           int max_iters, const RowList& l, const float* x0, const float* st0, float* x,
            float* st, float* rows, int* counters, cudaStream_t s) {
   switch (n_te) {
-    case 2: return launch_t<Model, 2>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 3: return launch_t<Model, 3>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 4: return launch_t<Model, 4>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 5: return launch_t<Model, 5>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 6: return launch_t<Model, 6>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 7: return launch_t<Model, 7>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 8: return launch_t<Model, 8>(signal, n, p, max_iters, b, x0, st0, x, st, rows, counters, s);
+    case 2: return launch_t<Model, 2>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    case 3: return launch_t<Model, 3>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    case 4: return launch_t<Model, 4>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    case 5: return launch_t<Model, 5>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    case 6: return launch_t<Model, 6>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    case 7: return launch_t<Model, 7>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    case 8: return launch_t<Model, 8>(signal, n, p, max_iters, l, x0, st0, x, st, rows, counters, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int run(const float* signal, long long n, int n_te, int model,
-        const float* params, int max_iters, const RowBound& b, const float* x0,
-        const float* st0, float* x, float* st, float* rows, int* counters, void* stream) {
+int run(const float* signal, long long n, int n_te, int model, const float* params,
+        int max_iters, const RowList& l, const float* x0, const float* st0, float* x,
+        float* st, float* rows, int* counters, cudaStream_t s) {
   Fit3Params p;
   std::memcpy(&p, params, sizeof(p));
-  if (n <= 0 || (b.live_blocks != nullptr && b.block < 1)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || (l.rows != nullptr && l.count == nullptr) || model < 0 || model > 1)
+    return (int)cudaErrorInvalidValue;
+  // the rows not listed come back unfitted (all 0), or, in place, as the
+  // caller's x0 and st0 have them
+  if (l.rows != nullptr && x != x0) {
+    cudaError_t err = cudaMemsetAsync(x, 0, 3 * n * sizeof(float), s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(st, 0, 3 * n * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   switch (model) {  // fused_fit._MODEL_ID
-    case 0: return launch<GaussRician>(signal, n, n_te, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    case 1: return launch<Rician>(signal, n, n_te, p, max_iters, b, x0, st0, x, st, rows, counters, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return launch<GaussRician>(signal, n, n_te, p, max_iters, l, x0, st0, x, st, rows, counters, s);
+    default: return launch<Rician>(signal, n, n_te, p, max_iters, l, x0, st0, x, st, rows, counters, s);
   }
 }
 
@@ -820,36 +841,41 @@ extern "C" int ft2_fit3_cont_slot_rows() { return kContRows; }
 // signal: (n, n_te) row-major float32 on the device; model: 0
 // gaussian_rician, 1 rician; params: kParamFloats host floats (Fit3Params).
 // x_out, st_out: (3, n) device arrays, rows (k, t2, sigma) and
-// (f, converged 0/1, n_iter). live_blocks: a device int, the count of
-// leading `block`-row blocks to fit (rows past count * block are written
-// unfitted: all 0), or null for every row. Returns cudaGetLastError()
-// after the launch.
+// (f, converged 0/1, n_iter). row_list: null for every row, or device
+// ints of distinct rows below n, of which the first *row_count (a device
+// int) are fitted and every other row is written unfitted (all 0).
+// Returns cudaGetLastError() after the launch.
 extern "C" int ft2_fit3_multistart(const float* signal, long long n, int n_te,
                                    int model, const float* params,
                                    int max_iters, float* x_out, float* st_out,
-                                   const int* live_blocks, int block, void* stream) {
-  return run(signal, n, n_te, model, params, max_iters, RowBound{live_blocks, block},
-             nullptr, nullptr, x_out, st_out, nullptr, nullptr, stream);
+                                   const int* row_list, const int* row_count, void* stream) {
+  return run(signal, n, n_te, model, params, max_iters, RowList{row_list, row_count},
+             nullptr, nullptr, x_out, st_out, nullptr, nullptr,
+             static_cast<cudaStream_t>(stream));
 }
 
 // As ft2_fit3_multistart, resuming one Newton run per voxel from x0 (3, n)
 // with st0 (3, n) = (f, convf, nit) of the multistart prefix's winner; f0
-// is re-evaluated at the clipped x0 (x0 and st0 are not read past the live
-// rows). rows: ft2_fit3_cont_slot_rows() x n device floats of worklist;
-// counters: 2 device ints, zeroed here on `stream`. Two kernels run, the
-// sweep and the tail; returns cudaGetLastError() after the first launch
-// that failed or the last one (0 = launched).
+// is re-evaluated at the clipped x0 (x0 and st0 are read at the rows fitted
+// only). x_out and st_out may be x0 and st0, both or neither: in place,
+// the rows not listed keep x0's and st0's values (the multistart's with
+// the same list wrote them unfitted). rows: ft2_fit3_cont_slot_rows() x n
+// device floats of worklist; counters: 2 device ints, zeroed here on
+// `stream`. Two kernels run, the sweep and the tail; returns
+// cudaGetLastError() after the first launch that failed or the last one
+// (0 = launched).
 extern "C" int ft2_fit3_cont(const float* signal, long long n, int n_te,
                              int model, const float* params, int max_iters,
                              const float* x0, const float* st0, float* x_out,
                              float* st_out, float* rows, int* counters,
-                             const int* live_blocks, int block, void* stream) {
+                             const int* row_list, const int* row_count, void* stream) {
   if (x0 == nullptr || st0 == nullptr || rows == nullptr || counters == nullptr ||
-      n > kMaxWorklist)
+      n > kMaxWorklist || (x0 == x_out) != (st0 == st_out))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =  // the worklist's counters start at zero
-      cudaMemsetAsync(counters, 0, 2 * sizeof(int), static_cast<cudaStream_t>(stream));
+      cudaMemsetAsync(counters, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
-  return run(signal, n, n_te, model, params, max_iters, RowBound{live_blocks, block}, x0,
-             st0, x_out, st_out, rows, counters, stream);
+  return run(signal, n, n_te, model, params, max_iters, RowList{row_list, row_count}, x0,
+             st0, x_out, st_out, rows, counters, s);
 }

@@ -1,8 +1,8 @@
 // Device helpers shared by the fit kernels (gauss_fit.cu, gr_varpro_fit.cu,
 // fit3.cu): NaN-keeping clips, left-to-right echo sums, the weighted
 // log-linear start, the exact T = 3 gaussian_rician interpolant, the bound
-// on a buffer's live rows, and the worklist that compacts the voxels still
-// running into a tail kernel.
+// on a buffer's live rows and the list of the rows to fit, and the
+// worklist that compacts the voxels still running into a tail kernel.
 //
 // Numerics follow fetal_t2mapping_tpu_torch/models/fused_fit.py op for op
 // (which follows the JAX package's kernels): each helper rounds where its
@@ -158,15 +158,40 @@ __device__ __forceinline__ void interp_start_gr(
 // whose first row is past it does nothing else. The launch keeps the
 // buffer's size, so the host reads nothing. Without a count every row is
 // live.
+//
+// gauss_fit.cu and gr_varpro_fit.cu take that bound. fit3.cu takes a
+// RowList instead: the caller knows exactly which rows it will read (the
+// block layout's masked voxels of kept blocks, which its gather lists),
+// and the multistart and continuation fit the listed rows alone, entry j
+// of the list on pass row j (one list entry per lane, so no warp runs the
+// filler between masked voxels), while its C entries write every other
+// row unfitted. Without a list every row is fitted.
 struct RowBound {
   const int* live_blocks;  // device count of live blocks, or null: every row
   int block;               // rows per block
+};
+
+struct RowList {
+  const int* rows;   // device row indices (distinct, < n), or null: no list
+  const int* count;  // device count of the listed entries
 };
 
 __device__ __forceinline__ long long live_rows(const RowBound& bound, long long n) {
   if (bound.live_blocks == nullptr) return n;
   const long long rows = (long long)*bound.live_blocks * bound.block;
   return rows < n ? rows : n;
+}
+
+// The rows a listed pass runs (every row without a list); pass row j fits
+// buffer row pass_row(list, j).
+__device__ __forceinline__ long long pass_rows(const RowList& list, long long n) {
+  if (list.rows == nullptr) return n;
+  const long long count = *list.count;
+  return count < n ? count : n;
+}
+
+__device__ __forceinline__ long long pass_row(const RowList& list, long long j) {
+  return list.rows == nullptr ? j : (long long)list.rows[j];
 }
 
 // An unfitted row of the (3, n) parameter and stats arrays (k, t2, sigma;

@@ -32,7 +32,10 @@
 //   the counts (touched blocks, masked voxels, masked voxels kept).
 // - layout_gather_kernel: one thread per buffer row writes the kept
 //   blocks' echoes, the filler in their unmasked voxels, in voxels past n
-//   on a ragged last block and in slots past the touched count.
+//   on a ragged last block and in slots past the touched count. Asked for
+//   a row list, it also lists each row that takes a kept masked voxel's
+//   echoes (the rows the scatter reads; one atomic per CTA, fit_common.cuh's
+//   push_slot), so a fit can skip the filler (fit3.cu's RowList).
 // - layout_scatter_kernel: one thread per 4 voxels of the grid reads its
 //   block's slot and writes the six maps; a kept masked voxel takes its
 //   fit row, every other voxel 0 / False. It also writes n_overflow.
@@ -44,6 +47,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "fit_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -52,9 +57,10 @@ constexpr int kMaxT = 8;               // fused_fit._MAX_TE
 constexpr int kTileVoxels = 8192;      // a scan tile covers at least this many voxels
 constexpr int kMaxBlocksPerThread = 32;
 constexpr int kVec = 16;               // mask bytes a lane reads at once
-// ints of `work` before the tile states: the counts, then the ticket
+// ints of `work` before the tile states: the counts, the ticket, then the
+// row list's push counter
 constexpr int kHeader = 8;
-enum { kTouched = 0, kMasked = 1, kKept = 2, kOverflow = 3, kTicket = 4 };
+enum { kTouched = 0, kMasked = 1, kKept = 2, kOverflow = 3, kTicket = 4, kListed = 5 };
 // a tile state: (flag << 32) | count, flag 1: the tile's own count,
 // 2: the inclusive prefix of the tiles up to it
 constexpr unsigned long long kOwn = 1ull << 32, kPrefix = 2ull << 32;
@@ -215,22 +221,31 @@ layout_compact_kernel(const uint8_t* __restrict__ mask, long long n, int block, 
 __global__ void __launch_bounds__(kThreads)
 layout_gather_kernel(const float* __restrict__ signal, const uint8_t* __restrict__ mask,
                      int n, int T, int block, int nb, int rows, Filler filler,
-                     const int* __restrict__ list, const int* __restrict__ work,
-                     float* __restrict__ buf) {
+                     const int* __restrict__ list, int* __restrict__ work,
+                     float* __restrict__ buf, int* __restrict__ row_list) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  const int s = (int)((unsigned)r / (unsigned)block);
-  const int j = r - s * block;
-  // slots past the touched count hold untouched blocks (filler) or, past
-  // the last block, block 0 (as the stable partition pads its order)
-  const int b = s < work[kTouched] ? list[s] : s < nb ? -1 : 0;
-  const long long v = (long long)b * block + j;
-  float* out = buf + (long long)r * T;
-  const float* in = signal + v * T;
-  const bool take = b >= 0 && v < n && mask[v];
+  bool listed = false;  // the row takes a kept masked voxel's echoes
+  if (r < rows) {
+    const int s = (int)((unsigned)r / (unsigned)block);
+    const int j = r - s * block;
+    // slots past the touched count hold untouched blocks (filler) or, past
+    // the last block, block 0 (as the stable partition pads its order; the
+    // scatter reads no such row, so none is listed)
+    const int touched = work[kTouched];
+    const int b = s < touched ? list[s] : s < nb ? -1 : 0;
+    const long long v = (long long)b * block + j;
+    float* out = buf + (long long)r * T;
+    const float* in = signal + v * T;
+    const bool take = b >= 0 && v < n && mask[v];
 #pragma unroll
-  for (int t = 0; t < kMaxT; ++t)  // static indices keep the filler in registers
-    if (t < T) out[t] = take ? in[t] : filler.v[t];
+    for (int t = 0; t < kMaxT; ++t)  // static indices keep the filler in registers
+      if (t < T) out[t] = take ? in[t] : filler.v[t];
+    listed = take && s < touched;
+  }
+  if (row_list != nullptr) {  // every thread of the block pushes
+    const int at = ft2::push_slot<kThreads>(listed, work + kListed);
+    if (listed) row_list[at] = r;
+  }
 }
 
 struct FitRows {
@@ -332,13 +347,15 @@ extern "C" int ft2_layout_work_ints(long long n, int block, int blk_cap) {
 // nonzero = masked; filler: T host floats; buf: >= blk_cap * block rows of
 // T floats, rows [0, blk_cap * block) written; slot: ceil(n / block)
 // ints; work: ft2_layout_work_ints(n, block, blk_cap) ints, of which
-// [0, 3) end as (touched blocks, masked voxels, masked voxels kept). A
-// memset and two kernels on `stream`; returns the first CUDA error (0 =
-// launched).
+// [0, 3) end as (touched blocks, masked voxels, masked voxels kept).
+// row_list: null, or >= blk_cap * block device ints, of which the first
+// work[2] end as the buffer rows that took a kept masked voxel's echoes,
+// the rows the scatter reads, in no set order. A memset and two kernels on
+// `stream`; returns the first CUDA error (0 = launched).
 extern "C" int ft2_layout_compact(const float* signal, const unsigned char* mask, long long n,
                                   int T, int block, int blk_cap, const float* filler,
                                   float* buf, int* slot, int* work, long long work_ints,
-                                  void* stream) {
+                                  int* row_list, void* stream) {
   if (!valid_shape(n, block, blk_cap) || T < 1 || T > kMaxT || signal == nullptr ||
       mask == nullptr || filler == nullptr || buf == nullptr || slot == nullptr ||
       work == nullptr)
@@ -359,7 +376,7 @@ extern "C" int ft2_layout_compact(const float* signal, const unsigned char* mask
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   layout_gather_kernel<<<(rows + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      signal, mask, (int)n, T, block, nb, rows, fill, list, work, buf);
+      signal, mask, (int)n, T, block, nb, rows, fill, list, work, buf, row_list);
   return (int)cudaGetLastError();
 }
 

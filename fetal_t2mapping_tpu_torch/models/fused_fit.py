@@ -23,14 +23,23 @@ and each CUDA launch a count in ``<kernel>.launches``, both in
 host once per configuration (``_kernel_params_cached``; each pack counts
 in ``fit_fused.params.packs``) and reused by every later launch.
 
-A fit pass may take a live-row bound (``row_bound``: a () int32 count of
-live blocks on the batch's device, and the rows per block): kernels and
-plain versions alike fit rows [0, min(count * block, N)) only and return
-the rows past it unfitted (parameters, objective, converged and n_iter 0).
-``volume_fit``'s block layout passes its compaction's touched-block
-count, so the slots past the touched blocks, which no map reads, are not
-fitted; the count stays on the device. Each pass launched with a bound
-counts in ``fit_fused.row_bound.launches``.
+A gaussian or VARPRO pass may take a live-row bound (``row_bound``: a ()
+int32 count of live blocks on the batch's device, and the rows per
+block): kernels and plain versions alike fit rows [0, min(count * block,
+N)) only and return the rows past it unfitted (parameters, objective,
+converged and n_iter 0). ``volume_fit``'s block layout passes its
+compaction's touched-block count, so the slots past the touched blocks,
+which no map reads, are not fitted; the count stays on the device. Each
+pass launched with a bound counts in ``fit_fused.row_bound.launches``.
+
+A pass of the 3-start multistart (``fit3.cu``; :func:`takes_row_list`)
+takes a row list instead (``row_list``: int32 row indices and a () int32
+count of its entries, both on the batch's device): it fits the listed
+rows alone, densely, and returns every other row unfitted. ``volume_fit``
+lists the masked voxels of its kept blocks, so neither the slots past the
+touched blocks nor the filler between masked voxels in a touched block
+is fitted. Each pass launched with a list counts in
+``fit_fused.row_list.launches``.
 
 Kernels and plain versions follow the reference op for op — the same
 left-to-right sums over echoes, the same float32 constants (every
@@ -128,6 +137,13 @@ def resolve_varpro3(varpro3, model: str) -> bool:
     if varpro3 is None:
         varpro3 = int(os.environ.get("FT2_FIT3_VARPRO", _VARPRO3_DEFAULT))
     return bool(varpro3)
+
+
+def takes_row_list(model: str, varpro3) -> bool:
+    """Whether a pass of ``model`` runs the 3-start multistart (fit3.cu:
+    rician, or gaussian_rician without VARPRO), which takes a row list
+    where the other fits take a live-row bound."""
+    return model != "gaussian" and not resolve_varpro3(varpro3, model)
 
 
 def resolve_strategy(strategy: str, phase1_iters: int = 10, max_iters: int = 60,
@@ -444,15 +460,27 @@ def _stop_tests(f, f_new, lam, conv, scnt, step_sq, x_sq, pg, *, ftol, gtol,
 
 
 def _rows_bounded(plain):
-    """A plain fit that honours a live-row bound: with ``row_bound`` (count,
-    block) it fits the rows before min(count * block, N) (its (P, N)
-    tensor arguments cut to them) and returns each (..., N) output with
-    the rows past the bound 0 (False); without one, ``plain`` itself."""
+    """A plain fit that honours a live-row bound and a row list: with
+    ``row_list`` (rows, count) it fits rows[:count] (its (P, N) tensor
+    arguments taken at them) and returns each (..., N) output 0 (False)
+    at every other row; else with ``row_bound`` (count, block) it fits the
+    rows before min(count * block, N) (its (P, N) tensor arguments cut to
+    them) and returns each output with the rows past the bound 0; without
+    either, ``plain`` itself."""
     @functools.wraps(plain)
-    def fit(signal, *args, row_bound=None, **kw):
+    def fit(signal, *args, row_bound=None, row_list=None, **kw):
+        n = signal.shape[0]
+        if row_list is not None:
+            rows = row_list[0][:int(row_list[1])].long()
+            args = tuple(a[..., rows] if torch.is_tensor(a) else a for a in args)
+            out = []
+            for t in plain(signal[rows], *args, **kw):
+                full = t.new_zeros(t.shape[:-1] + (n,))
+                full[..., rows] = t
+                out.append(full)
+            return tuple(out)
         if row_bound is None:
             return plain(signal, *args, **kw)
-        n = signal.shape[0]
         live = min(int(row_bound[0]) * int(row_bound[1]), n)
         args = tuple(a[..., :live] if torch.is_tensor(a) else a for a in args)
         return tuple(torch.cat([t, t.new_zeros(t.shape[:-1] + (n - live,))], dim=-1)
@@ -996,6 +1024,22 @@ def _bound_args(row_bound, dev):
     return live.data_ptr(), int(block)
 
 
+def _list_args(row_list, n: int, dev):
+    """A row list as fit3.cu's C entries take it: (pointer to the device
+    rows, pointer to the device count of listed entries), or (None, None)."""
+    if row_list is None:
+        return None, None
+    rows, count = row_list
+    if (rows.dtype != torch.int32 or rows.device != dev or rows.dim() != 1
+            or not rows.is_contiguous() or rows.numel() > n):
+        raise ValueError(f"the row list must be contiguous int32 rows on {dev}, at most "
+                         f"{n}; got {rows.dtype} {tuple(rows.shape)} on {rows.device}")
+    if count.dtype != torch.int32 or count.device != dev or count.numel() != 1:
+        raise ValueError(f"the row list's count must be one int32 on {dev}; got "
+                         f"{count.dtype} {tuple(count.shape)} on {count.device}")
+    return rows.data_ptr(), count.data_ptr()
+
+
 def _worklist(n_rows: int, n: int, dev):
     """Device scratch of a split fit kernel: ``n_rows`` x ``n`` floats of
     worklist (one slot per voxel that may still run after the head) and
@@ -1061,7 +1105,7 @@ def _gr_varpro_fit_cuda(signal: torch.Tensor, te, lo, hi, guess, *,
 
 
 def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
-               max_iters: int, ftol: float, gtol: float, stall_tol: float, row_bound=None):
+               max_iters: int, ftol: float, gtol: float, stall_tol: float, row_list=None):
     """Launch ft2_fit3_multistart (csrc/fit3.cu)."""
     lib = build.load_lib("fit3")
     n, T = signal.shape
@@ -1069,11 +1113,11 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
     dev = signal.device
     out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
-    live, block = _bound_args(row_bound, dev)
+    rows, count = _list_args(row_list, n, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_fit3_multistart(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
-            int(max_iters), out[0].data_ptr(), out[1].data_ptr(), live, block,
+            int(max_iters), out[0].data_ptr(), out[1].data_ptr(), rows, count,
             build.stream(dev))
     build.check_launch(err, "fit3")
     profiler.count("fit3.launches")
@@ -1082,29 +1126,36 @@ def _fit3_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess, *,
 
 def _fit3_cont_cuda(signal: torch.Tensor, model: str, te, lo, hi, guess,
                     x0: torch.Tensor, st0: torch.Tensor, *, max_iters: int,
-                    ftol: float, gtol: float, stall_tol: float, row_bound=None):
-    """Launch ft2_fit3_cont (csrc/fit3.cu: its sweep and tail kernels)."""
+                    ftol: float, gtol: float, stall_tol: float, row_list=None,
+                    in_place: bool = False):
+    """Launch ft2_fit3_cont (csrc/fit3.cu: its sweep and tail kernels).
+    ``in_place``: write the results over x0 and st0 (two contiguous
+    tensors), whose rows not listed are kept: the prefix's, unfitted."""
     lib = build.load_lib("fit3")
     n, T = signal.shape
     for name, t in (("x0", x0), ("st0", st0)):
         if t.shape != (3, n) or t.dtype != torch.float32 or t.device != signal.device:
             raise ValueError(f"{name} must be (3, {n}) float32 on {signal.device}")
-    x0, st0 = x0.contiguous(), st0.contiguous()
     params = _kernel_params_cached("fit3", te, lo, hi, guess, ftol, gtol, stall_tol)
     _check_params(params, lib.ft2_fit3_params_floats(), "Fit3Params")
     dev = signal.device
-    out = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
-    rows, counters = _worklist(lib.ft2_fit3_cont_slot_rows(), n, dev)
-    live, block = _bound_args(row_bound, dev)
+    if in_place:
+        if not (x0.is_contiguous() and st0.is_contiguous()) or x0.data_ptr() == st0.data_ptr():
+            raise ValueError("an in-place continuation takes two distinct contiguous tensors")
+        x, st = x0, st0
+    else:
+        x0, st0 = x0.contiguous(), st0.contiguous()
+        x, st = torch.empty((2, 3, n), dtype=torch.float32, device=dev)
+    slots, counters = _worklist(lib.ft2_fit3_cont_slot_rows(), n, dev)
+    rows, count = _list_args(row_list, n, dev)
     with torch.cuda.device(dev):
         err = lib.ft2_fit3_cont(
             signal.data_ptr(), n, T, _MODEL_ID[model], params.ctypes.data,
-            int(max_iters), x0.data_ptr(), st0.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), rows.data_ptr(), counters.data_ptr(), live, block,
-            build.stream(dev))
+            int(max_iters), x0.data_ptr(), st0.data_ptr(), x.data_ptr(), st.data_ptr(),
+            slots.data_ptr(), counters.data_ptr(), rows, count, build.stream(dev))
     build.check_launch(err, "fit3_cont")
     profiler.count("fit3_cont.launches")
-    return out[0], out[1]
+    return x, st
 
 
 def _check_signal(signal: torch.Tensor, te) -> None:
@@ -1152,9 +1203,13 @@ def _fit3(signal: torch.Tensor, model, te, lo, hi, guess, **kw):
 
 
 def _fit3_cont(signal: torch.Tensor, model, te, lo, hi, guess, x0, st0, **kw):
-    """The multistart continuation on ``signal``'s device."""
+    """The multistart continuation on ``signal``'s device. The kernel runs
+    in place, over x0 and st0; the plain version returns new tensors of
+    the same values."""
     with profiler.span("fit_fused.launch", kernel="fit3_cont"):
         fn, signal = _pick(signal, te, _fit3_cont_cuda, _fit3_cont_plain)
+        if fn is _fit3_cont_cuda:
+            kw["in_place"] = True
         return fn(signal, model, te, lo, hi, guess, x0, st0, **kw)
 
 
@@ -1164,7 +1219,8 @@ def _fit3_pruned(signal: torch.Tensor, model, te, lo, hi, guess, *,
     starts run ``prefix_iters`` iterations, the per-voxel winner is kept,
     and one continuation resumes it for the remaining budget. Two
     launches: the continuation restarts lam and the stall counter, so
-    fusing the two loops would change results."""
+    fusing the two loops would change results. The continuation writes
+    over the prefix's outputs, which nothing else reads."""
     params1, stats1 = _fit3(signal, model, te, lo, hi, guess,
                             max_iters=prefix_iters, **kw)
     return _fit3_cont(signal, model, te, lo, hi, guess, params1, stats1,
@@ -1185,14 +1241,27 @@ def _columns(*cols: torch.Tensor) -> torch.Tensor:
 
 def _fit_pass(signal: torch.Tensor, model: str, te_t, lo_t, hi_t, guess_t, *,
               max_iters: int, ftol: float, gtol: float, no_prior: bool,
-              full_budget: bool, prefix3: int, varpro3: bool, row_bound=None):
-    """One pass of the model's fit over every row of ``signal`` (those
-    before ``row_bound``'s live rows, if given), on its device: (x (N, P),
-    fun, converged (bool), n_iter (int32))."""
-    kw = dict(max_iters=int(max_iters), ftol=float(ftol), gtol=float(gtol),
-              row_bound=row_bound)
-    if row_bound is not None:
-        profiler.count("fit_fused.row_bound.launches")
+              full_budget: bool, prefix3: int, varpro3: bool, row_bound=None,
+              row_list=None):
+    """One pass of the model's fit over every row of ``signal`` (for the
+    3-start multistart those of ``row_list``, if given, else for the other
+    fits those before ``row_bound``'s live rows, if given), on its device:
+    (x (N, P), fun, converged (bool), n_iter (int32))."""
+    kw = dict(max_iters=int(max_iters), ftol=float(ftol), gtol=float(gtol))
+    if takes_row_list(model, varpro3):
+        if row_bound is not None:
+            raise ValueError(f"the 3-start multistart ({model!r}) takes a row list, not a "
+                             "live-row bound")
+        if row_list is not None:
+            kw["row_list"] = row_list
+            profiler.count("fit_fused.row_list.launches")
+    else:
+        if row_list is not None:
+            raise ValueError("a row list is for the 3-start multistart (fit3.cu); "
+                             f"{model!r} with varpro3={bool(varpro3)} takes none")
+        if row_bound is not None:
+            kw["row_bound"] = row_bound
+            profiler.count("fit_fused.row_bound.launches")
     if model == "gaussian":
         k, t2, f, conv, nit = _gauss_fit(
             signal, te_t, lo_t, hi_t, no_prior=bool(no_prior),
@@ -1295,10 +1364,11 @@ def resolve_fused(te, lo, hi, *, model: str, guess, max_iters: int, ftol: float,
     varpro3 = resolve_varpro3(varpro3, model)
     strategy = resolve_strategy(strategy, phase1_iters, max_iters, model, prefix3, varpro3)
 
-    def fit_pass(batch, *, max_iters, prefix3, row_bound=None):
+    def fit_pass(batch, *, max_iters, prefix3, row_bound=None, row_list=None):
         return _fit_pass(batch, model, te_t, lo_t, hi_t, guess_t, max_iters=max_iters,
                          ftol=ftol, gtol=gtol, no_prior=no_prior, full_budget=full_budget,
-                         prefix3=prefix3, varpro3=varpro3, row_bound=row_bound)
+                         prefix3=prefix3, varpro3=varpro3, row_bound=row_bound,
+                         row_list=row_list)
 
     two = dict(phase1_iters=int(phase1_iters), max_iters=int(max_iters), prefix3=prefix3,
                tail_frac=tail_frac, tail_rounds=int(tail_rounds), tail_block=tail_block)
@@ -1306,18 +1376,20 @@ def resolve_fused(te, lo, hi, *, model: str, guess, max_iters: int, ftol: float,
 
 
 def fit_resolved(signal: torch.Tensor, te, fit_pass, strategy: str, two: dict,
-                 row_bound=None) -> FitResult:
+                 row_bound=None, row_list=None) -> FitResult:
     """One batch through a :func:`resolve_fused` configuration, on the
     batch's device and current stream, without waiting for the device
     (but for the 'twophase' rounds' reads). ``row_bound`` bounds a
-    'single' pass's live rows; 'twophase' takes none."""
+    'single' pass's live rows and ``row_list`` lists them; 'twophase'
+    takes neither."""
     _check_signal(signal, te)
     if strategy == "twophase":
-        if row_bound is not None:
-            raise ValueError("a live-row bound is for strategy 'single'; 'twophase' takes none")
+        if row_bound is not None or row_list is not None:
+            raise ValueError("a live-row bound or row list is for strategy 'single'; "
+                             "'twophase' takes none")
         return _fit_twophase(signal, fit_pass, **two)
     x, f, conv, nit = fit_pass(signal, max_iters=two["max_iters"], prefix3=two["prefix3"],
-                               row_bound=row_bound)
+                               row_bound=row_bound, row_list=row_list)
     return FitResult(x=x, fun=f, converged=conv, n_iter=nit, n_overflow=0)
 
 
@@ -1327,7 +1399,7 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
               full_budget: bool = False, prefix3=None, varpro3=None,
               phase1_iters: int = 10, tail_frac=None, tail_rounds: int = 2,
               tail_block=None, sync: bool = True, device="cuda",
-              _row_bound=None) -> FitResult:
+              _row_bound=None, _row_list=None) -> FitResult:
     """Fused fit of every voxel in the batch.
 
     Args:
@@ -1374,7 +1446,13 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
         _row_bound: internal to ``volume_fit``'s block layout: (a () int32
             count of live blocks on the batch's device, rows per block).
             Only rows before count * block are fitted; the others come back
-            unfitted (0, False). 'single' only.
+            unfitted (0, False). 'single' passes of the gaussian and VARPRO
+            fits only.
+        _row_list: internal to ``volume_fit``'s block layout: (int32 rows,
+            a () int32 count of its leading entries, both on the batch's
+            device; the rows distinct and below N). Only the listed rows
+            are fitted; the others come back unfitted. 'single' passes of
+            the 3-start multistart (:func:`takes_row_list`) only.
 
     Returns:
         FitResult with x (N, P), fun, converged (bool), n_iter (int32) and
@@ -1391,7 +1469,7 @@ def fit_fused(signal, te, lo, hi, *, model: str = "gaussian", guess=None,
                 prefix3=prefix3, varpro3=varpro3, phase1_iters=phase1_iters,
                 tail_frac=tail_frac, tail_rounds=tail_rounds, tail_block=tail_block)
             signal = torch.as_tensor(signal, dtype=torch.float32, device=resolve_device(device))
-        result = fit_resolved(signal, te, fit_pass, strategy, two, _row_bound)
+        result = fit_resolved(signal, te, fit_pass, strategy, two, _row_bound, _row_list)
         if sync and signal.device.type == "cuda":
             torch.cuda.current_stream(signal.device).synchronize()
         return result

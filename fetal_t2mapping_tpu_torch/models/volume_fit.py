@@ -9,10 +9,10 @@ builds dense maps there, without a host round trip.
 
 One layout, block compaction: each block of ``block`` (32) consecutive
 flat voxels holding a masked voxel gets the next slot of a fit buffer, in
-ascending block order (a stable partition); the buffer is fitted with a
-trivially convergent filler signal in the blocks' unmasked voxels, and the
-maps are written through the same block -> slot map. ``block=1`` is
-voxel-exact. On a CUDA tensor both halves are hand-written kernels
+ascending block order (a stable partition), with a filler signal in the
+blocks' unmasked voxels (``_filler_values``), and the maps are written
+through the same block -> slot map. ``block=1`` is voxel-exact. On a CUDA
+tensor both halves are hand-written kernels
 (``csrc/volume_layout.cu``: the compaction and the scatter, counted in
 ``volume_layout.compact.launches`` and ``volume_layout.scatter.launches``);
 on a CPU tensor their plain versions ``_compact_plain`` / ``_scatter_plain``.
@@ -30,19 +30,26 @@ The buffer has one of two capacities:
 
 On one device under 'single' the fit stops at the touched blocks' rows: it
 reads the compaction's count on the device (``fit_fused``'s live-row
-bound), so the slots past it, which no map reads, are not fitted. Nothing
-here reads the device from the host, except the capacity check and, with
+bound), so the slots past it, which no map reads, are not fitted. A pass
+of the 3-start multistart (``fused_fit.takes_row_list``: rician, or
+gaussian_rician with ``varpro3`` off, as resolved) takes a row list
+instead: the compaction also lists the buffer rows that take a kept
+masked voxel, the rows the scatter reads, and the fit runs densely over
+that list, so the filler inside the touched blocks is not fitted either. Nothing here reads the
+device from the host, except the capacity check and, with
 ``strategy='twophase'``, the fit's rounds (one 4-byte read each), both
 through ``profiler.host_read``.
 
 Under a profiler a request records its spans (``utils.profiling``): the
 root ``fit_volume`` (model, grid_voxels, capacity_rows, and with the
-capacity check live_rows: the rows of the touched blocks the fit runs
-over, from the check's read), then
+capacity check live_rows, the rows of the touched blocks, and fitted_rows,
+the rows the fit runs over: the row list's length where there is one,
+else live_rows; both from the check's read), then
 ``fit_volume.prepare`` (arguments, inputs to the device),
 ``fit_volume.compact``, the capacity check ``fit_volume.capacity_check``
-with its ``host_read`` of the compaction's touched-block count,
-``fit_fused`` and ``fit_volume.scatter``.
+with its one ``host_read`` of the compaction's touched-block count (under
+a span, of its first three counts: touched blocks, masked voxels, masked
+voxels kept), ``fit_fused`` and ``fit_volume.scatter``.
 
 Over a voxel mesh (``mesh=``, a ``parallel.VoxelMesh``) the compaction,
 filler and scatter stay on the mesh's first device, and only the
@@ -69,7 +76,8 @@ import torch
 from .. import build
 from ..device import resolve_device
 from ..utils.profiling import NO_SPAN, profiler
-from .fused_fit import _MAX_TE, fit_fused, resolve_strategy, validate_fused_args
+from .fused_fit import (_MAX_TE, fit_fused, resolve_strategy, takes_row_list,
+                        validate_fused_args)
 from .solver import FitResult
 
 
@@ -114,10 +122,13 @@ def _min_mask_frac(n: int, n_blocks: int, block: int) -> float:
 
 @functools.lru_cache(maxsize=64)
 def _filler_values(te: tuple, lo: tuple, hi: tuple, guess: tuple) -> np.ndarray:
-    """The signal fitted in the unmasked voxels of kept blocks and in a
-    mesh's padding rows, (T,) float32 on the host: the exact decay at the
-    bound-clamped guess, so it converges in a step or two and its
-    (discarded) fit costs almost nothing."""
+    """The signal in the unmasked voxels of kept blocks and in a mesh's
+    padding rows, (T,) float32 on the host: the exact decay at the
+    bound-clamped guess. No map reads its fit, but it is not cheap under
+    every box: under the 1.5 T rician prior box it runs all 4 prefix
+    iterations of all 3 starts and stops at n_iter 6. So the 3-start
+    multistart on one device does not fit it (the compaction's row list);
+    the gaussian and VARPRO kernels and a mesh still do."""
     fk = min(max(guess[0], lo[0], 1.0), hi[0])
     ft2 = min(max(guess[1], lo[1], 1e-3), hi[1])
     te32 = np.asarray(te, np.float32)
@@ -151,21 +162,22 @@ def _batch_buffer(rows: int, t_axis: int, dev: torch.device, mesh, filler_args) 
     return buf
 
 
-def _fit(batch: torch.Tensor, fit_kw: dict, mesh, row_bound=None) -> FitResult:
+def _fit(batch: torch.Tensor, fit_kw: dict, mesh, row_bound=None, row_list=None) -> FitResult:
     """The fused fit of a device batch, without waiting for the device, on
     its device or sharded over ``mesh``. Its n_overflow is 0 for 'single'
     and a () int32 tensor for 'twophase' (summed over shards).
-    ``row_bound``: fit_fused's live-row bound (one device only)."""
+    ``row_bound``, ``row_list``: fit_fused's live-row bound and row list
+    (one device only)."""
     if mesh is None:
         return fit_fused(batch, sync=False, device=batch.device, _row_bound=row_bound,
-                         **fit_kw)
+                         _row_list=row_list, **fit_kw)
     from ..parallel.mesh import fit_fused_sharded
 
     return fit_fused_sharded(batch, mesh=mesh, sync=False, **fit_kw)
 
 
 # ------------------------------------------------- the block layout's two halves
-def _compact_plain(flat, mask, filler, blk_cap: int, block: int, buf):
+def _compact_plain(flat, mask, filler, blk_cap: int, block: int, buf, row_list=None):
     """Plain version of ``ft2_layout_compact`` (csrc/volume_layout.cu).
 
     ``flat``: (n, T) echoes; ``mask``: (n,), nonzero = masked; ``filler``:
@@ -175,10 +187,12 @@ def _compact_plain(flat, mask, filler, blk_cap: int, block: int, buf):
     takes voxel ``j`` of the slot's block where it is masked, the filler
     elsewhere, past n on a ragged last block and in slots past the touched
     count (slots past the last block hold block 0, as the stable
-    partition's order was padded). Writes ``buf[:blk_cap * block]``;
-    returns (the block -> slot map, (nb,) int32, -1 for a block not in the
-    buffer; counts, (3,) int32: touched blocks, masked voxels, masked
-    voxels kept)."""
+    partition's order was padded). Writes ``buf[:blk_cap * block]`` and,
+    given ``row_list`` (>= blk_cap * block int32), the buffer rows that
+    take a kept masked voxel, the rows the scatter reads, ascending into
+    ``row_list[:counts[2]]``; returns (the block -> slot map, (nb,) int32,
+    -1 for a block not in the buffer; counts, (3,) int32: touched blocks,
+    masked voxels, masked voxels kept)."""
     n = flat.shape[0]
     dev = flat.device
     nb = -(-n // block)
@@ -196,15 +210,19 @@ def _compact_plain(flat, mask, filler, blk_cap: int, block: int, buf):
     torch.where(take[:, None], flat[v.clamp(max=n - 1)],
                 torch.tensor(filler.tolist(), dtype=torch.float32, device=dev),
                 out=buf[:blk_cap * block])
+    if row_list is not None:     # slots past the last block repeat block 0: not read
+        listed = torch.nonzero(take[:min(blk_cap, nb) * block]).reshape(-1)
+        row_list[:listed.numel()] = listed.to(torch.int32)
     counts = torch.stack([touched.sum(dtype=torch.int32), cnt.sum(dtype=torch.int32),
                           (cnt * kept).sum(dtype=torch.int32)])
     return slot, counts
 
 
-def _compact_cuda(flat, mask, filler, blk_cap: int, block: int, buf):
+def _compact_cuda(flat, mask, filler, blk_cap: int, block: int, buf, row_list=None):
     """Launch ``ft2_layout_compact`` (csrc/volume_layout.cu: a memset and
     two kernels) on ``flat``'s device and stream; same outputs as
-    ``_compact_plain``, the counts a view of the kernels' scratch."""
+    ``_compact_plain``, the counts a view of the kernels' scratch, and
+    the same rows in ``row_list[:counts[2]]``, in no set order."""
     lib = build.load_lib("volume_layout")
     n, t_axis = flat.shape
     dev = flat.device
@@ -219,6 +237,11 @@ def _compact_cuda(flat, mask, filler, blk_cap: int, block: int, buf):
             or buf.dim() != 2 or buf.shape[0] < blk_cap * block or buf.shape[1] != t_axis):
         raise ValueError(f"the buffer must be contiguous float32 of >= {blk_cap * block} "
                          f"rows of {t_axis} on {dev}")
+    if row_list is not None and (row_list.dtype != torch.int32 or row_list.device != dev
+                                 or not row_list.is_contiguous()
+                                 or row_list.numel() < blk_cap * block):
+        raise ValueError(f"the row list must be contiguous int32 of >= {blk_cap * block} "
+                         f"entries on {dev}")
     work_ints = lib.ft2_layout_work_ints(n, block, blk_cap)
     if work_ints < 0:
         raise ValueError(f"the block layout takes grids and buffers under 2^31 voxels; got "
@@ -229,7 +252,8 @@ def _compact_cuda(flat, mask, filler, blk_cap: int, block: int, buf):
     with torch.cuda.device(dev):
         err = lib.ft2_layout_compact(
             flat.data_ptr(), mask.data_ptr(), n, t_axis, block, blk_cap, filler.ctypes.data,
-            buf.data_ptr(), slot.data_ptr(), work.data_ptr(), work_ints, build.stream(dev))
+            buf.data_ptr(), slot.data_ptr(), work.data_ptr(), work_ints,
+            None if row_list is None else row_list.data_ptr(), build.stream(dev))
     build.check_launch(err, "volume_layout compact")
     profiler.count("volume_layout.compact.launches")
     return slot, work[:4]
@@ -396,18 +420,27 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
             if mask.dtype not in (torch.bool, torch.uint8):
                 mask = mask > 0      # the layout reads a mask of bytes, nonzero = masked
             filler_args = (te_t, lo_t, hi_t, guess_t)
+            single = mesh is None and resolve_strategy(strategy) == "single"
+            # the 3-start multistart runs over the kept masked voxels alone
+            listed = single and takes_row_list(model, varpro3)
         cuda = dev.type == "cuda"
         with profiler.span("fit_volume.compact"):
             flat_mask = mask.reshape(n)
             buf = _batch_buffer(rows, t_axis, dev, mesh, filler_args)
+            row_list = torch.empty(rows, dtype=torch.int32, device=dev) if listed else None
             slot, counts = (_compact_cuda if cuda else _compact_plain)(
                 signal.reshape(n, t_axis), flat_mask, _filler_values(*filler_args), blk_cap,
-                block, buf)
+                block, buf, row_list)
         if check_capacity:
             with profiler.span("fit_volume.capacity_check"):
-                n_blocks = profiler.host_read(counts[0])
-                if request is not NO_SPAN:
-                    request.set(live_rows=min(n_blocks, blk_cap) * block)
+                # one read; under a span it also takes the kept masked count
+                if request is NO_SPAN:
+                    n_blocks = profiler.host_read(counts[0])
+                else:
+                    n_blocks, _, n_kept = profiler.host_read(counts[:3])
+                    live_rows = min(n_blocks, blk_cap) * block
+                    request.set(live_rows=live_rows,
+                                fitted_rows=n_kept if listed else live_rows)
                 if n_blocks > blk_cap:
                     warnings.warn(
                         f"mask touches {n_blocks} blocks of {block} voxels but "
@@ -415,8 +448,8 @@ def fit_volume(signal, mask, te, lo, hi, *, model: str = "gaussian",
                         f"blocks: masked voxels in {n_blocks - blk_cap} blocks will "
                         f"be left unfitted (n_overflow); raise mask_frac to "
                         f">= {_min_mask_frac(n, n_blocks, block):.6f}", stacklevel=2)
-        single = mesh is None and resolve_strategy(strategy) == "single"
-        res = _fit(buf, fit_kw, mesh, (counts[0], block) if single else None)
+        res = _fit(buf, fit_kw, mesh, (counts[0], block) if single and not listed else None,
+                   (row_list, counts[2]) if listed else None)
         with profiler.span("fit_volume.scatter"):
             return (_scatter_cuda if cuda else _scatter_plain)(flat_mask, block, slot, res,
                                                                counts, zyx)

@@ -24,8 +24,8 @@ device-trace hook.
 - ``profiler.count(name, n)`` / ``profiler.counter(name)``: one locked
   registry of counters (kernel launches, graph captures and replays, host
   reads).
-- ``profiler.host_read(tensor)``: the host's blocking read of a device
-  scalar, as a ``host_read`` span and one ``host_reads`` count.
+- ``profiler.host_read(tensor)``: the host's blocking read of a small
+  device tensor, as a ``host_read`` span and one ``host_reads`` count.
 - ``profiler.stage(name, items=...)``: a ``request`` that also keeps
   per-stage wall-time totals (``stats``, ``as_dict``, ``report``). Stages
   that time device work end in a host read or a synchronise: CUDA launches
@@ -205,12 +205,13 @@ class Profiler:
             return self._counters.get(name, 0)
 
     def host_read(self, value: torch.Tensor):
-        """``value.item()`` of a one-element tensor: on a CUDA tensor the
-        host waits for the device. Recorded as a ``host_read`` span and
-        counted in ``host_reads``."""
+        """``value.item()`` of a one-element tensor, ``value.tolist()`` of a
+        longer one (one copy either way): on a CUDA tensor the host waits
+        for the device. Recorded as a ``host_read`` span and counted in
+        ``host_reads``."""
         with self.span("host_read"):
             self.count("host_reads")
-            return value.item()
+            return value.item() if value.numel() == 1 else value.tolist()
 
     # ------------------------------------------------------------- stages
     @contextlib.contextmanager

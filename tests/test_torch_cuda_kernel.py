@@ -9,10 +9,12 @@ expected to agree to the last bit; the bench.py:638-652 bands are the gate
 (3-parameter fits: k and T2 1e-2, objective 3e-2, convergence 0.01), and
 the split kernels (gr_varpro's head and tail, the continuation's sweep and
 tail, and the gaussian fit's) are held to it bitwise, also on a permuted
-input and a second call. The S2D conv kernel sums in another order than its
-plain version: fp32 within 1e-5 of scale (TF32 off), bf16 within one ulp
-of the element on >= 99.9% of elements and within two ulps of the output's
-largest magnitude everywhere. Stage 2 has no hand kernel: its torch ops on
+input and a second call, and so are both fit3 entries given a row list (at
+2 to 8 echoes; an empty list writes only unfitted rows). The S2D conv
+kernel sums in another order than its plain version: fp32 within 1e-5 of
+scale (TF32 off), bf16 within one ulp of the element on >= 99.9% of
+elements and within two ulps of the output's largest magnitude
+everywhere. Stage 2 has no hand kernel: its torch ops on
 the card are held against the CPU (interp values and coordinate gradients
 1e-5 of scale, nearest equal; TV per slice to the CPU iterate at the card's
 stop or one either side; morphology equal; a short registration's params
@@ -219,6 +221,65 @@ def test_fit3_cont_sweep_and_tail_are_bitwise_the_plain_version(card, model, cas
     torch.cuda.synchronize()
     assert _bitwise(out_k, fused_fit._fit3_cont_plain(s, model, TES3, lo, HI3, GUESS, x0, st0,
                                                       max_iters=56, **_CONT_KW))
+
+
+def _listed(n: int, count: int, dev):
+    """A row list of ``count`` of n rows: the edge rows first, then rows
+    drawn without repeats; entries past the count are -1 (never read)."""
+    rest = np.random.default_rng(count).permutation(np.arange(5, n))[:max(count - 5, 0)]
+    rows = np.full(n, -1, np.int32)
+    rows[:count] = np.concatenate([np.arange(min(count, 5)), rest])[:count]
+    listed = np.zeros(n, bool)
+    listed[rows[:count]] = True
+    return ((torch.from_numpy(rows).to(dev), torch.tensor(count, dtype=torch.int32, device=dev)),
+            torch.from_numpy(listed).to(dev))
+
+
+@pytest.mark.parametrize("t", range(2, 9))
+@pytest.mark.parametrize("model", ["gaussian_rician", "rician"])
+def test_fit3_entries_with_a_row_list_are_the_plain_versions(card, model, t):
+    """Both fit3 C entries given a row list (1001 of 4099 rows: not a
+    multiple of 32), at 2 to 8 echoes: bitwise their plain versions, which
+    equal the launch without the list on the listed rows and are 0
+    elsewhere; the continuation run in place over the prefix's outputs
+    gives the same bits."""
+    tes = tuple(float(v) for v in np.linspace(90.0, 330.0, t))
+    sig, _ = _make_data(4099, tes, seed=t)
+    s = torch.from_numpy(_edge_rows(sig)).to(card)
+    lo = LO3[:2] + (max(LO3[2], 1e-2),)
+    row_list, listed = _listed(4099, 1001, card)
+    pre_k = fused_fit._fit3_cuda(s, model, tes, lo, HI3, GUESS, max_iters=4, row_list=row_list,
+                                 **_CONT_KW)
+    cont_k = fused_fit._fit3_cont_cuda(s, model, tes, lo, HI3, GUESS, *pre_k, max_iters=56,
+                                       row_list=row_list, **_CONT_KW)
+    pre_p = fused_fit._fit3_plain(s, model, tes, lo, HI3, GUESS, max_iters=4,
+                                  row_list=row_list, **_CONT_KW)
+    cont_p = fused_fit._fit3_cont_plain(s, model, tes, lo, HI3, GUESS, *pre_k, max_iters=56,
+                                        row_list=row_list, **_CONT_KW)
+    full = fused_fit._fit3_cuda(s, model, tes, lo, HI3, GUESS, max_iters=4, **_CONT_KW)
+    over = tuple(t.clone() for t in pre_k)
+    cont_i = fused_fit._fit3_cont_cuda(s, model, tes, lo, HI3, GUESS, *over, max_iters=56,
+                                       row_list=row_list, in_place=True, **_CONT_KW)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(cont_i, over))
+    assert _bitwise(pre_k, pre_p) and _bitwise(cont_k, cont_p) and _bitwise(cont_i, cont_k)
+    assert _bitwise(tuple(o[:, listed] for o in pre_k), tuple(o[:, listed] for o in full))
+    assert not any(bool(o[:, ~listed].any()) for o in pre_k + cont_k)
+
+
+@pytest.mark.parametrize("model", ["gaussian_rician", "rician"])
+def test_fit3_entries_with_an_empty_row_list_write_unfitted_rows(card, model):
+    sig, _ = _make_data(4099, TES3, seed=3)
+    s = torch.from_numpy(sig).to(card)
+    lo = LO3[:2] + (max(LO3[2], 1e-2),)
+    row_list, _ = _listed(4099, 0, card)
+    x0 = torch.full((3, 4099), float("nan"), device=card)
+    pre = fused_fit._fit3_cuda(s, model, TES3, lo, HI3, GUESS, max_iters=4, row_list=row_list,
+                               **_CONT_KW)
+    cont = fused_fit._fit3_cont_cuda(s, model, TES3, lo, HI3, GUESS, x0, x0, max_iters=56,
+                                     row_list=row_list, **_CONT_KW)
+    torch.cuda.synchronize()
+    assert not any(bool(o.any()) for o in pre + cont)
 
 
 @pytest.mark.parametrize("kernel", ["gauss", "gr_varpro", "fit3_cont"])

@@ -132,6 +132,34 @@ def test_results_do_not_depend_on_batch_grouping(model, kw):
                            torch.cat([getattr(q, field) for q in parts])), field
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("model", ["gaussian_rician", "rician"])
+@pytest.mark.parametrize("tes", [TES3, TES6])
+def test_plain_fit3_with_a_row_list(model, tes):
+    """The plain multistart and continuation given a row list (77 shuffled
+    rows of 300) carry, on the listed rows, the bits of the fit without the
+    list, and are unfitted (all 0) on every other row."""
+    sig, _ = _make_data(300, tes, seed=11)
+    s = torch.from_numpy(sig)
+    rows = torch.randperm(300, generator=torch.Generator().manual_seed(2))[:77]
+    row_list = (rows.to(torch.int32), torch.tensor(77, dtype=torch.int32))
+    listed = torch.zeros(300, dtype=torch.bool)
+    listed[rows] = True
+    kw = dict(ftol=1e-2, gtol=1e-2, stall_tol=1e-2)
+    pre = port._fit3_plain(s, model, tes, LO, HI, GUESS, max_iters=4, **kw)
+    pre_l = port._fit3_plain(s, model, tes, LO, HI, GUESS, max_iters=4, row_list=row_list, **kw)
+    cont = port._fit3_cont_plain(s, model, tes, LO, HI, GUESS, *pre, max_iters=56, **kw)
+    cont_l = port._fit3_cont_plain(s, model, tes, LO, HI, GUESS, *pre_l, max_iters=56,
+                                   row_list=row_list, **kw)
+    for got, want in zip(pre_l + cont_l, pre + cont):
+        assert got.shape == want.shape == (3, 300)
+        assert torch.equal(_bits(got[:, listed]), _bits(want[:, listed]))
+        assert torch.equal(_bits(got[:, ~listed]), torch.zeros_like(_bits(got[:, ~listed])))
+
+
 def test_varpro_full_budget_changes_no_output():
     sig, _ = _make_data(1024, TES3, seed=7)
     kw = dict(model="gaussian_rician", guess=GUESS, ftol=1e-2, gtol=1e-2, device="cpu")

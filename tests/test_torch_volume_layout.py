@@ -14,11 +14,19 @@ a capacity that overflows and one larger than the grid's blocks, at 3 and
 request, cut to 24^3, gives the maps of the benchmark's reference fit.
 The block layout's fit stops at the touched blocks' rows (``fit_fused``'s
 live-row bound) and still gives the maps of the legacy layout around an
-unbounded fit; a bounded fit keeps the unbounded fit's bits on its live
-rows and writes the others unfitted, at no live row, at the capacity and
-past it; every single-device 'single' request counts a bounded pass,
-``compact=False`` (a buffer over every block) included, and a mesh or
-'twophase' none.
+unbounded fit; a bounded gaussian or VARPRO fit keeps the unbounded fit's
+bits on its live rows and writes the others unfitted, at no live row, at
+the capacity and past it; every single-device 'single' gaussian request
+counts a bounded pass, ``compact=False`` (a buffer over every block)
+included, and a mesh or 'twophase' none. The compaction's row list is
+exactly the rows the scatter reads, ascending, ``counts[2]`` of them; a
+3-start multistart pass given a list (shuffled, or the rows of a bound)
+keeps the unbounded fit's bits on the listed rows and writes the others
+unfitted, and refuses a bound; the gaussian and VARPRO fits and
+'twophase' refuse a list; a request that runs the multistart counts one
+listed pass (a mesh, 'twophase' and ``fit_stack`` none) and gives the maps
+of the same request without the list, and its root span's ``fitted_rows``
+is the kept masked count, read in its one host read.
 
 On the card (marker ``cuda``; ``python3 -m pytest --noconftest
 tests/test_torch_volume_layout.py``) the kernels of
@@ -26,11 +34,14 @@ tests/test_torch_volume_layout.py``) the kernels of
 the same cases, ``fit_volume`` counts one compaction and one scatter
 launch per request (also over a mesh, whose padding rows the
 wrapper fills, and with ``compact=False``), and the benchmark cells' 240^3
-requests give the plain layout's buffer and maps. Every fit kernel keeps
-its bits under a live-row bound, and a cell's request without the
+requests give the plain layout's buffer and maps. Every gaussian and
+VARPRO kernel keeps its bits under a live-row bound, and a cell's request
+without the
 capacity check (no host read) gives the maps of the call with it and of
-``compact=False``. This file
-imports no JAX.
+``compact=False``. The gather's row list, sorted, is the plain list, and
+no entry past ``counts[2]`` is written; the multistart's kernels keep
+their bits under a row list, and a rician cell's 240^3 request gives the
+maps of the request without the list. This file imports no JAX.
 """
 
 import functools
@@ -43,7 +54,7 @@ import pytest
 import torch
 
 from fetal_t2mapping_tpu_torch.models import volume_fit
-from fetal_t2mapping_tpu_torch.models.fused_fit import fit_fused, validate_fused_args
+from fetal_t2mapping_tpu_torch.models.fused_fit import fit_fused, takes_row_list, validate_fused_args
 from fetal_t2mapping_tpu_torch.models.solver import FitResult, _tail_partition
 from fetal_t2mapping_tpu_torch.utils.profiling import profiler
 
@@ -299,16 +310,24 @@ def test_capacity_warning_comes_before_the_fit(monkeypatch):
 
 
 ROW_BOUND = "fit_fused.row_bound.launches"
+ROW_LIST = "fit_fused.row_list.launches"
 
 #: fit_fused's keywords per fit: each fit kernel (rician with its prefix,
-#: gaussian_rician's VARPRO), the multistart alone, and the one-pass kernels
+#: gaussian_rician's VARPRO and its multistart), the multistart alone, and
+#: the one-pass kernels
 FITS = {"gaussian": dict(model="gaussian"),
         "gaussian_full": dict(model="gaussian", full_budget=True),
         "gaussian_rician": dict(model="gaussian_rician", guess=GUESS3, varpro3=True),
         "gaussian_rician_full": dict(model="gaussian_rician", guess=GUESS3, varpro3=True,
                                      full_budget=True),
         "rician": dict(model="rician", guess=GUESS3, prefix3=4),
-        "rician_unpruned": dict(model="rician", guess=GUESS3, prefix3=0)}
+        "rician_unpruned": dict(model="rician", guess=GUESS3, prefix3=0),
+        "gaussian_rician_multistart": dict(model="gaussian_rician", guess=GUESS3,
+                                           varpro3=False)}
+#: the fits that run the 3-start multistart (fit3.cu), which take a row
+#: list, and the others, which take a live-row bound
+FIT3 = ("gaussian_rician_multistart", "rician", "rician_unpruned")
+BOUNDED = tuple(sorted(set(FITS) - set(FIT3)))
 
 
 def _box(model):
@@ -326,16 +345,19 @@ def test_block_layout_fits_only_the_touched_blocks(model):
     """The block layout's fit stops at the touched blocks' rows (72 of 128
     slots here: 44% of the capacity is never fitted), and its six maps,
     n_masked and n_overflow are the bits of the legacy layout around the
-    unbounded fit of its whole buffer; one bounded fit pass is counted."""
+    unbounded fit of its whole buffer; one bounded fit pass is counted
+    (for rician one listed pass, which stops at the kept masked rows)."""
     signal, mask = _grid("ellipsoid16", 3)
     lo, hi = _box(model)
     blk_cap = volume_fit._block_capacity(mask.numel(), 1.0, 32)
     touched = int(mask.reshape(-1, 32).any(dim=1).sum())
     assert touched / blk_cap <= 0.6
-    before = profiler.counter(ROW_BOUND)
+    counters = (ROW_BOUND, ROW_LIST)
+    before = [profiler.counter(c) for c in counters]
     got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=True, mask_frac=1.0,
                                 device="cpu", **_fit_kw(model))
-    assert profiler.counter(ROW_BOUND) == before + 1
+    assert [profiler.counter(c) - b for c, b in zip(counters, before)] == \
+        ([0, 1] if model in FIT3 else [1, 0])
     buf, bidx, nb_sel, mb = _legacy_compact(signal, mask, _filler(3, model), blk_cap, 32)
     res = fit_fused(buf, TES[3], lo, hi, device="cpu", **_fit_kw(model))
     _assert_same_result(got, _legacy_scatter(bidx, nb_sel, mb, res, mask, 32))
@@ -403,9 +425,19 @@ BOUNDS = [(0, 32), (3, 32), (8, 32), (13, 32), (5, 7)]
 
 
 @pytest.mark.parametrize("count,block", BOUNDS)
-@pytest.mark.parametrize("fit", sorted(FITS))
+@pytest.mark.parametrize("fit", BOUNDED)
 def test_fit_fused_row_bound(fit, count, block):
     _check_row_bound(fit, "cpu", 256, count, block)
+
+
+@pytest.mark.parametrize("fit", FIT3)
+def test_fit3_pass_refuses_a_row_bound(fit):
+    """The multistart takes a row list, never a live-row bound."""
+    signal, _ = _unbounded(fit, "cpu", 256)
+    lo, hi = _box(FITS[fit]["model"])
+    with pytest.raises(ValueError, match="not a live-row bound"):
+        fit_fused(signal, TES[3], lo, hi, device="cpu",
+                  _row_bound=(torch.tensor(1, dtype=torch.int32), 32), **_fit_kw(fit))
 
 
 def test_fit_fused_refuses_a_row_bound_with_twophase():
@@ -413,6 +445,202 @@ def test_fit_fused_refuses_a_row_bound_with_twophase():
     with pytest.raises(ValueError, match="twophase"):
         fit_fused(signal, TES[3], LO, HI, strategy="twophase", device="cpu",
                   _row_bound=(torch.tensor(1, dtype=torch.int32), 32))
+
+
+def _plain_layout_with_list(case):
+    """(signal, mask, blk_cap, block, slot, counts, row_list) of a case
+    through ``_compact_plain`` with a row list (its entries -1 before)."""
+    name, t, block, mask_frac = CASES[case]
+    signal, mask = _grid(name, t)
+    n = mask.numel()
+    blk_cap = volume_fit._block_capacity(n, mask_frac, block)
+    buf = torch.empty((blk_cap * block, t))
+    row_list = torch.full((blk_cap * block,), -1, dtype=torch.int32)
+    slot, counts = volume_fit._compact_plain(signal.reshape(n, t), mask.reshape(n), _filler(t),
+                                             blk_cap, block, buf, row_list)
+    want = _layout(case, torch.device("cpu"), volume_fit._compact_plain)
+    _assert_same(buf, want[5], "buffer")
+    _assert_same(slot, want[6], "slot")
+    _assert_same(counts, want[7], "counts")
+    return signal, mask, blk_cap, block, slot, counts, row_list
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_row_list_is_the_rows_the_scatter_reads(case):
+    """The compaction's row list (block 1, 7 and 32; with overflow, and at
+    mask_frac 1.0, the buffer compact=False takes) is exactly the set of
+    buffer rows the plain scatter reads, ascending, counts[2] of them; the
+    buffer, slot map and counts are those of the call without a list."""
+    signal, mask, blk_cap, block, slot, counts, row_list = _plain_layout_with_list(case)
+    count = int(counts[2])
+    listed = row_list[:count].long()
+    assert torch.equal(listed, torch.unique(listed))      # ascending, distinct
+    assert bool((row_list[count:] == -1).all())
+    rows = blk_cap * block
+    # a fit whose k is its row's number + 1: each map voxel names the row read
+    tag = torch.arange(1, rows + 1, dtype=torch.float32)
+    res = FitResult(x=torch.stack([tag, torch.zeros(rows), torch.zeros(rows)], dim=1),
+                    fun=torch.zeros(rows), converged=torch.zeros(rows, dtype=torch.bool),
+                    n_iter=torch.zeros(rows, dtype=torch.int32), n_overflow=0)
+    maps = volume_fit._scatter_plain(mask.reshape(-1), block, slot, res, counts, mask.shape)
+    read = maps.k[maps.k > 0].long() - 1
+    assert torch.equal(torch.sort(read).values, listed)
+    assert count == int(maps.n_masked) - int(maps.n_overflow)
+
+
+def _row_list(n: int, kind, dev):
+    """(rows, count) over n rows: 101 shuffled rows (not a multiple of 32),
+    none, every row shuffled, or for a (count, block) kind the rows a bound
+    of ``count`` blocks of ``block`` rows keeps, ascending; entries past the
+    count are -1 and never read."""
+    if isinstance(kind, tuple):
+        count = min(kind[0] * kind[1], n)
+        perm = torch.arange(n, dtype=torch.int32)
+    else:
+        count = {"subset": 101, "empty": 0, "every_row": n}[kind]
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(n)).to(torch.int32)
+    rows = torch.full((n,), -1, dtype=torch.int32)
+    rows[:count] = perm[:count]
+    return rows.to(dev), torch.tensor(count, dtype=torch.int32, device=dev)
+
+
+def _check_row_list(fit: str, dev: str, n: int, kind):
+    """fit_fused with a row list: the listed rows carry the unbounded fit's
+    bits, every other row 0 / False / 0."""
+    signal, want = _unbounded(fit, dev, n)
+    lo, hi = _box(FITS[fit]["model"])
+    rows, count = _row_list(n, kind, dev)
+    before = profiler.counter(ROW_LIST)
+    got = fit_fused(signal, TES[3], lo, hi, device=dev, _row_list=(rows, count),
+                    **_fit_kw(fit))
+    assert profiler.counter(ROW_LIST) == before + 1
+    listed = torch.zeros(n, dtype=torch.bool, device=dev)
+    listed[rows[:int(count)].long()] = True
+    for name in ("x", "fun", "converged", "n_iter"):
+        g, w = getattr(got, name), getattr(want, name)
+        _assert_same(g[listed], w[listed], name)
+        _assert_same(g[~listed], torch.zeros_like(w[~listed]), f"{name} not listed")
+    assert got.n_overflow == 0
+
+
+#: shuffled lists, and the rows of the live-row bounds as lists
+ROW_LISTS = ["subset", "empty", "every_row"]
+
+
+@pytest.mark.parametrize("kind", ROW_LISTS + BOUNDS)
+@pytest.mark.parametrize("fit", FIT3)
+def test_fit_fused_row_list(fit, kind):
+    _check_row_list(fit, "cpu", 256, kind)
+
+
+@pytest.mark.parametrize("fit,strategy", [("gaussian", "single"), ("gaussian_rician", "single"),
+                                          ("rician", "twophase")])
+def test_row_list_is_for_single_multistart_passes(fit, strategy):
+    """The gaussian and VARPRO fits have no listed pass; 'twophase' takes
+    no list."""
+    signal, _ = _unbounded(fit, "cpu", 256)
+    lo, hi = _box(FITS[fit]["model"])
+    with pytest.raises(ValueError, match="row list"):
+        fit_fused(signal, TES[3], lo, hi, device="cpu", strategy=strategy,
+                  _row_list=_row_list(256, "subset", "cpu"), **_fit_kw(fit))
+
+
+def _without_the_list(monkeypatch):
+    """Make fit_volume's fit drop its row list: the multistart then fits
+    every row of the buffer."""
+    fit = volume_fit._fit
+
+    def unlisted(batch, fit_kw, mesh, row_bound=None, row_list=None):
+        return fit(batch, fit_kw, mesh, row_bound)
+
+    monkeypatch.setattr(volume_fit, "_fit", unlisted)
+
+
+@pytest.mark.parametrize("layout", ["block", "overflow", "every_block"])
+@pytest.mark.parametrize("fit", ["gaussian_rician_multistart", "rician"])
+def test_fit_volume_row_list_keeps_the_maps(monkeypatch, fit, layout):
+    """A request that runs the multistart fits its kept masked voxels
+    alone (one listed pass), and its six maps, n_masked and n_overflow are
+    the bits of the same request fitting every row of its buffer: with
+    the capacity at the whole grid, overflowing, and compact=False."""
+    signal, mask = _grid("ellipsoid16", 3)
+    lo, hi = _box(FITS[fit]["model"])
+    kw = dict(compact=layout != "every_block", mask_frac=0.3 if layout == "overflow" else 1.0,
+              device="cpu", **_fit_kw(fit))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        before = profiler.counter(ROW_LIST)
+        got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, **kw)
+        assert profiler.counter(ROW_LIST) == before + 1
+        _without_the_list(monkeypatch)
+        want = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, **kw)
+        assert profiler.counter(ROW_LIST) == before + 1
+    _assert_same_result(got, want)
+    assert (int(got.n_overflow) > 0) == (layout == "overflow")
+
+
+def _listed_passes(path: str) -> int:
+    """fit_fused.row_list.launches that one request on ``path`` counts."""
+    from fetal_t2mapping_tpu_torch.parallel import voxel_mesh
+
+    signal, mask = _grid("ellipsoid16", 3)
+    fit = path.split(".")[0]
+    lo, hi = _box(FITS[fit]["model"])
+    kw = dict(mask_frac=1.0, device="cpu", **_fit_kw(fit))
+    before = profiler.counter(ROW_LIST)
+    if path.endswith(".fit_stack"):
+        from fetal_t2mapping_tpu_torch.config import FitConfig
+        from fetal_t2mapping_tpu_torch.core.stack import EchoStack
+        from fetal_t2mapping_tpu_torch.core.volume import Volume
+        from fetal_t2mapping_tpu_torch.models.t2map import fit_stack
+
+        sig = signal.numpy()
+        st = EchoStack(sig, mask.numpy(), np.asarray(TES[3], np.float32), Volume(sig[..., 0]))
+        fit_stack(st, FitConfig(model=FITS[fit]["model"], initial_guess=GUESS3, lower=lo,
+                                upper=hi, max_iters=60), device="cpu")
+    else:
+        if path.endswith(".mesh"):
+            kw["mesh"] = voxel_mesh(devices=["cpu"] * 2)
+        if path.endswith(".twophase"):
+            kw["strategy"] = "twophase"
+        volume_fit.fit_volume(signal, mask, TES[3], lo, hi, **kw)
+    return profiler.counter(ROW_LIST) - before
+
+
+@pytest.mark.parametrize("path,passes", [
+    ("rician", 1), ("rician_unpruned", 1), ("gaussian_rician_multistart", 1), ("gaussian", 0),
+    ("gaussian_rician", 0), ("rician.mesh", 0), ("rician.twophase", 0),
+    ("rician.fit_stack", 0)])
+def test_row_list_launches(path, passes):
+    """One listed pass a single-device multistart request; none for the
+    gaussian and VARPRO fits, a mesh, 'twophase' or fit_stack."""
+    assert _listed_passes(path) == passes
+
+
+@pytest.mark.parametrize("fit,mask_frac", [("rician", 1.0), ("rician", 0.3),
+                                           ("gaussian", 1.0)])
+def test_root_span_counts_the_fitted_rows(fit, mask_frac):
+    """The root span's fitted_rows is the kept masked count (the row list's
+    length; the touched blocks' rows for a fit without a list), beside
+    live_rows, read in the request's one host read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    signal, mask = _grid("ellipsoid16", 3)
+    lo, hi = _box(FITS[fit]["model"])
+    last = max((s.span_id for s in profiler.spans()), default=0)
+    with warnings.catch_warnings(), profile(activities=[ProfilerActivity.CPU]):
+        warnings.simplefilter("ignore")
+        got = volume_fit.fit_volume(signal, mask, TES[3], lo, hi, compact=True,
+                                    mask_frac=mask_frac, device="cpu", **_fit_kw(fit))
+    spans = [s for s in profiler.spans() if s.span_id > last]
+    root, = [s for s in spans if s.parent_id is None]
+    assert sum(s.name == "host_read" for s in spans) == 1
+    blk_cap = volume_fit._block_capacity(mask.numel(), mask_frac, 32)
+    touched = int(mask.reshape(-1, 32).any(dim=1).sum())
+    assert root.attrs["live_rows"] == min(touched, blk_cap) * 32
+    kept = int(got.n_masked) - int(got.n_overflow)
+    assert root.attrs["fitted_rows"] == (kept if fit != "gaussian" else root.attrs["live_rows"])
+    assert (kept < int(mask.sum())) == (mask_frac < 1.0)
 
 
 @pytest.mark.parametrize("cell", ["lf055_gauss.serve", "hf15_rician.serve", "lf055_gr.serve"])
@@ -626,14 +854,103 @@ def test_cell_requests_are_the_plain_layout(card, cell):
         del it, buf, res, got, want
 
 
+#: (count, block) over 4096 rows on the card
+CARD_BOUNDS = [(0, 32), (50, 32), (128, 32), (200, 32), (300, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("count,block", [(0, 32), (50, 32), (128, 32), (200, 32), (300, 7)])
-@pytest.mark.parametrize("fit", sorted(FITS))
+@pytest.mark.parametrize("count,block", CARD_BOUNDS)
+@pytest.mark.parametrize("fit", BOUNDED)
 def test_fit_kernels_stop_at_the_row_bound(card, fit, count, block):
-    """Every fit kernel (heads, one-pass kernels, the multistart and the
-    continuation's sweep) with a device live-row bound over 4096 rows: the
-    live rows are the unbounded launch's bits, the rows past them 0."""
+    """Every fit kernel that takes a bound (the heads and one-pass kernels
+    of the gaussian and VARPRO fits) with a device live-row bound over 4096
+    rows: the live rows are the unbounded launch's bits, the rows past
+    them 0."""
     _check_row_bound(fit, "cuda", 4096, count, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gather_lists_the_plain_rows(card, case):
+    """ft2_layout_compact's row list, sorted, is the plain list; no entry
+    past counts[2] is written (the pushes count the kept masked voxels);
+    buffer, slot map and counts as without a list."""
+    want = _plain_layout_with_list(case)
+    name, t, block, mask_frac = CASES[case]
+    signal, mask = _grid(name, t)
+    n = mask.numel()
+    blk_cap = volume_fit._block_capacity(n, mask_frac, block)
+    buf = torch.empty((blk_cap * block, t), device=card)
+    row_list = torch.full((blk_cap * block,), -1, dtype=torch.int32, device=card)
+    slot, counts = volume_fit._compact_cuda(signal.reshape(n, t).to(card),
+                                            mask.reshape(n).to(card), _filler(t), blk_cap,
+                                            block, buf, row_list)
+    torch.cuda.synchronize()
+    plain = _layout(case, torch.device("cpu"), volume_fit._compact_plain)
+    _assert_same(buf, plain[5], "buffer")
+    _assert_same(slot, want[4], "slot")
+    _assert_same(counts[:3], want[5], "counts")
+    count = int(counts[2])
+    _assert_same(torch.sort(row_list[:count]).values, want[6][:count], "row list")
+    assert bool((row_list[count:] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ROW_LISTS + CARD_BOUNDS)
+@pytest.mark.parametrize("fit", FIT3)
+def test_fit3_kernels_fit_only_the_listed_rows(card, fit, kind):
+    """The multistart and the continuation (in place over the prefix)
+    given a device row list over 4096 rows: the listed rows are the
+    unbounded launch's bits, the others 0; an empty list writes only
+    unfitted rows."""
+    _check_row_list(fit, "cuda", 4096, kind)
+
+
+def _cell_kw(c, card):
+    from t2bench import reference
+
+    te, lo, hi, guess = reference.fit_args(c.config)
+    return te, lo, hi, dict(model=c.config["model"], guess=guess,
+                            max_iters=int(c.config["max_iters"]), ftol=float(c.config["ftol"]),
+                            gtol=float(c.config["gtol"]), prefix3=int(c.config["prefix3"]),
+                            varpro3=bool(c.config.get("varpro3", 0)), device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["hf15_rician.serve", "hf15_rician_adult.serve_adult"])
+def test_cell_request_row_list_keeps_the_maps(card, cell, monkeypatch):
+    """A rician cell's 240^3 request fits its kept masked voxels alone (one
+    listed pass) and gives the maps of the request without the list, bit
+    for bit."""
+    from t2bench import generate, serve_adult, spec
+
+    c = spec.load(ROOT, cell)
+    te, lo, hi, kw = _cell_kw(c, card)
+    if cell.endswith("serve_adult"):
+        it, _ = serve_adult.item_labels(c.config, c.traffic, 20260127, 0, card)
+    else:
+        it = generate.item(c.config, c.traffic, 20260127, 0, card)
+    kw["mask_frac"] = float(c.traffic["mask_frac"])
+    before = profiler.counter(ROW_LIST)
+    got = volume_fit.fit_volume(it.signal, it.mask, te, lo, hi, **kw)
+    torch.cuda.synchronize()
+    assert profiler.counter(ROW_LIST) == before + 1
+    _without_the_list(monkeypatch)
+    want = volume_fit.fit_volume(it.signal, it.mask, te, lo, hi, **kw)
+    _assert_same_result(got, want)
+    assert int(got.n_masked) == it.n_masked and int(got.n_overflow) == 0
+
+
+@pytest.mark.cuda
+def test_empty_mask_request_lists_no_row(card):
+    """A rician request on an empty mask: an empty row list, every map 0."""
+    signal, mask = _grid("empty10", 3)
+    got = volume_fit.fit_volume(signal.to(card), mask.to(card), TES[3], LO3, HI3,
+                                mask_frac=0.5, device=card, **_fit_kw("rician"))
+    for name in MAPS:
+        m = getattr(got, name)
+        assert not bool(m.any()), name
+    assert int(got.n_masked) == 0 and int(got.n_overflow) == 0
 
 
 @pytest.mark.cuda
@@ -656,12 +973,13 @@ def test_cell_request_bound_needs_no_host_read(card, cell):
     it = max(items, key=lambda item: item.n_masked)
     del items
     mask_frac = float(c.traffic["mask_frac"])
-    reads, bounded = profiler.counter("host_reads"), profiler.counter(ROW_BOUND)
+    passes = ROW_LIST if takes_row_list(kw["model"], kw["varpro3"]) else ROW_BOUND
+    reads, bounded = profiler.counter("host_reads"), profiler.counter(passes)
     got = volume_fit.fit_volume(it.signal, it.mask, te, lo, hi, mask_frac=mask_frac,
                                 check_capacity=False, **kw)
     torch.cuda.synchronize()
     assert profiler.counter("host_reads") == reads
-    assert profiler.counter(ROW_BOUND) == bounded + 1
+    assert profiler.counter(passes) == bounded + 1
     _assert_same_result(got, volume_fit.fit_volume(it.signal, it.mask, te, lo, hi,
                                                    mask_frac=mask_frac, **kw))
     _assert_same_result(got, volume_fit.fit_volume(it.signal, it.mask, te, lo, hi,
